@@ -19,8 +19,25 @@ Phases, each fatal on failure:
      render limits must sit below;
   5. at the main path's shapes (chunk x n_samples points for the coarse and
      guided passes, chunk x the merged samples per ray for the solar pass),
-     hold each launch against its plain version, time both, and print the
-     `kernels` line.
+     hold each launch against its plain version and time both;
+  6. the table-gradient kernels B2 (dtab_dense) and B3 (dtab_sorted) on the
+     inputs of the hash train step: one backward of the hash configuration
+     (L8 F4 T=2^19, batch 1024, 64 + 64 + 128 samples) through the plain
+     version records the 24 (ids, cotangent) pairs the step hands the table
+     gradient; each is sent to the kernel the router picks and held against
+     the plain version, plus a skewed case (half the rows on 64 ids) for
+     both kernels; B3 must give the same bits twice. Every call is timed
+     (CUDA events, host launches included) beside the plain version, the
+     library call `index_add_` and its bytes bound, and the kernels' own
+     device time is read from torch.profiler;
+  7. the hash train step at full width on a 65,536-ray synthetic scene
+     (seed 0): the same step's table gradient and loss through the kernels
+     and through the plain version agree; one step through the trainer
+     launches B2 3 times and B3 21 times; then 1 warm-up and 10 timed
+     steps;
+  8. the flagship Siren train step (8x512, bf16, batch 1024; no kernel):
+     1 warm-up and 3 timed steps;
+  and print the `kernels` line.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -44,6 +61,17 @@ KERNEL_ATOL = 2e-2  # bf16: sum order may flip one bf16 ulp of an activation
 # same rays differs from it by up to 1.8e-3 and 2.8e-3.
 RENDER_P99 = 1e-3
 RENDER_MAX = 2e-3
+# table gradient, kernel vs plain on the same inputs: max abs error over the
+# largest entry (the step's cotangents are small, so the limit is relative),
+# float32 sums of up to thousands of rows in another order
+DTAB_RTOL = 1e-5
+# the hash step through the kernels vs through the plain version: the
+# cotangents reaching the table differ in their last bits too (the
+# renderer's gathers have atomic backwards), so the table gradient is held
+# to 1e-4 of its largest entry and the loss, a forward quantity, to 1e-6
+STEP_GRAD_RTOL = 1e-4
+STEP_LOSS_RTOL = 1e-6
+BATCH = 1024
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 N_CHECK = 131_072 + 123
@@ -92,7 +120,10 @@ def main():
         from spnerf_torch.ops import _build
         from spnerf_torch.ops import field_eval as fe
         from spnerf_torch.render import build_render_fn, chunk_size
-        from spnerf_torch.utils.synth import fake_batch, flagship_configs
+        from spnerf_torch.models import hashgrid as hg
+        from spnerf_torch.ops import dtab as dt
+        from spnerf_torch.utils.synth import (fake_batch, flagship_configs,
+                                              train_setup)
     except ImportError as e:
         fail(f"the spnerf_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
@@ -107,13 +138,14 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build the path's kernel source
+    # 2. build the path's kernel sources, one nvcc each, in parallel
     t0 = time.time()
-    text = _build.build("field_eval")
+    texts = _build.build_all(["field_eval", "dtab"])
     log(f"build: {time.time() - t0:.1f} s")
-    for line in text.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  field_eval: {line.strip()}")
+    for name, text in texts.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
 
     # 3. the kernel against its plain version at flagship width
     mc, rc = flagship_configs()
@@ -236,7 +268,7 @@ def main():
         f"{kernel_view_ms:.1f} ms of {view_ms:.1f} ms; "
         f"bound {bound_view_ms:.1f} ms")
     a = rec["all"]
-    print(json.dumps({"kernels": [{
+    field_entry = {
         "name": "field_eval",
         "route": "cuda",
         "source": "spnerf_torch/csrc/field_eval.cu",
@@ -257,7 +289,224 @@ def main():
         "ms_per_view": kernel_view_ms,
         "bound_ms_per_view": bound_view_ms,
         "card": card,
-    }]}), flush=True)
+    }
+    del render, view, plain, plain32, model, packed, field, plain_field
+    torch.cuda.empty_cache()
+
+    # 6. the table-gradient kernels on the hash train step's own inputs
+    htr, hdata = train_setup("hash", device=device)
+    hstate = htr.init_state(torch.Generator().manual_seed(0))
+    enc = hstate.model.encoding
+    n_feat = htr.mc.hash_features
+
+    def step_grads(impl):
+        """Loss and table gradient of step 0's batch and draws, with the
+        table gradient through `impl` (None: the kernels)."""
+        enc.dtab_impl = impl
+        hstate.optimizer.zero_grad(set_to_none=True)
+        g = htr.step_generator(0, seed=1)
+        batch = htr.sample_batch(hdata, BATCH, g)
+        loss, _ = htr.loss_fn(hstate, batch, 0, generator=g)
+        loss.backward()
+        enc.dtab_impl = None
+        torch.cuda.synchronize()
+        return loss.detach(), enc.table.grad.clone()
+
+    calls = []  # (ids, ct_fm, t_eff) of every table gradient of the step
+    real_dtab = hg.dtab
+
+    def recording_dtab(ids, ct_fm, t_eff, F, impl=None):
+        calls.append((ids, ct_fm.contiguous(), t_eff))
+        return real_dtab(ids, ct_fm, t_eff, F, impl=impl)
+
+    hg.dtab = recording_dtab
+    try:
+        loss_plain, grad_plain = step_grads("plain")
+    finally:
+        hg.dtab = real_dtab
+    if len(calls) != 3 * htr.mc.hash_levels:
+        fail(f"expected {3 * htr.mc.hash_levels} table gradients per step, "
+             f"recorded {len(calls)}")
+
+    def bound_ms(M, t_eff):
+        return (M * (4 + 4 * n_feat) + n_feat * t_eff * 4) / PEAK_BYTES * 1e3
+
+    kernels = {"dense": dt.dtab_dense, "sorted": dt.dtab_sorted}
+
+    def check(name, ids, ct, t_eff, tag):
+        """Kernel vs plain on one call; returns the max abs error and that
+        error over the largest entry."""
+        out = kernels[name](ids, ct, t_eff)
+        ref = dt.dtab_plain(ids, ct, t_eff)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not (err <= DTAB_RTOL * scale) or not torch.isfinite(out).all():
+            fail(f"dtab_{name} {tag}: max abs err {err} against max "
+                 f"|dtab| {scale}")
+        if name == "sorted":
+            again = kernels[name](ids, ct, t_eff)
+            if not torch.equal(out, again):
+                fail(f"dtab_sorted {tag}: two calls differ")
+        return err, (err / scale if scale else 0.0)
+
+    per = {"dense": [], "sorted": []}
+    for ids, ct, t_eff in calls:
+        M = ids.shape[0]
+        name = dt.route(t_eff, n_feat, M)
+        tag = f"t_eff={t_eff} M={M}"
+        err, rel = check(name, ids, ct, t_eff, tag)
+        ids_long = ids.long()
+        lib_out = torch.zeros((n_feat, t_eff), device=device)
+        rec_c = dict(t_eff=t_eff, M=M, err=err, rel=rel,
+                     ms=cuda_ms(lambda: kernels[name](ids, ct, t_eff), 5),
+                     plain_ms=cuda_ms(lambda: dt.dtab_plain(ids, ct, t_eff),
+                                      3),
+                     library_ms=cuda_ms(
+                         lambda: lib_out.index_add_(1, ids_long, ct), 3),
+                     bound_ms=bound_ms(M, t_eff))
+        if name == "sorted":
+            ids_s, perm = dt.sort_ids(ids)
+            rec_c["kernel_only_ms"] = cuda_ms(
+                lambda: dt.dtab_sorted_kernel(ids_s, perm, ct, t_eff), 5)
+        per[name].append(rec_c)
+        log(f"dtab_{name} {tag}: max abs err {err:.3g} ({rel:.3g} of the "
+            f"largest entry), kernel "
+            f"{rec_c['ms']:.3f} ms"
+            + (f" ({rec_c['kernel_only_ms']:.3f} ms without its sort)"
+               if name == "sorted" else "")
+            + f", plain {rec_c['plain_ms']:.3f} ms, index_add_ "
+            f"{rec_c['library_ms']:.3f} ms, bound {rec_c['bound_ms']:.4f} ms")
+    # the same calls under the profiler: device time of the kernels alone and
+    # of B3's sort (the event times above include the host's launches)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ids, ct, t_eff in calls:
+            kernels[dt.route(t_eff, n_feat, ids.shape[0])](ids, ct, t_eff)
+        torch.cuda.synchronize()
+    dev_us = {"dense": 0.0, "sorted": 0.0, "sort": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        d = e.time_range.end - e.time_range.start
+        if "dtab_dense" in e.name:
+            dev_us["dense"] += d
+        elif "seg_sum" in e.name:
+            dev_us["sorted"] += d
+        elif "adix" in e.name or "Sort" in e.name:
+            dev_us["sort"] += d
+    device_ms = {k: (dev_us[k] / 1e3 / len(per["sorted" if k == "sort"
+                                                 else k])
+                     if any(dev_us.values()) else None) for k in dev_us}
+    log(f"device time per launch (profiler): {json.dumps(device_ms)}")
+    # skewed ids: half the rows of a hashed level's view-pass call on 64 ids
+    ids, ct, t_eff = next(c for c in calls if c[2] == enc.table_size
+                          and c[0].shape[0] == BATCH * 64 * 8)
+    skew = ids.clone()
+    half = skew.shape[0] // 2
+    skew[:half] = torch.randint(0, 64, (half,), device=device,
+                                generator=torch.Generator(device).manual_seed(3))
+    skew_err = {name: check(name, skew, ct, t_eff, "skewed")
+                for name in kernels}
+    log(f"skewed (half the rows on 64 ids), t_eff={t_eff} M={ids.shape[0]}: "
+        f"(max abs err, over the largest entry) {json.dumps(skew_err)}")
+    del calls
+    torch.cuda.empty_cache()
+
+    # 7. the hash train step: kernels vs plain, launches, time
+    loss_k, grad_k = step_grads(None)
+    gerr = ((grad_k - grad_plain).abs().max()
+            / grad_plain.abs().max()).item()
+    lerr = (abs(loss_k - loss_plain) / abs(loss_plain)).item()
+    log(f"hash step, kernels vs plain: table gradient max abs err / max "
+        f"{gerr:.3g}, loss rel err {lerr:.3g} (loss {loss_k.item():.6f})")
+    if not (gerr <= STEP_GRAD_RTOL and lerr <= STEP_LOSS_RTOL):
+        fail("the hash step through the kernels disagrees with the plain "
+             "version")
+    del grad_k, grad_plain
+    for k in dt.launches:
+        dt.launches[k] = 0
+    ld = htr.train_step(hstate, hdata, BATCH, seed=1)
+    torch.cuda.synchronize()
+    step_launches = dict(dt.launches)
+    log(f"hash train step launches: {json.dumps(step_launches)}")
+    if step_launches != {"dtab_dense": 3, "dtab_sorted": 21}:
+        fail("expected 3 dtab_dense and 21 dtab_sorted launches per step")
+
+    def time_steps(tr, state, data, n):
+        tr.train_step(state, data, BATCH, seed=1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            ld = tr.train_step(state, data, BATCH, seed=1)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n
+        loss = ld["loss"].item()
+        if not np.isfinite(loss):
+            fail(f"train step loss {loss}")
+        return {"ms_per_step": ms, "rays_per_s": BATCH / ms * 1e3,
+                "loss": loss, "steps": n,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "card": card}
+
+    hash_rec = time_steps(htr, hstate, hdata, 10)
+    log("hash train step: " + json.dumps(hash_rec))
+    del htr, hdata, hstate, enc
+    torch.cuda.empty_cache()
+
+    # 8. the flagship Siren train step
+    s_tr, s_data = train_setup("siren", device=device)
+    s_state = s_tr.init_state(torch.Generator().manual_seed(0))
+    siren_rec = time_steps(s_tr, s_state, s_data, 3)
+    log("siren train step: " + json.dumps(siren_rec))
+
+    def entry(name, source_line):
+        recs = per[name]
+        n = len(recs)
+        tot = {k: sum(r[k] for r in recs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        e = {
+            "name": f"dtab_{name}",
+            "route": "cuda",
+            "source": "spnerf_torch/csrc/dtab.cu",
+            "replaces": source_line,
+            "launches": step_launches[f"dtab_{name}"],
+            "max_abs_err": max([r["err"] for r in recs]
+                               + [skew_err[name][0]]),
+            "max_rel_err": max([r["rel"] for r in recs]
+                               + [skew_err[name][1]]),
+            "ms": tot["ms"] / n,
+            "plain_ms": tot["plain_ms"] / n,
+            "bound_ms": tot["bound_ms"] / n,
+            "bound_by": "bytes",
+            "library_ms": tot["library_ms"] / n,
+            "per_launch": "mean over the step's launches at their own ids",
+            "ms_per_step": tot["ms"],
+            "plain_ms_per_step": tot["plain_ms"],
+            "library_ms_per_step": tot["library_ms"],
+            "bound_ms_per_step": tot["bound_ms"],
+            "calls": [{k: r[k] for k in ("t_eff", "M", "ms", "plain_ms",
+                                         "library_ms", "bound_ms")}
+                      for r in recs],
+            "card": card,
+        }
+        e["device_ms"] = device_ms[name]
+        if name == "sorted":
+            e["kernel_only_ms"] = sum(r["kernel_only_ms"] for r in recs) / n
+            e["sort_device_ms"] = device_ms["sort"]
+        return e
+
+    print(json.dumps({
+        "kernels": [field_entry,
+                    entry("dense", "spnerf_tpu/ops/pallas/dtab.py:127"),
+                    entry("sorted", "spnerf_tpu/ops/pallas/dtab.py:307")],
+        "train_steps": {"hash": hash_rec, "siren": siren_rec}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

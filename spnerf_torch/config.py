@@ -1,10 +1,11 @@
-"""Static configuration of the field and the renderer.
+"""Static configuration of the field, the renderer and the losses.
 
 Plain frozen dataclasses holding the fields of the JAX package's
-`ModelConfig` and `RenderConfig` that the port reads, under the same names
-and defaults. The fields of the hash encoding, the proposal sampler and the
-occupancy grid arrive with the slices that port them; the loss configuration
-and the command line arrive with the training slice.
+`ModelConfig`, `RenderConfig` and `LossConfig` that the port reads, under the
+same names and defaults (`LossConfig.margin` and `stdscale` are read by the
+depth loaders of the data slice). The fields of the proposal sampler and the
+occupancy grid arrive with the slices that port them; the command line
+arrives with the CLI slice.
 """
 
 from dataclasses import dataclass
@@ -26,7 +27,20 @@ class ModelConfig:
     t_embedding_dims: int = 4
     beta: bool = False
     sem: bool = False
-    encoding: str = "siren"  # "siren" (SP-NeRF flagship) | "hash" (not ported yet)
+    encoding: str = "siren"  # "siren" (SP-NeRF flagship) | "hash" (NGP-style)
+    # hash-grid geometry (encoding="hash" only)
+    hash_levels: int = 8
+    hash_features: int = 4
+    hash_log2T: int = 19
+    hash_hidden: int = 64  # width of the hash trunk and head MLPs
+    hash_frames: int = 1  # multi-AOI frames; only 1 is ported
+    # levels whose dense grid fits the table index it directly
+    hash_direct_coarse: bool = True
+    # each level's table is one flat feature-major row, row[f * T + t];
+    # only the flat table is ported
+    hash_flat_table: bool = True
+    # coarse-to-fine level annealing over the first N steps; 0 = off
+    hash_anneal_steps: int = 0
 
 
 @dataclass(frozen=True)
@@ -43,3 +57,20 @@ class RenderConfig:
     compute_dtype: str = "float32"  # "bfloat16" for the flagship
     proposal: bool = False
     occ_grid: bool = False
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss parameters."""
+
+    sc_lambda: float = 0.0
+    beta: bool = False
+    ds_lambda: float = 0.0
+    depth: bool = False
+    gnll: bool = False
+    usealldepth: bool = False
+    margin: float = 0.0001
+    stdscale: float = 1.0
+    sem: bool = False
+    ss_lambda: float = 4e-2
+    first_beta_epoch: int = 2

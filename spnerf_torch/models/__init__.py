@@ -1,5 +1,6 @@
 import torch
 
+from .hashgrid import HashGridEncoding, HashSPNeRF, init_hash_spnerf
 from .spnerf import (
     SPNeRF,
     TransientEmbedding,
@@ -11,21 +12,25 @@ from .spnerf import (
 
 def load_model(cfg, compute_dtype=None, device=None, generator=None):
     """The field module for the configuration, initialised from `generator`
-    and placed on `device`. encoding="siren" is the SP-NeRF flagship."""
+    and placed on `device`. encoding="siren" is the SP-NeRF flagship,
+    encoding="hash" the hash-grid family, whose table gradient runs through
+    the hand-written kernels on CUDA (the JAX package's "matmul_vjp" impl on
+    an accelerator)."""
     from ..device import resolve_device
 
-    if getattr(cfg, "encoding", "siren") == "hash":
-        raise NotImplementedError(
-            "encoding='hash' is not ported yet (ROADMAP A10)")
     device = resolve_device(device)
     dtype = as_dtype(compute_dtype) if compute_dtype else torch.float32
-    return SPNeRF(cfg, dtype, generator).to(device)
+    cls = HashSPNeRF if getattr(cfg, "encoding", "siren") == "hash" else SPNeRF
+    return cls(cfg, dtype, generator).to(device)
 
 
 __all__ = [
     "SPNeRF",
+    "HashSPNeRF",
+    "HashGridEncoding",
     "TransientEmbedding",
     "init_spnerf",
+    "init_hash_spnerf",
     "positional_mapping",
     "load_model",
 ]

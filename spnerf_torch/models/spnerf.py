@@ -101,9 +101,35 @@ def fast_sin(x):
     return sign * p
 
 
+def _fast_sin_grad(x):
+    """d fast_sin / dx: the polynomial's derivative, sign-flipped by k."""
+    k = torch.round(x * (1.0 / np.pi))
+    r = x - k * np.pi
+    sign = 1.0 - 2.0 * torch.abs(k - 2.0 * torch.floor(k * 0.5))
+    r2 = r * r
+    return sign * (_SIN_C1 + r2 * (3.0 * _SIN_C3 + r2 * (
+        5.0 * _SIN_C5 + r2 * (7.0 * _SIN_C7))))
+
+
+class _Siren(torch.autograd.Function):
+    """fast_sin in float32 on a compute-dtype input, rounded back to it.
+    Saves only the input for backward (autograd of the polynomial would
+    keep seven float32 intermediates per activation)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return fast_sin(y.float()).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return (grad.float() * _fast_sin_grad(y.float())).to(y.dtype)
+
+
 def siren(x, w0=1.0):
     y = w0 * x if w0 != 1.0 else x
-    return fast_sin(y.float()).to(y.dtype)
+    return _Siren.apply(y)
 
 
 def softplus(x):

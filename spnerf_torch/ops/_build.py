@@ -39,22 +39,41 @@ def library_path(name):
     return BUILD / f"lib{name}-{tag}.so"
 
 
-def build(name):
-    """Compile `csrc/<name>.cu` unless its library exists. Returns the
-    compiler's output (ptxas register and spill counts), or "" when the
-    library was already built."""
+def _start(name):
+    """Start nvcc on `csrc/<name>.cu` unless its library exists."""
     out = library_path(name)
     if out.exists():
-        return ""
+        return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, out, tmp, proc
+
+
+def build_all(names):
+    """Compile every named source whose library is missing, one nvcc process
+    per source, all started together. Returns {name: compiler output
+    (ptxas register and spill counts), "" when it was already built}."""
+    texts = dict.fromkeys(names, "")
+    jobs = [job for job in map(_start, names) if job is not None]
+    failed = []
+    for name, out, tmp, proc in jobs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{text}")
+        else:
+            os.replace(tmp, out)
+            texts[name] = text
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return texts
+
+
+def build(name):
+    """Compile `csrc/<name>.cu` unless its library exists; see build_all."""
+    return build_all([name])[name]
 
 
 def load(name):

@@ -1,8 +1,14 @@
-"""The flagship configuration and synthetic ray batches, in numpy."""
+"""The flagship and hash configurations, synthetic scenes in numpy, and the
+train-step setup the chip smoke test drives."""
+
+from dataclasses import replace
 
 import numpy as np
 
-from ..config import ModelConfig, RenderConfig
+from ..config import LossConfig, ModelConfig, RenderConfig
+
+HASH_LR = 1e-2  # the hash family's table learning rate (NGP practice)
+FLAGSHIP_LR = 5e-4
 
 
 def flagship_configs(n_samples=64, fc_units=512):
@@ -16,6 +22,40 @@ def flagship_configs(n_samples=64, fc_units=512):
                       solar_correction=True, sem=True,
                       compute_dtype="bfloat16")
     return mc, rc
+
+
+def flagship_loss_config():
+    """The flagship losses: solar terms (0.1), depth supervision (1.0),
+    semantics (1.0)."""
+    return LossConfig(sc_lambda=0.1, depth=True, ds_lambda=1.0, stdscale=1.0,
+                      sem=True, ss_lambda=1.0)
+
+
+def hash_configs(n_samples=64):
+    """The flagship configuration with the hash-grid trunk (8 levels x 4
+    features, T = 2^19, hidden 64): (model, render, loss) configs. It
+    trains at lr HASH_LR."""
+    mc, rc = flagship_configs(n_samples)
+    return replace(mc, encoding="hash"), rc, flagship_loss_config()
+
+
+def train_setup(encoding="siren", n_rays=65536, device=None, seed=0):
+    """(trainer, data) of the flagship train step (encoding="siren", lr
+    5e-4) or its hash family (encoding="hash", lr 1e-2): a Trainer at 1000
+    steps per epoch and 30,000 steps, and a device-resident synthetic scene
+    of n_rays rows from `seed`. The state comes from
+    `trainer.init_state(generator)`."""
+    from ..train.loop import Trainer
+
+    if encoding == "hash":
+        (mc, rc, lc), lr = hash_configs(), HASH_LR
+    else:
+        mc, rc = flagship_configs()
+        lc, lr = flagship_loss_config(), FLAGSHIP_LR
+    trainer = Trainer(mc, rc, lc, lr=lr, steps_per_epoch=1000,
+                      max_steps=30000, device=device)
+    data = trainer.to_device(fake_batch(np.random.default_rng(seed), n_rays))
+    return trainer, data
 
 
 def fake_batch(rng, n):

@@ -5,8 +5,10 @@ no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: bf16, 2e-2 absolute (the kernel and the plain version sum in
-different orders, which can move an activation by one bf16 ulp).
+Tolerances: the field kernel, bf16, 2e-2 absolute (the kernel and the plain
+version sum in different orders, which can move an activation by one bf16
+ulp); the table-gradient kernels, float32, 1e-5 of the largest entry (sums of
+up to thousands of rows in another order), and B3 bitwise equal to itself.
 """
 
 import itertools
@@ -102,3 +104,108 @@ def test_render_image_uses_kernel(device):
         err = (out[k] - ref[k]).abs()
         assert torch.isfinite(out[k]).all(), k
         assert torch.quantile(err.flatten().float(), 0.99) <= 2e-2, k
+
+
+# ------------------------------------------------ table gradient, B2 and B3
+
+def dtab_case(kind, device, seed=0):
+    """(ids, ct_fm, t_eff) on the card: uniform ids, skewed ids (half the
+    rows on 64 ids), ids at the end of the table, a ragged row count, and a
+    table too large for B2's shared-memory form."""
+    g = np.random.default_rng(seed)
+    t_eff, F, M = {"uniform": (2 ** 16, 4, 300_000),
+                   "skewed": (2 ** 19, 4, 524_288),
+                   "end": (8192, 4, 100_000),
+                   "ragged": (8192, 2, 1_000_003),
+                   "f8": (2 ** 13, 8, 4097),
+                   "large": (2 ** 19, 4, 200_000)}[kind]
+    ids = g.integers(0, t_eff, M)
+    if kind == "skewed":
+        ids[: M // 2] = g.integers(0, 64, M // 2)
+    if kind == "end":
+        ids = g.integers(t_eff - 200, t_eff, M)
+    ct = g.normal(size=(F, M)).astype(np.float32)
+    return (torch.from_numpy(ids.astype(np.int32)).to(device),
+            torch.from_numpy(ct).to(device), t_eff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "end", "ragged", "f8",
+                                  "large"])
+@pytest.mark.parametrize("name", ["dense", "sorted"])
+def test_dtab_kernels_match_plain(device, kind, name):
+    """Both kernels against the plain version: max abs error within 1e-5 of
+    the largest entry (float32 sums in another order). B3 gives the same
+    bits twice."""
+    from spnerf_torch.ops import dtab as dt
+
+    ids, ct, t_eff = dtab_case(kind, device)
+    fn = dt.dtab_dense if name == "dense" else dt.dtab_sorted
+    before = dt.launches[f"dtab_{name}"]
+    out = fn(ids, ct, t_eff)
+    torch.cuda.synchronize()
+    assert dt.launches[f"dtab_{name}"] == before + 1
+    ref = dt.dtab_plain(ids, ct, t_eff)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), err
+    if name == "sorted":
+        assert torch.equal(out, fn(ids, ct, t_eff))
+
+
+@pytest.mark.cuda
+def test_dtab_router_launches_kernels_on_cuda(device):
+    from spnerf_torch.ops import dtab as dt
+
+    for t_eff, M, name in ((8192, 524_288, "dense"),
+                           (2 ** 19, 524_288, "sorted"),
+                           (2 ** 19, 524_287, "dense")):
+        ids = torch.randint(0, t_eff, (M,), device=device, dtype=torch.int32)
+        ct = torch.randn(4, M, device=device)
+        before = dict(dt.launches)
+        out = dt.dtab(ids, ct, t_eff, 4)
+        torch.cuda.synchronize()
+        assert dt.launches[f"dtab_{name}"] == before[f"dtab_{name}"] + 1
+        assert sum(dt.launches.values()) == sum(before.values()) + 1
+        ref = dt.dtab(ids, ct, t_eff, 4, impl="plain")
+        assert sum(dt.launches.values()) == sum(before.values()) + 1
+        assert (out - ref).abs().max() <= 1e-5 * max(ref.abs().max(), 1.0)
+
+
+@pytest.mark.cuda
+def test_hash_train_step_runs_through_kernels(device):
+    """A small hash step on the card: every table gradient goes through a
+    kernel, and the table gradient agrees with the plain version's."""
+    from spnerf_torch.config import LossConfig
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.train.loop import Trainer
+
+    mc = ModelConfig(encoding="hash", hash_levels=4, hash_log2T=16,
+                     hash_hidden=32, sem=True, num_sem_classes=3)
+    rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
+                      sem=True, compute_dtype="bfloat16")
+    lc = LossConfig(sc_lambda=0.1, depth=True, ds_lambda=1.0, sem=True,
+                    ss_lambda=1.0)
+    tr = Trainer(mc, rc, lc, lr=1e-2, device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    data = tr.to_device(fake_batch(np.random.default_rng(0), 4096))
+
+    def grads(impl):
+        state.model.encoding.dtab_impl = impl
+        state.optimizer.zero_grad(set_to_none=True)
+        g = tr.step_generator(0, 1)
+        loss, _ = tr.loss_fn(state, tr.sample_batch(data, 512, g), 0,
+                             generator=g)
+        loss.backward()
+        state.model.encoding.dtab_impl = None
+        return loss.item(), state.model.encoding.table.grad.clone()
+
+    before = sum(dt.launches.values())
+    loss_k, g_k = grads(None)
+    torch.cuda.synchronize()
+    assert sum(dt.launches.values()) == before + 3 * mc.hash_levels
+    loss_p, g_p = grads("plain")
+    assert sum(dt.launches.values()) == before + 3 * mc.hash_levels
+    assert abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
+    assert (g_k - g_p).abs().max() <= 1e-4 * g_p.abs().max()
+    ld = tr.train_steps(state, data, 2, batch_size=512)
+    assert np.isfinite(ld["loss"].item())

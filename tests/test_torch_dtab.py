@@ -1,0 +1,137 @@
+"""The hash-table gradient (`spnerf_torch/ops/dtab.py`) against the JAX
+package's Pallas kernels in interpret mode, and its router against the
+routing of `_matmul_dtab` on an accelerator.
+
+The plain version (what CPU tensors run, and what the card's kernels are
+held to) is compared with `dtab_pallas` (B2) and `dtab_sorted_window` (B3,
+accumulating column branch) on the cases of `tests/test_pallas.py`: uniform
+ids, skewed ids that force the sorted window's tail fallback, a row count
+that is not a multiple of the kernels' block, ids at the end of the table,
+and F = 2 and 8. Tolerances as there: 1e-4 against B2 and 1e-3 against B3
+(float32 sums in other orders over up to thousands of rows).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spnerf_tpu.ops.pallas import dtab as jdtab
+from spnerf_torch.models.hashgrid import HashGridEncoding
+from spnerf_torch.ops import dtab as tdtab
+
+CASES = {
+    "uniform": (2 ** 15, 4, 20000, "uniform"),
+    "skewed_tail": (2 ** 15, 4, 20000, "skewed"),
+    "padded_rows": (2 ** 14, 2, 5000, "uniform"),
+    "table_end": (2 ** 14, 4, 3000, "end"),
+    "f8": (2 ** 13, 8, 4097, "uniform"),
+}
+
+
+def case_inputs(name):
+    T, F, M, kind = CASES[name]
+    rng = np.random.default_rng(sorted(CASES).index(name))
+    ids = rng.integers(0, T, M)
+    if kind == "skewed":
+        ids[: M // 2] = rng.integers(0, 64, M // 2)  # a block spans > 2 windows
+    elif kind == "end":
+        ids = rng.integers(T - 200, T, M)
+    ct_fm = rng.normal(size=(F, M)).astype(np.float32)
+    return T, F, ids.astype(np.int32), ct_fm
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("kernel", ["dense", "sorted_window"])
+def test_plain_matches_pallas_kernels(name, kernel):
+    T, F, ids, ct_fm = case_inputs(name)
+    if kernel == "dense":
+        ref = jdtab.dtab_pallas(jnp.asarray(ids), jnp.asarray(ct_fm), T, F,
+                                f32=True, fmajor=True, interpret=True)
+        atol = 1e-4
+    else:
+        ref = jdtab.dtab_sorted_window(jnp.asarray(ids), jnp.asarray(ct_fm), T,
+                                       F, fmajor=True, interpret=True)
+        atol = 1e-3
+    before = dict(tdtab.launches)
+    out = tdtab.dtab(torch.from_numpy(ids), torch.from_numpy(ct_fm), T, F)
+    assert tdtab.launches == before  # CPU tensors launch nothing
+    assert out.shape == (F, T) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol, rtol=0)
+    # the plain version is the scatter-add itself
+    exact = np.zeros((F, T), np.float64)
+    np.add.at(exact.T, ids, ct_fm.T.astype(np.float64))
+    np.testing.assert_allclose(out.numpy(), exact, atol=1e-4, rtol=0)
+
+
+def boundary_grid():
+    grid = []
+    for log2T in range(8, 21):
+        T = 2 ** log2T
+        for F in (1, 2, 3, 4, 8):
+            ms = {0, 1024, 524288, 1048576}
+            if F in (1, 2, 4, 8) and T % (jdtab.LANES // F) == 0:
+                A = T // (jdtab.LANES // F)
+                edge = 4 * A * jdtab.MBLK // jdtab.WIN  # M at equality
+                ms |= {edge - 1, edge, edge + 1}
+            grid += [(T, F, M) for M in sorted(ms) if M >= 0]
+    return grid
+
+
+def test_window_eligible_matches_jax():
+    grid = boundary_grid()
+    assert len(grid) > 300
+    for T, F, M in grid:
+        assert tdtab.window_eligible(T, F, M) == jdtab.window_eligible(T, F, M), \
+            (T, F, M)
+    # level 2 of the hash step's coarse pass sits exactly on the boundary
+    assert tdtab.window_eligible(2 ** 19, 4, 524288)
+    assert not tdtab.window_eligible(2 ** 19, 4, 524288 - 1)
+
+
+def test_router_sends_hash_step_levels_as_the_tpu_does():
+    """L8 F4 T=2^19, batch 1024, 64 coarse + 64 guided + 128 solar samples:
+    3 dense (level 0 in each pass) and 21 sorted-window calls per step."""
+    enc = HashGridEncoding(n_levels=8, n_features=4, log2_table_size=19)
+    t_effs = enc.level_table_sizes()
+    assert t_effs == [8192, 65536] + [524288] * 6
+    counts = {"dense": 0, "sorted": 0}
+    for samples in (64, 64, 128):  # coarse, guided, solar
+        M = 1024 * samples * 8  # rows: points x corners
+        for t_eff in t_effs:
+            r = tdtab.route(t_eff, 4, M)
+            counts[r] += 1
+            # the JAX package's choice on an accelerator (_matmul_dtab)
+            uses_pallas = t_eff % (jdtab.LANES // 4) == 0
+            jax_sorted = uses_pallas and jdtab.window_eligible(t_eff, 4, M)
+            assert (r == "sorted") == jax_sorted, (t_eff, M)
+    assert counts == {"dense": 3, "sorted": 21}
+
+
+def test_router_shapes_outside_the_tpu_kernels_go_dense():
+    assert tdtab.route(64, 4, 10 ** 6) == "dense"  # t_eff < LANES // F
+    assert tdtab.route(2 ** 19, 3, 10 ** 6) == "dense"  # F not a power of 2
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    ids = torch.zeros(4, dtype=torch.int32)
+    ct = torch.zeros(2, 4)
+    for fn in (tdtab.dtab_dense, tdtab.dtab_sorted):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(ids, ct, 8)
+    with pytest.raises(ValueError, match="impl"):
+        tdtab.dtab(ids, ct, 8, 2, impl="fast")
+    with pytest.raises(ValueError, match="features"):
+        tdtab.dtab(ids, ct, 8, 3)
+
+
+def test_plain_drops_nothing_and_keeps_dtype():
+    ids = torch.tensor([3, 3, 0, 7], dtype=torch.int64)
+    ct = torch.arange(8, dtype=torch.float64).reshape(2, 4)
+    out = tdtab.dtab(ids, ct, 8, 2)
+    assert out.dtype == torch.float32
+    expect = torch.zeros(2, 8)
+    expect[:, 3] = ct[:, 0] + ct[:, 1]
+    expect[:, 0] = ct[:, 2]
+    expect[:, 7] = ct[:, 3]
+    assert torch.equal(out, expect)

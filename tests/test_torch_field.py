@@ -150,5 +150,9 @@ def test_init_is_seeded_and_bounded():
 
 
 def test_hash_encoding_not_ported():
-    with pytest.raises(NotImplementedError, match="A10"):
-        load_model(ModelConfig(encoding="hash"), device="cpu")
+    """The hash family is ported; its multi-AOI frames and the non-flat
+    table are not, and raise."""
+    for kw in (dict(hash_frames=2), dict(hash_flat_table=False)):
+        with pytest.raises(NotImplementedError, match="A10"):
+            load_model(ModelConfig(encoding="hash", hash_log2T=10, **kw),
+                       device="cpu")

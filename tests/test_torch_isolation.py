@@ -60,3 +60,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         init_spnerf(torch.Generator(), cfg)
     assert next(load_model(cfg, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    from spnerf_torch.config import LossConfig, ModelConfig, RenderConfig
+    from spnerf_torch.models import load_model
+    from spnerf_torch.train.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hash_cfg = ModelConfig(encoding="hash", hash_levels=2, hash_log2T=10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(hash_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(hash_cfg, RenderConfig(), LossConfig())
+    tr = Trainer(hash_cfg, RenderConfig(), LossConfig(), device="cpu")
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    assert next(state.model.parameters()).device.type == "cpu"
