@@ -19,7 +19,8 @@ Phases, each fatal on failure:
      render limits must sit below;
   5. at the main path's shapes (chunk x n_samples points for the coarse and
      guided passes, chunk x the merged samples per ray for the solar pass),
-     hold each launch against its plain version and time both;
+     hold each launch against its plain version and time both (CUDA events,
+     and the kernel's device time from torch.profiler);
   6. the table-gradient kernels B2 (dtab_dense) and B3 (dtab_sorted) on the
      inputs of the hash train step: one backward of the hash configuration
      (L8 F4 T=2^19, batch 1024, 64 + 64 + 128 samples) through the plain
@@ -37,11 +38,30 @@ Phases, each fatal on failure:
      steps;
   8. the flagship Siren train step (8x512, bf16, batch 1024; no kernel):
      1 warm-up and 3 timed steps;
-  and print the `kernels` line.
+  9. the hash step with the (L, T, F) table (hash_flat_table=False): its
+     24 t-major table gradients recorded and held on B2 and B3 (t-major
+     layout) against the plain version and timed; the step's loss and table
+     gradient through the kernels agree with the plain run; one step
+     launches B2 3 times and B3 21 times; then 1 warm-up and 10 timed steps;
+ 10. SPNERF_HASH_SW_ACC=0 on the flat step: B3′ (dtab_sorted_partials) held
+     against the plain version on the step's own 21 window-route inputs and
+     the skewed case of phase 6, timed beside the plain version,
+     `index_add_` and its bound, with profiler device times (sort apart);
+     the step through the kernels agrees with the plain step; one step
+     launches B2 3 times and B3′ 21 times; then timed;
+ 11. SPNERF_HASH_SW_BATCHED=1 on the (L, T, F) step: B4 (dtab_batched) held
+     against dtab_batched_plain on the step's 3 recorded batched inputs, a
+     skewed level and a level of direct-coarse ids, and bitwise equal to
+     itself; timed as in 10 (`index_add_` on the flattened table); the step
+     through the kernels agrees with the plain step; one step launches B4 3
+     times and no B2, B3 or B3′; then timed;
+  and print the `kernels` line. The env of phases 10 and 11 is set around
+  its phase only and restored after.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -99,6 +119,66 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rel_check(out, ref, tag):
+    """Max abs error of out against ref, and that error over ref's largest
+    entry; fails above DTAB_RTOL of it or on a non-finite value."""
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not (err <= DTAB_RTOL * scale) or not torch.isfinite(out).all():
+        fail(f"{tag}: max abs err {err} against max |dtab| {scale}")
+    return err, (err / scale if scale else 0.0)
+
+
+# names of the port's table-gradient kernels and of the library sort's
+PORT_KERNEL_KEYS = ("dtab_dense", "seg_", "partials", "batched_keys")
+SORT_KEYS = ("adix", "Sort")
+
+
+def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
+    """Device time per call of `run` (which makes n_calls calls) under
+    torch.profiler: {"kernel": the kernels whose names hold one of `keys`,
+    "sort": the library sort}. A profiling pass that records no device
+    activity (seen now and then after several passes in one process) is
+    run again, up to `attempts` times; then both are None ("not
+    measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        us = {"kernel": 0.0, "sort": 0.0}
+        seen = False
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            seen = True
+            d = e.time_range.end - e.time_range.start
+            if any(k in e.name for k in keys):
+                us["kernel"] += d
+            elif any(k in e.name for k in SORT_KEYS):
+                us["sort"] += d
+        if seen:
+            return {k: v / 1e3 / n_calls for k, v in us.items()}
+    return {"kernel": None, "sort": None}
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """os.environ[name] = value inside the block, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
 
 
 def field_inputs(n, seed, device, num_sem_classes):
@@ -252,14 +332,16 @@ def main():
         outs = sum(w for _, w in fe.active_outputs(mc, heads))
         nbytes = (n_pts * (packed.k0_pad + fe.KPAD) * 2 + n_pts * outs * 4
                   + packed.w_all.numel() * 2 + packed.b_all.numel() * 4)
-        rec[tag] = dict(n=n_pts, ms=ms, plain_ms=plain_ms,
+        dev = device_ms(lambda: field(xyz, sun, None, sems, heads=heads), 1,
+                        keys=("field_eval",))["kernel"]
+        rec[tag] = dict(n=n_pts, ms=ms, plain_ms=plain_ms, device_ms=dev,
                         bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_BYTES)
                         * 1e3,
                         bound_by=("operations" if flops / PEAK_BF16
                                   >= nbytes / PEAK_BYTES else "bytes"))
         log(f"field_eval heads={tag}: {n_pts} points, kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"bound {rec[tag]['bound_ms']:.3f} ms")
+            f"({flops / ms / 1e9:.1f} TFLOP/s), device {dev} ms, plain "
+            f"{plain_ms:.3f} ms, bound {rec[tag]['bound_ms']:.3f} ms")
         del xyz, sun, sems
     per_view = {"all": 2 * n_chunks, "sun": n_chunks}
     kernel_view_ms = sum(per_view[t] * rec[t]["ms"] for t in rec)
@@ -277,12 +359,14 @@ def main():
         "max_abs_err": kernel_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
+        "device_ms": a["device_ms"],
         "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"],
         "library_ms": None,
         "points_per_launch": {t: rec[t]["n"] for t in rec},
         "heads": "all",
         "ms_sun": rec["sun"]["ms"],
+        "device_ms_sun": rec["sun"]["device_ms"],
         "plain_ms_sun": rec["sun"]["plain_ms"],
         "bound_ms_sun": rec["sun"]["bound_ms"],
         "launches_per_view": per_view,
@@ -296,168 +380,188 @@ def main():
     # 6. the table-gradient kernels on the hash train step's own inputs
     htr, hdata = train_setup("hash", device=device)
     hstate = htr.init_state(torch.Generator().manual_seed(0))
-    enc = hstate.model.encoding
     n_feat = htr.mc.hash_features
+    n_levels = htr.mc.hash_levels
+    T = hstate.model.encoding.table_size
 
-    def step_grads(impl):
+    def step_grads(tr, state, data, impl):
         """Loss and table gradient of step 0's batch and draws, with the
         table gradient through `impl` (None: the kernels)."""
+        enc = state.model.encoding
         enc.dtab_impl = impl
-        hstate.optimizer.zero_grad(set_to_none=True)
-        g = htr.step_generator(0, seed=1)
-        batch = htr.sample_batch(hdata, BATCH, g)
-        loss, _ = htr.loss_fn(hstate, batch, 0, generator=g)
+        state.optimizer.zero_grad(set_to_none=True)
+        g = tr.step_generator(0, seed=1)
+        batch = tr.sample_batch(data, BATCH, g)
+        loss, _ = tr.loss_fn(state, batch, 0, generator=g)
         loss.backward()
         enc.dtab_impl = None
         torch.cuda.synchronize()
         return loss.detach(), enc.table.grad.clone()
 
-    calls = []  # (ids, ct_fm, t_eff) of every table gradient of the step
-    real_dtab = hg.dtab
+    def record_plain(tr, state, data, batched=False):
+        """step_grads through the plain version, with the table-gradient
+        router wrapped: (the inputs of every call, loss, table gradient).
+        Per-level calls record (ids, ct, t_eff, fmajor), batched calls
+        (ids, ct, T)."""
+        calls = []
+        name = "dtab_levels" if batched else "dtab"
+        real = getattr(hg, name)
 
-    def recording_dtab(ids, ct_fm, t_eff, F, impl=None):
-        calls.append((ids, ct_fm.contiguous(), t_eff))
-        return real_dtab(ids, ct_fm, t_eff, F, impl=impl)
+        def recording_levels(ids, ct, T_, impl=None):
+            calls.append((ids, ct.contiguous(), T_))
+            return real(ids, ct, T_, impl=impl)
 
-    hg.dtab = recording_dtab
-    try:
-        loss_plain, grad_plain = step_grads("plain")
-    finally:
-        hg.dtab = real_dtab
-    if len(calls) != 3 * htr.mc.hash_levels:
-        fail(f"expected {3 * htr.mc.hash_levels} table gradients per step, "
-             f"recorded {len(calls)}")
+        def recording(ids, ct, t_eff, F, impl=None, fmajor=True, sw_acc=None):
+            calls.append((ids, ct.contiguous(), t_eff, fmajor))
+            return real(ids, ct, t_eff, F, impl=impl, fmajor=fmajor,
+                        sw_acc=sw_acc)
+
+        setattr(hg, name, recording_levels if batched else recording)
+        try:
+            loss, grad = step_grads(tr, state, data, "plain")
+        finally:
+            setattr(hg, name, real)
+        return calls, loss, grad
 
     def bound_ms(M, t_eff):
         return (M * (4 + 4 * n_feat) + n_feat * t_eff * 4) / PEAK_BYTES * 1e3
 
-    kernels = {"dense": dt.dtab_dense, "sorted": dt.dtab_sorted}
+    kernels = {"dense": dt.dtab_dense, "sorted": dt.dtab_sorted,
+               "partials": dt.dtab_sorted_partials}
 
-    def check(name, ids, ct, t_eff, tag):
-        """Kernel vs plain on one call; returns the max abs error and that
-        error over the largest entry."""
-        out = kernels[name](ids, ct, t_eff)
-        ref = dt.dtab_plain(ids, ct, t_eff)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        if not (err <= DTAB_RTOL * scale) or not torch.isfinite(out).all():
-            fail(f"dtab_{name} {tag}: max abs err {err} against max "
-                 f"|dtab| {scale}")
-        if name == "sorted":
-            again = kernels[name](ids, ct, t_eff)
-            if not torch.equal(out, again):
-                fail(f"dtab_sorted {tag}: two calls differ")
-        return err, (err / scale if scale else 0.0)
-
-    per = {"dense": [], "sorted": []}
-    for ids, ct, t_eff in calls:
+    def hold(name, ids, ct, t_eff, fmajor, tag, timed=True):
+        """Kernel `name` against the plain version on one call (B3 also
+        against itself), then timed beside the plain version, `index_add_`
+        and the bytes bound."""
+        fn = kernels[name]
+        out = fn(ids, ct, t_eff, fmajor)
+        ref = dt.dtab_plain(ids, ct, t_eff, fmajor)
+        err, rel = rel_check(out, ref, f"dtab_{name} {tag}")
+        if name == "sorted" and not torch.equal(out, fn(ids, ct, t_eff,
+                                                        fmajor)):
+            fail(f"dtab_sorted {tag}: two calls differ")
         M = ids.shape[0]
-        name = dt.route(t_eff, n_feat, M)
-        tag = f"t_eff={t_eff} M={M}"
-        err, rel = check(name, ids, ct, t_eff, tag)
+        rec = dict(t_eff=t_eff, M=M, err=err, rel=rel)
+        if not timed:
+            return rec
         ids_long = ids.long()
-        lib_out = torch.zeros((n_feat, t_eff), device=device)
-        rec_c = dict(t_eff=t_eff, M=M, err=err, rel=rel,
-                     ms=cuda_ms(lambda: kernels[name](ids, ct, t_eff), 5),
-                     plain_ms=cuda_ms(lambda: dt.dtab_plain(ids, ct, t_eff),
-                                      3),
-                     library_ms=cuda_ms(
-                         lambda: lib_out.index_add_(1, ids_long, ct), 3),
-                     bound_ms=bound_ms(M, t_eff))
+        lib_out = torch.zeros_like(ref)
+        rec.update(
+            ms=cuda_ms(lambda: fn(ids, ct, t_eff, fmajor), 5),
+            plain_ms=cuda_ms(lambda: dt.dtab_plain(ids, ct, t_eff, fmajor), 3),
+            library_ms=cuda_ms(lambda: lib_out.index_add_(
+                1 if fmajor else 0, ids_long, ct), 3),
+            bound_ms=bound_ms(M, t_eff))
         if name == "sorted":
             ids_s, perm = dt.sort_ids(ids)
-            rec_c["kernel_only_ms"] = cuda_ms(
-                lambda: dt.dtab_sorted_kernel(ids_s, perm, ct, t_eff), 5)
-        per[name].append(rec_c)
+            rec["kernel_only_ms"] = cuda_ms(
+                lambda: dt.dtab_sorted_kernel(ids_s, perm, ct, t_eff, fmajor),
+                5)
         log(f"dtab_{name} {tag}: max abs err {err:.3g} ({rel:.3g} of the "
-            f"largest entry), kernel "
-            f"{rec_c['ms']:.3f} ms"
-            + (f" ({rec_c['kernel_only_ms']:.3f} ms without its sort)"
+            f"largest entry), kernel {rec['ms']:.3f} ms"
+            + (f" ({rec['kernel_only_ms']:.3f} ms without its sort)"
                if name == "sorted" else "")
-            + f", plain {rec_c['plain_ms']:.3f} ms, index_add_ "
-            f"{rec_c['library_ms']:.3f} ms, bound {rec_c['bound_ms']:.4f} ms")
-    # the same calls under the profiler: device time of the kernels alone and
-    # of B3's sort (the event times above include the host's launches)
-    from torch.profiler import ProfilerActivity, profile
+            + f", plain {rec['plain_ms']:.3f} ms, index_add_ "
+            f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms")
+        return rec
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for ids, ct, t_eff in calls:
-            kernels[dt.route(t_eff, n_feat, ids.shape[0])](ids, ct, t_eff)
+    def hold_calls(calls, sw_acc, names):
+        """Every recorded per-level call on the kernel its route names, held
+        and timed; {route: [records]} and the profiler's device times."""
+        per = {n: [] for n in names}
+        by = {n: [] for n in names}
+        for ids, ct, t_eff, fmajor in calls:
+            name = dt.route(t_eff, n_feat, ids.shape[0], sw_acc)
+            if name not in per:
+                continue
+            layout = "f-major" if fmajor else "t-major"
+            per[name].append(hold(name, ids, ct, t_eff, fmajor,
+                                  f"{layout} t_eff={t_eff} M={ids.shape[0]}"))
+            by[name].append((ids, ct, t_eff, fmajor))
+        dev = {n: device_ms(lambda: [kernels[n](*c) for c in by[n]],
+                            len(by[n])) for n in names}
+        log(f"device time per launch (profiler): {json.dumps(dev)}")
+        return per, dev
+
+    def step_match(tag, tr, state, data, loss_plain, grad_plain):
+        loss_k, grad_k = step_grads(tr, state, data, None)
+        gerr = ((grad_k - grad_plain).abs().max()
+                / grad_plain.abs().max()).item()
+        lerr = (abs(loss_k - loss_plain) / abs(loss_plain)).item()
+        log(f"{tag}, kernels vs plain: table gradient max abs err / max "
+            f"{gerr:.3g}, loss rel err {lerr:.3g} (loss {loss_k.item():.6f})")
+        if not (gerr <= STEP_GRAD_RTOL and lerr <= STEP_LOSS_RTOL):
+            fail(f"{tag} through the kernels disagrees with the plain version")
+        return {"grad_rel_err": gerr, "loss_rel_err": lerr}
+
+    def step_launches(tag, tr, state, data, expect):
+        """The kernel launches of one train step (counts set to 0 just
+        before it and read just after)."""
+        for k in dt.launches:
+            dt.launches[k] = 0
+        tr.train_step(state, data, BATCH, seed=1)
         torch.cuda.synchronize()
-    dev_us = {"dense": 0.0, "sorted": 0.0, "sort": 0.0}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        d = e.time_range.end - e.time_range.start
-        if "dtab_dense" in e.name:
-            dev_us["dense"] += d
-        elif "seg_sum" in e.name:
-            dev_us["sorted"] += d
-        elif "adix" in e.name or "Sort" in e.name:
-            dev_us["sort"] += d
-    device_ms = {k: (dev_us[k] / 1e3 / len(per["sorted" if k == "sort"
-                                                 else k])
-                     if any(dev_us.values()) else None) for k in dev_us}
-    log(f"device time per launch (profiler): {json.dumps(device_ms)}")
+        got = dict(dt.launches)
+        log(f"{tag} launches: {json.dumps(got)}")
+        want = dict.fromkeys(dt.launches, 0)
+        want.update(expect)
+        if got != want:
+            fail(f"{tag}: expected launches {want}, got {got}")
+        return got
+
+    def time_steps(tr, state, data, n, blocks=3):
+        """1 warm-up, then `blocks` runs of n steps, each timed with CUDA
+        events: ms/step is the median run's, and every run is kept (the
+        host-bound steps vary)."""
+        tr.train_step(state, data, BATCH, seed=1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(blocks):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                ld = tr.train_step(state, data, BATCH, seed=1)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / n)
+            loss = ld["loss"].item()
+            if not np.isfinite(loss):
+                fail(f"train step loss {loss}")
+        ms = float(np.median(runs))
+        return {"ms_per_step": ms, "rays_per_s": BATCH / ms * 1e3,
+                "ms_per_step_runs": runs, "loss": loss, "steps": n * blocks,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "card": card}
+
+    calls, loss_plain, grad_plain = record_plain(htr, hstate, hdata)
+    if len(calls) != 3 * n_levels:
+        fail(f"expected {3 * n_levels} table gradients per step, "
+             f"recorded {len(calls)}")
+    per, dev6 = hold_calls(calls, True, ("dense", "sorted"))
     # skewed ids: half the rows of a hashed level's view-pass call on 64 ids
-    ids, ct, t_eff = next(c for c in calls if c[2] == enc.table_size
-                          and c[0].shape[0] == BATCH * 64 * 8)
+    ids, ct6, t_eff6, _ = next(c for c in calls if c[2] == T
+                               and c[0].shape[0] == BATCH * 64 * 8)
     skew = ids.clone()
     half = skew.shape[0] // 2
     skew[:half] = torch.randint(0, 64, (half,), device=device,
                                 generator=torch.Generator(device).manual_seed(3))
-    skew_err = {name: check(name, skew, ct, t_eff, "skewed")
-                for name in kernels}
-    log(f"skewed (half the rows on 64 ids), t_eff={t_eff} M={ids.shape[0]}: "
-        f"(max abs err, over the largest entry) {json.dumps(skew_err)}")
-    del calls
+    skew_err = {name: hold(name, skew, ct6, t_eff6, True, "skewed",
+                           timed=False) for name in ("dense", "sorted")}
+    log(f"skewed (half the rows on 64 ids), t_eff={t_eff6} "
+        f"M={skew.shape[0]}: " + json.dumps(skew_err))
+    del calls, ids
     torch.cuda.empty_cache()
 
     # 7. the hash train step: kernels vs plain, launches, time
-    loss_k, grad_k = step_grads(None)
-    gerr = ((grad_k - grad_plain).abs().max()
-            / grad_plain.abs().max()).item()
-    lerr = (abs(loss_k - loss_plain) / abs(loss_plain)).item()
-    log(f"hash step, kernels vs plain: table gradient max abs err / max "
-        f"{gerr:.3g}, loss rel err {lerr:.3g} (loss {loss_k.item():.6f})")
-    if not (gerr <= STEP_GRAD_RTOL and lerr <= STEP_LOSS_RTOL):
-        fail("the hash step through the kernels disagrees with the plain "
-             "version")
-    del grad_k, grad_plain
-    for k in dt.launches:
-        dt.launches[k] = 0
-    ld = htr.train_step(hstate, hdata, BATCH, seed=1)
-    torch.cuda.synchronize()
-    step_launches = dict(dt.launches)
-    log(f"hash train step launches: {json.dumps(step_launches)}")
-    if step_launches != {"dtab_dense": 3, "dtab_sorted": 21}:
-        fail("expected 3 dtab_dense and 21 dtab_sorted launches per step")
-
-    def time_steps(tr, state, data, n):
-        tr.train_step(state, data, BATCH, seed=1)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            ld = tr.train_step(state, data, BATCH, seed=1)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / n
-        loss = ld["loss"].item()
-        if not np.isfinite(loss):
-            fail(f"train step loss {loss}")
-        return {"ms_per_step": ms, "rays_per_s": BATCH / ms * 1e3,
-                "loss": loss, "steps": n,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "card": card}
-
+    step_match("hash step", htr, hstate, hdata, loss_plain, grad_plain)
+    del grad_plain
+    launches7 = step_launches("hash train step", htr, hstate, hdata,
+                              {"dtab_dense": 3, "dtab_sorted": 21})
     hash_rec = time_steps(htr, hstate, hdata, 10)
     log("hash train step: " + json.dumps(hash_rec))
-    del htr, hdata, hstate, enc
+    del htr, hdata, hstate
     torch.cuda.empty_cache()
 
     # 8. the flagship Siren train step
@@ -465,22 +569,136 @@ def main():
     s_state = s_tr.init_state(torch.Generator().manual_seed(0))
     siren_rec = time_steps(s_tr, s_state, s_data, 3)
     log("siren train step: " + json.dumps(siren_rec))
+    del s_tr, s_data, s_state
+    torch.cuda.empty_cache()
 
-    def entry(name, source_line):
-        recs = per[name]
+    # 9. the (L, T, F) table: t-major B2 and B3, the step
+    ttr, tdata = train_setup("hash", device=device, flat_table=False)
+    tstate = ttr.init_state(torch.Generator().manual_seed(0))
+    shape = tuple(tstate.model.encoding.table.shape)
+    if shape != (n_levels, T, n_feat):
+        fail(f"(L, T, F) table has shape {shape}")
+    calls, loss_plain, grad_plain = record_plain(ttr, tstate, tdata)
+    if len(calls) != 3 * n_levels or any(c[3] for c in calls):
+        fail(f"expected {3 * n_levels} t-major table gradients per step")
+    per9, dev9 = hold_calls(calls, True, ("dense", "sorted"))
+    del calls
+    match9 = step_match("(L, T, F) hash step", ttr, tstate, tdata, loss_plain,
+                        grad_plain)
+    del grad_plain
+    launches9 = step_launches("(L, T, F) hash train step", ttr, tstate, tdata,
+                              {"dtab_dense": 3, "dtab_sorted": 21})
+    tlf_rec = time_steps(ttr, tstate, tdata, 10)
+    tlf_rec.update(match9)
+    log("(L, T, F) hash train step: " + json.dumps(tlf_rec))
+    del ttr, tdata, tstate
+    torch.cuda.empty_cache()
+
+    # 10. SPNERF_HASH_SW_ACC=0 on the flat step: B3'
+    with env_set("SPNERF_HASH_SW_ACC", "0"):
+        htr, hdata = train_setup("hash", device=device)
+        hstate = htr.init_state(torch.Generator().manual_seed(0))
+        calls, loss_plain, grad_plain = record_plain(htr, hstate, hdata)
+        per10, dev10 = hold_calls(calls, False, ("partials",))
+        if len(per10["partials"]) != 21:
+            fail(f"expected 21 window-route calls, got "
+                 f"{len(per10['partials'])}")
+        skew10 = hold("partials", skew, ct6, t_eff6, True, "skewed",
+                      timed=False)
+        log(f"dtab_sorted_partials skewed: {json.dumps(skew10)}")
+        del calls
+        match10 = step_match("hash step, SW_ACC=0", htr, hstate, hdata,
+                             loss_plain, grad_plain)
+        del grad_plain
+        launches10 = step_launches(
+            "hash train step, SW_ACC=0", htr, hstate, hdata,
+            {"dtab_dense": 3, "dtab_sorted_partials": 21})
+        acc0_rec = time_steps(htr, hstate, hdata, 10)
+        acc0_rec.update(match10)
+        log("hash train step, SW_ACC=0: " + json.dumps(acc0_rec))
+        del htr, hdata, hstate
+    del skew, ct6
+    torch.cuda.empty_cache()
+
+    # 11. SPNERF_HASH_SW_BATCHED=1 on the (L, T, F) step: B4
+    def hold_batched(ids, ct, T_, tag, timed=True):
+        out = dt.dtab_batched(ids, ct, T_)
+        ref = dt.dtab_batched_plain(ids, ct, T_)
+        err, rel = rel_check(out, ref, f"dtab_batched {tag}")
+        if not torch.equal(out, dt.dtab_batched(ids, ct, T_)):
+            fail(f"dtab_batched {tag}: two calls differ")
+        L_, M = ids.shape
+        rec = dict(L=L_, M=M, t_eff=T_, err=err, rel=rel)
+        if timed:
+            keys = (ids.long() + torch.arange(L_, device=device)[:, None]
+                    * T_).reshape(-1)
+            flat_ct = ct.reshape(L_ * M, n_feat)
+            lib_out = torch.zeros((L_ * T_, n_feat), device=device)
+            rec.update(
+                ms=cuda_ms(lambda: dt.dtab_batched(ids, ct, T_), 5),
+                plain_ms=cuda_ms(lambda: dt.dtab_batched_plain(ids, ct, T_),
+                                 3),
+                library_ms=cuda_ms(lambda: lib_out.index_add_(0, keys,
+                                                              flat_ct), 3),
+                bound_ms=L_ * bound_ms(M, T_))
+            log(f"dtab_batched {tag}: max abs err {err:.3g} ({rel:.3g} of "
+                f"the largest entry), kernel {rec['ms']:.3f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms, index_add_ "
+                f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms")
+        else:
+            log(f"dtab_batched {tag}: max abs err {err:.3g} ({rel:.3g} of "
+                f"the largest entry), bitwise equal twice")
+        return rec
+
+    with env_set("SPNERF_HASH_SW_BATCHED", "1"):
+        ttr, tdata = train_setup("hash", device=device, flat_table=False)
+        tstate = ttr.init_state(torch.Generator().manual_seed(0))
+        bcalls, loss_plain, grad_plain = record_plain(ttr, tstate, tdata,
+                                                      batched=True)
+        if len(bcalls) != 3:
+            fail(f"expected 3 batched table gradients, got {len(bcalls)}")
+        per11 = [hold_batched(ids, ct, T_,
+                              f"L={ids.shape[0]} M={ids.shape[1]}")
+                 for ids, ct, T_ in bcalls]
+        # a skewed level (half its rows on 64 ids) and a level of
+        # direct-coarse ids (below 4,913) in the coarse pass's call
+        ids, ct, T_ = bcalls[0]
+        extra = ids.clone()
+        M = extra.shape[1]
+        gen = torch.Generator(device).manual_seed(4)
+        extra[1] = torch.randint(0, 4913, (M,), device=device, generator=gen)
+        extra[2, :M // 2] = torch.randint(0, 64, (M // 2,), device=device,
+                                          generator=gen)
+        extra11 = hold_batched(extra, ct, T_, "skewed and direct-coarse "
+                               "levels", timed=False)
+        dev11 = device_ms(lambda: [dt.dtab_batched(*c) for c in bcalls],
+                          len(bcalls))
+        log(f"device time per launch (profiler): {json.dumps(dev11)}")
+        del bcalls, ids, ct, extra
+        match11 = step_match("(L, T, F) hash step, SW_BATCHED=1", ttr, tstate,
+                             tdata, loss_plain, grad_plain)
+        del grad_plain
+        launches11 = step_launches(
+            "(L, T, F) hash train step, SW_BATCHED=1", ttr, tstate, tdata,
+            {"dtab_batched": 3})
+        bat_rec = time_steps(ttr, tstate, tdata, 10)
+        bat_rec.update(match11)
+        log("(L, T, F) hash train step, SW_BATCHED=1: " + json.dumps(bat_rec))
+        del ttr, tdata, tstate
+    torch.cuda.empty_cache()
+
+    def entry(name, source_line, recs, launches, extra_recs, dev, **more):
         n = len(recs)
         tot = {k: sum(r[k] for r in recs)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         e = {
-            "name": f"dtab_{name}",
+            "name": name,
             "route": "cuda",
             "source": "spnerf_torch/csrc/dtab.cu",
             "replaces": source_line,
-            "launches": step_launches[f"dtab_{name}"],
-            "max_abs_err": max([r["err"] for r in recs]
-                               + [skew_err[name][0]]),
-            "max_rel_err": max([r["rel"] for r in recs]
-                               + [skew_err[name][1]]),
+            "launches": launches,
+            "max_abs_err": max(r["err"] for r in recs + extra_recs),
+            "max_rel_err": max(r["rel"] for r in recs + extra_recs),
             "ms": tot["ms"] / n,
             "plain_ms": tot["plain_ms"] / n,
             "bound_ms": tot["bound_ms"] / n,
@@ -491,22 +709,48 @@ def main():
             "plain_ms_per_step": tot["plain_ms"],
             "library_ms_per_step": tot["library_ms"],
             "bound_ms_per_step": tot["bound_ms"],
-            "calls": [{k: r[k] for k in ("t_eff", "M", "ms", "plain_ms",
-                                         "library_ms", "bound_ms")}
+            "device_ms": dev["kernel"],
+            "calls": [{k: v for k, v in r.items() if k not in ("err", "rel")}
                       for r in recs],
             "card": card,
         }
-        e["device_ms"] = device_ms[name]
-        if name == "sorted":
-            e["kernel_only_ms"] = sum(r["kernel_only_ms"] for r in recs) / n
-            e["sort_device_ms"] = device_ms["sort"]
+        if name != "dtab_dense":
+            e["sort_device_ms"] = dev["sort"]
+        e.update(more)
         return e
 
+    def tmajor(recs, dev):
+        """The same kernel's numbers on the (L, T, F) step's t-major calls."""
+        n = len(recs)
+        return {"ms": sum(r["ms"] for r in recs) / n,
+                "library_ms": sum(r["library_ms"] for r in recs) / n,
+                "device_ms": dev["kernel"], "sort_device_ms": dev["sort"],
+                "max_rel_err": max(r["rel"] for r in recs)}
+
+    src = "spnerf_tpu/ops/pallas/dtab.py"
+    dense = entry("dtab_dense", f"{src}:127", per["dense"],
+                  launches7["dtab_dense"], [skew_err["dense"]], dev6["dense"],
+                  tmajor=tmajor(per9["dense"], dev9["dense"]))
+    sorted_ = entry("dtab_sorted", f"{src}:307", per["sorted"],
+                    launches7["dtab_sorted"], [skew_err["sorted"]],
+                    dev6["sorted"],
+                    kernel_only_ms=sum(r["kernel_only_ms"]
+                                       for r in per["sorted"])
+                    / len(per["sorted"]),
+                    tmajor=tmajor(per9["sorted"], dev9["sorted"]))
+    partials = entry("dtab_sorted_partials", f"{src}:307 (branch :475)",
+                     per10["partials"], launches10["dtab_sorted_partials"],
+                     [skew10], dev10["partials"])
+    batched = entry("dtab_batched", f"{src}:584", per11,
+                    launches11["dtab_batched"], [extra11], dev11)
     print(json.dumps({
-        "kernels": [field_entry,
-                    entry("dense", "spnerf_tpu/ops/pallas/dtab.py:127"),
-                    entry("sorted", "spnerf_tpu/ops/pallas/dtab.py:307")],
-        "train_steps": {"hash": hash_rec, "siren": siren_rec}}), flush=True)
+        "kernels": [field_entry, dense, sorted_, partials, batched],
+        "train_steps": {"hash": hash_rec, "siren": siren_rec,
+                        "hash_tlf": tlf_rec, "hash_sw_acc0": acc0_rec,
+                        "hash_tlf_batched": bat_rec},
+        "launches_per_step": {"hash": launches7, "hash_tlf": launches9,
+                              "hash_sw_acc0": launches10,
+                              "hash_tlf_batched": launches11}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,8 +36,13 @@ class ModelConfig:
     hash_frames: int = 1  # multi-AOI frames; only 1 is ported
     # levels whose dense grid fits the table index it directly
     hash_direct_coarse: bool = True
-    # each level's table is one flat feature-major row, row[f * T + t];
-    # only the flat table is ported
+    # "auto" | "xla" | "sorted_vjp" | "matmul_vjp" | "fused_vjp": the JAX
+    # package's lookup implementations. In the port every impl computes the
+    # same function; the impl only decides the table's layout (below)
+    hash_impl: str = "auto"
+    # each level's table is one flat feature-major row, row[f * T + t], when
+    # this is set and the impl is "auto", "xla" or "matmul_vjp"; else the
+    # table is (L, T, F) (--no_hash_flat_table, older checkpoints)
     hash_flat_table: bool = True
     # coarse-to-fine level annealing over the first N steps; 0 = off
     hash_anneal_steps: int = 0

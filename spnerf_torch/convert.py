@@ -8,8 +8,9 @@ trunk, sigma, feats, rgb x2, sun x4, sky x2, [beta x2], [sem x2]; for
 [beta x2], [sem x2]. Both store a dense kernel as (fan_in, out), so kernels
 and biases are copied as they are. The semantic table keeps its zero pad row
 at index `num_sem_classes`. The hash table, `HashGridEncoding_0/table` in
-flax and `encoding.table` in the port, is the (L, T * F) flat feature-major
-row in both and is copied unchanged.
+flax and `encoding.table` in the port, has the same layout in both, the
+(L, T * F) flat feature-major row or the (L, T, F) table, and is copied
+unchanged either way.
 """
 
 import re

@@ -15,7 +15,8 @@ def load_model(cfg, compute_dtype=None, device=None, generator=None):
     and placed on `device`. encoding="siren" is the SP-NeRF flagship,
     encoding="hash" the hash-grid family, whose table gradient runs through
     the hand-written kernels on CUDA (the JAX package's "matmul_vjp" impl on
-    an accelerator)."""
+    an accelerator); cfg.hash_flat_table and cfg.hash_impl choose its
+    table's layout."""
     from ..device import resolve_device
 
     device = resolve_device(device)

@@ -1,10 +1,9 @@
 """Multiresolution hash-grid encoding (Instant-NGP) and the hash-trunk SP-NeRF.
 
-The same modules as the JAX package's `HashGridEncoding` and `HashSPNeRF`
-with the defaults the hash family trains with there: the flat
-feature-major table, direct (collision-free) indexing of the levels whose
-dense grid fits the table, and the table gradient through the hand-written
-kernels (`ops/dtab.py`) on CUDA.
+The same modules as the JAX package's `HashGridEncoding` and `HashSPNeRF`,
+with direct (collision-free) indexing of the levels whose dense grid fits
+the table and the table gradient through the hand-written kernels
+(`ops/dtab.py`) on CUDA.
 
 Per level l the grid has res_l = floor(16 * b^l) cells per axis (b spreads
 the levels from 16 to 2048). A point's 8 cell corners index the level's
@@ -12,12 +11,27 @@ table directly when (res_l + 1)^3 <= T, else by the spatial hash
 xor_a(x_a * p_a) mod T; their features are interpolated trilinearly and the
 levels concatenated.
 
-Each level's table is one flat row of the (L, T * F) parameter, ordered
-feature-major (row[f * T + t]), so the (F, T) view is free and its first
-t_eff columns are the level's effective table. `HashTake` gathers columns of
-that view; its backward is the table gradient, (F, t_eff), which the view's
-own autograd pads back to the row.
+The table has one of the JAX package's two layouts, chosen as it chooses
+them (`flat_storage`): the impl decides the parameter's shape, and so which
+checkpoints load, and nothing else; every impl computes the same function.
+
+* Flat (the default): each level is one row of the (L, T * F) parameter,
+  ordered feature-major (row[f * T + t]), so the (F, T) view is free and its
+  first t_eff columns are the level's effective table. `HashTake` gathers
+  columns of that view; its backward is the feature-major table gradient,
+  (F, t_eff), which the view's own autograd pads back to the row. The
+  corner values are interpolated by seven lerps.
+* (L, T, F) (`hash_flat_table=False`, or an impl other than "xla",
+  "matmul_vjp" and "auto"): `HashTakeRows` gathers rows of the level's
+  (t_eff, F) slice; its backward is the t-major table gradient. The corner
+  values are interpolated by the trilinear weight product, as the JAX
+  package does on this layout. With SPNERF_HASH_SW_BATCHED=1 on CUDA
+  tensors (and the JAX package's other conditions, `use_batched`), one
+  `HashTakeBatched` gathers every level from its full table and its
+  backward is one batched table gradient (B4) for all levels.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -25,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.dtab import dtab
+from ..ops.dtab import dtab, dtab_levels, window_eligible
 from .spnerf import TorchDense, as_dtype, embed_lookup, softplus, uniform_
 
 # the spatial hash's primes; products are taken modulo 2^32 as in uint32
@@ -113,6 +127,50 @@ class HashTake(torch.autograd.Function):
         return d, None, None
 
 
+class HashTakeRows(torch.autograd.Function):
+    """Rows `idx` of a (t_eff, F) table slice -> (N, 8, F). Backward: the
+    t-major table gradient through `ops.dtab.dtab`, the counterpart of the
+    JAX package's `_take_matmul`."""
+
+    @staticmethod
+    def forward(ctx, tab_tf, idx, impl=None):
+        ctx.save_for_backward(idx)
+        ctx.t_eff = tab_tf.shape[0]
+        ctx.impl = impl
+        return tab_tf[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        n_feat = ct.shape[-1]
+        d = dtab(idx.reshape(-1), ct.reshape(-1, n_feat), ctx.t_eff, n_feat,
+                 impl=ctx.impl, fmajor=False)
+        return d, None, None
+
+
+class HashTakeBatched(torch.autograd.Function):
+    """Every level at once: an (L, T, F) table and (L, N, 8) ids -> (L, N,
+    8, F), each level gathered from its full table. Backward: one batched
+    table gradient, `ops.dtab.dtab_levels` (B4 on CUDA), the counterpart of
+    the JAX package's `_take_batched`."""
+
+    @staticmethod
+    def forward(ctx, table, idx, impl=None):
+        ctx.save_for_backward(idx)
+        ctx.table_size = table.shape[1]
+        ctx.impl = impl
+        lev = torch.arange(table.shape[0], device=idx.device)[:, None, None]
+        return table[lev, idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        L, n_feat = idx.shape[0], ct.shape[-1]
+        d = dtab_levels(idx.reshape(L, -1), ct.reshape(L, -1, n_feat),
+                        ctx.table_size, impl=ctx.impl)
+        return d, None, None
+
+
 def interp_lerp(vals, frac):
     """(F, N, 8) corner values, (N, 3) fractions -> (N, F): seven lerps,
     k then j then i (the corners are ordered (i, j, k) with k minor)."""
@@ -123,25 +181,67 @@ def interp_lerp(vals, frac):
     return v[..., 0].t()
 
 
+def interp_weights(vals, frac):
+    """(N, 8, F) corner values, (N, 3) fractions -> (N, F): the trilinear
+    weight product w (N, 8), then sum_c w[n, c] * vals[n, c, f]."""
+    corners = torch.as_tensor(_CORNERS, dtype=torch.float32,
+                              device=frac.device)
+    w = torch.ones(frac.shape[0], 8, dtype=torch.float32, device=frac.device)
+    for d in range(3):
+        cd = corners[:, d][None]  # (1, 8)
+        fd = frac[:, d:d + 1]  # (N, 1)
+        w = w * (cd * fd + (1.0 - cd) * (1.0 - fd))
+    return (w[..., None] * vals).sum(1)
+
+
+HASH_IMPLS = ("auto", "xla", "sorted_vjp", "matmul_vjp", "fused_vjp")
+
+
+def flat_storage(flat_table, impl):
+    """True when the table is the flat (L, T * F) row, as the JAX package
+    decides it: flat_table and an impl of "xla" or "matmul_vjp" ("auto"
+    resolves to one of the two)."""
+    if impl not in HASH_IMPLS:
+        raise ValueError(f"unknown hash impl {impl!r}; one of {HASH_IMPLS}")
+    return bool(flat_table) and impl in ("auto", "xla", "matmul_vjp")
+
+
+def use_batched(impl, flat, device, T, F, n_points, sw_batched=None):
+    """The JAX package's gate of the batched route (`HashGridEncoding`):
+    impl "matmul_vjp" ("auto" is that on an accelerator), the (L, T, F)
+    table, SPNERF_HASH_SW_BATCHED=1 (sw_batched: None reads it now), an
+    accelerator, and a window-eligible full table for the 8 corners of
+    n_points."""
+    if sw_batched is None:
+        sw_batched = os.environ.get("SPNERF_HASH_SW_BATCHED", "0") == "1"
+    return (impl in ("auto", "matmul_vjp") and not flat and sw_batched
+            and torch.device(device).type != "cpu"
+            and window_eligible(T, F, n_points * 8))
+
+
 class HashGridEncoding(nn.Module):
     """xyz in [-1, 1]^3 -> (N, n_levels * n_features) float32.
 
+    `flat_table` and `impl` choose the table's layout (`flat_storage`).
     `dtab_impl`: None takes the table gradient through the kernels on CUDA
     (the plain version on the CPU); "plain" takes the plain version on any
     device, for a reference run."""
 
     def __init__(self, n_levels=16, n_features=2, log2_table_size=19,
                  base_resolution=16, max_resolution=2048, direct_coarse=True,
-                 generator=None):
+                 flat_table=True, impl="auto", generator=None):
         super().__init__()
         self.n_levels = n_levels
         self.n_features = n_features
         self.table_size = 2 ** log2_table_size
         self.direct_coarse = direct_coarse
+        self.impl = impl
+        self.flat = flat_storage(flat_table, impl)
         self.resolutions = level_resolutions(n_levels, base_resolution,
                                              max_resolution)
-        self.table = nn.Parameter(
-            torch.empty(n_levels, self.table_size * n_features))
+        shape = ((n_levels, self.table_size * n_features) if self.flat
+                 else (n_levels, self.table_size, n_features))
+        self.table = nn.Parameter(torch.empty(shape))
         uniform_(self.table, 1e-4, generator)
         self.dtab_impl = None
 
@@ -154,13 +254,27 @@ class HashGridEncoding(nn.Module):
     def forward(self, xyz):
         L, nf, T = self.n_levels, self.n_features, self.table_size
         x01 = torch.clamp((xyz.float() + 1.0) * 0.5, 0.0, 1.0)
+        levels = [level_ids(x01, self.resolutions[l], T, self.direct_coarse)
+                  for l in range(L)]
+        if self.flat:
+            feats = []
+            for l, (idx, frac, t_eff) in enumerate(levels):
+                tab_ft = self.table[l].view(nf, T)[:, :t_eff]
+                vals = HashTake.apply(tab_ft, idx, self.dtab_impl)  # (F, N, 8)
+                feats.append(interp_lerp(vals, frac))
+            return torch.cat(feats, dim=-1)
+        if use_batched(self.impl, False, x01.device, T, nf, x01.shape[0]):
+            vals_all = HashTakeBatched.apply(
+                self.table, torch.stack([idx for idx, _, _ in levels]),
+                self.dtab_impl)  # (L, N, 8, F)
+            return torch.cat([interp_weights(vals_all[l], frac)
+                              for l, (_, frac, _) in enumerate(levels)],
+                             dim=-1)
         feats = []
-        for l in range(L):
-            idx, frac, t_eff = level_ids(x01, self.resolutions[l], T,
-                                         self.direct_coarse)
-            tab_ft = self.table[l].view(nf, T)[:, :t_eff]
-            vals = HashTake.apply(tab_ft, idx, self.dtab_impl)  # (F, N, 8)
-            feats.append(interp_lerp(vals, frac))
+        for l, (idx, frac, t_eff) in enumerate(levels):
+            vals = HashTakeRows.apply(self.table[l][:t_eff], idx,
+                                      self.dtab_impl)  # (N, 8, F)
+            feats.append(interp_weights(vals, frac))
         return torch.cat(feats, dim=-1)
 
 
@@ -183,13 +297,12 @@ def hash_layer_specs(cfg: ModelConfig):
 
 
 def check_hash_config(cfg: ModelConfig):
-    """Raise NotImplementedError for hash options the port lacks."""
+    """Raise NotImplementedError for hash options the port lacks, ValueError
+    for an unknown impl."""
     if cfg.hash_frames != 1:
         raise NotImplementedError(
-            "hash_frames > 1 (multi-AOI frames) is not ported (ROADMAP A10)")
-    if not cfg.hash_flat_table:
-        raise NotImplementedError(
-            "hash_flat_table=False is not ported (ROADMAP A10)")
+            "hash_frames > 1 (multi-AOI frames) is not ported (ROADMAP A11)")
+    flat_storage(cfg.hash_flat_table, cfg.hash_impl)
 
 
 class HashSPNeRF(nn.Module):
@@ -213,7 +326,9 @@ class HashSPNeRF(nn.Module):
         self.encoding = HashGridEncoding(
             n_levels=cfg.hash_levels, n_features=cfg.hash_features,
             log2_table_size=cfg.hash_log2T,
-            direct_coarse=cfg.hash_direct_coarse, generator=generator)
+            direct_coarse=cfg.hash_direct_coarse,
+            flat_table=cfg.hash_flat_table, impl=cfg.hash_impl,
+            generator=generator)
         specs = hash_layer_specs(cfg)
         self.index = {name: i for i, (name, _, _) in enumerate(specs)}
         self.dense = nn.ModuleList(

@@ -1,10 +1,14 @@
-"""Gradient of the hash table: the kernels B2 and B3, their plain version,
-and the router that picks between them as the JAX package does.
+"""Gradient of the hash table: the kernels B2, B3, B3′ and B4, their plain
+versions, and the routers that pick between them as the JAX package does.
 
-Every function here computes, for ids (M,) in [0, t_eff) and a
-feature-major cotangent ct_fm (F, M),
+Every per-level function here computes, for ids (M,) in [0, t_eff) and a
+cotangent of M rows of F values,
 
-    dtab[f, t] = sum_m [ids_m == t] * ct_fm[f, m]        -> (F, t_eff) f32
+    dtab[t, f] = sum_m [ids_m == t] * ct[m, f]
+
+in one of two layouts: feature-major (`fmajor=True`, the flat table's:
+ct (F, M) -> (F, t_eff)) or t-major (`fmajor=False`, the (L, T, F) table's:
+ct (M, F) -> (t_eff, F)). Results are float32.
 
 * `dtab_dense` (B2, `csrc/dtab.cu`) replaces the Pallas kernel `dtab_pallas`
   (`spnerf_tpu/ops/pallas/dtab.py`): a scatter-add with float atomics,
@@ -12,16 +16,32 @@ feature-major cotangent ct_fm (F, M),
 * `dtab_sorted` (B3) replaces the accumulating branch of
   `dtab_sorted_window` (same file): a stable sort of the ids, then a
   segmented sum that writes every run of equal ids once. Deterministic.
-* `dtab_plain` is the plain version, `index_add_`; CPU tensors use it.
+* `dtab_sorted_partials` (B3′) replaces its non-accumulating branch
+  (`SPNERF_HASH_SW_ACC=0`): the same sort and scan, the runs' sums written
+  to partials, then added to the table with float atomics.
+* `dtab_plain` is the plain version of all three, `index_add_`; CPU tensors
+  use it.
 * `dtab` routes a call as `_matmul_dtab` routes it on an accelerator
-  (`spnerf_tpu/models/hashgrid.py`): to B3 when the sorted-window kernel
-  would run there (`window_eligible`), to B2 otherwise. On a CUDA tensor it
-  launches a kernel or raises; it never falls back to the plain version.
+  (`spnerf_tpu/models/hashgrid.py`): to B3 (or B3′ when
+  `SPNERF_HASH_SW_ACC` is not "1", read at call time) when the sorted-window
+  kernel would run there (`window_eligible`), to B2 otherwise.
 
-`launches` counts kernel launches by name, process-wide.
+The batched form takes all L levels of an (L, T, F) table at once:
+ids (L, M), ct (L, M, F) -> (L, T, F), ids outside [0, T) dropped per level.
+
+* `dtab_batched` (B4) replaces `dtab_sorted_window_batched` (same file):
+  keys l * T + id, one stable sort of the L * M keys, B3's segmented sum.
+* `dtab_batched_plain` is its plain version, one `index_add_`.
+* `dtab_levels` routes it: the plain version on CPU tensors or with
+  impl="plain", B4 otherwise.
+
+On a CUDA tensor a router launches a kernel or raises; it never falls back
+to the plain version. `launches` counts kernel launches by name,
+process-wide.
 """
 
 import ctypes
+import os
 
 import torch
 
@@ -30,8 +50,10 @@ MBLK = 1024  # index rows per grid step of the TPU kernels
 WIN = 16  # sorted-window width in A-rows
 MAX_F = 8  # csrc/dtab.cu MAXF
 SEG = 256  # csrc/dtab.cu SEG: sorted rows per chunk
+INT32_LIMIT = 2 ** 31
 
-launches = {"dtab_dense": 0, "dtab_sorted": 0}
+launches = {"dtab_dense": 0, "dtab_sorted": 0, "dtab_sorted_partials": 0,
+            "dtab_batched": 0}
 
 
 def window_eligible(T, F, M):
@@ -45,48 +67,59 @@ def window_eligible(T, F, M):
     return A % WIN == 0 and A >= 16 * WIN and M * WIN >= 4 * A * MBLK
 
 
-def route(t_eff, F, M):
-    """"sorted" (B3) or "dense" (B2) for a call of these shapes. Shapes the
-    TPU kernels do not take (F outside 1, 2, 4, 8 or t_eff not a multiple
-    of LANES // F) go to B2, which takes any shape."""
-    return "sorted" if window_eligible(t_eff, F, M) else "dense"
+def route(t_eff, F, M, sw_acc=None):
+    """"sorted" (B3), "partials" (B3′) or "dense" (B2) for a call of these
+    shapes. Shapes the TPU kernels do not take (F outside 1, 2, 4, 8 or
+    t_eff not a multiple of LANES // F) go to B2, which takes any shape.
+    sw_acc: None reads SPNERF_HASH_SW_ACC now; as in the JAX package,
+    anything but "1" selects the non-accumulating branch (B3′)."""
+    if not window_eligible(t_eff, F, M):
+        return "dense"
+    if sw_acc is None:
+        sw_acc = os.environ.get("SPNERF_HASH_SW_ACC", "1") == "1"
+    return "sorted" if sw_acc else "partials"
 
 
-def dtab_plain(ids, ct_fm, t_eff):
-    """The plain version: `index_add_` into a zeroed (F, t_eff) table."""
-    out = torch.zeros((ct_fm.shape[0], t_eff), dtype=torch.float32,
-                      device=ct_fm.device)
-    return out.index_add_(1, ids.long(), ct_fm.float())
+def dtab_plain(ids, ct, t_eff, fmajor=True):
+    """The plain version: `index_add_` into a zeroed table."""
+    F = ct.shape[0] if fmajor else ct.shape[1]
+    shape = (F, t_eff) if fmajor else (t_eff, F)
+    out = torch.zeros(shape, dtype=torch.float32, device=ct.device)
+    return out.index_add_(1 if fmajor else 0, ids.long(), ct.float())
 
 
-def _check(ids, ct_fm, t_eff):
+def _check(ids, ct, t_eff, fmajor):
     if ids.device.type != "cuda":
         raise ValueError("the dtab kernels take CUDA tensors")
-    if ct_fm.device != ids.device:
-        raise ValueError(f"ct_fm on {ct_fm.device}, ids on {ids.device}")
-    F, M = ct_fm.shape
+    if ct.device != ids.device:
+        raise ValueError(f"ct on {ct.device}, ids on {ids.device}")
+    F, M = ct.shape if fmajor else ct.shape[::-1]
     if ids.shape != (M,):
-        raise ValueError(f"ids {tuple(ids.shape)} do not match ct_fm "
-                         f"{tuple(ct_fm.shape)}")
+        raise ValueError(f"ids {tuple(ids.shape)} do not match ct "
+                         f"{tuple(ct.shape)} (fmajor={fmajor})")
     if not 1 <= F <= MAX_F:
         raise ValueError(f"the dtab kernels take 1 <= F <= {MAX_F}, got {F}")
-    if M >= 2 ** 31 or F * t_eff >= 2 ** 31:
+    if M >= INT32_LIMIT or F * t_eff >= INT32_LIMIT:
         raise ValueError("the dtab kernels index with 32-bit ints")
     return (ids.to(torch.int32).contiguous(),
-            ct_fm.to(torch.float32).contiguous(), F, M)
+            ct.to(torch.float32).contiguous(), F, M)
 
 
 def _lib():
     from . import _build
 
     lib = _build.load("dtab")
-    lib.spnerf_dtab_dense.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-    lib.spnerf_dtab_dense.restype = ctypes.c_int
-    lib.spnerf_dtab_sorted.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
-    lib.spnerf_dtab_sorted.restype = ctypes.c_int
-    lib.spnerf_dtab_error_string.argtypes = [ctypes.c_int]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+            ("spnerf_dtab_dense", [ptr] * 2 + [i32] * 4 + [ptr] * 2),
+            ("spnerf_dtab_sorted", [ptr] * 3 + [i32] * 4 + [ptr] * 3),
+            ("spnerf_dtab_sorted_partials", [ptr] * 3 + [i32] * 4 + [ptr] * 4),
+            ("spnerf_dtab_batched_keys", [ptr] + [i32] * 3 + [ptr] * 2),
+            ("spnerf_dtab_sorted_batched", [ptr] * 3 + [i32] * 4 + [ptr] * 3)):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
+    lib.spnerf_dtab_error_string.argtypes = [i32]
     lib.spnerf_dtab_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -102,61 +135,160 @@ def _raise_on(lib, err, name):
                            + lib.spnerf_dtab_error_string(err).decode())
 
 
-def dtab_dense(ids, ct_fm, t_eff):
+def _zeros(F, t_eff, fmajor, device):
+    shape = (F, t_eff) if fmajor else (t_eff, F)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def dtab_dense(ids, ct, t_eff, fmajor=True):
     """B2 on CUDA tensors. Float atomics: the last bits vary run to run."""
-    ids, ct, F, M = _check(ids, ct_fm, t_eff)
-    out = torch.zeros((F, t_eff), dtype=torch.float32, device=ids.device)
+    ids, ct, F, M = _check(ids, ct, t_eff, fmajor)
+    out = _zeros(F, t_eff, fmajor, ids.device)
     if M:
         lib = _lib()
         err = lib.spnerf_dtab_dense(ids.data_ptr(), ct.data_ptr(), M, F,
-                                    t_eff, out.data_ptr(), _stream(ids.device))
+                                    t_eff, int(not fmajor), out.data_ptr(),
+                                    _stream(ids.device))
         _raise_on(lib, err, "dtab_dense")
         launches["dtab_dense"] += 1
     return out
 
 
 def sort_ids(ids):
-    """The stable sort B3 runs before its kernel: (sorted ids, permutation)."""
+    """The stable sort B3 and B3′ run before their kernels: (sorted ids,
+    permutation)."""
     return torch.sort(ids.to(torch.int32), stable=True)
 
 
-def dtab_sorted_kernel(ids_s, perm, ct_fm, t_eff):
+def dtab_sorted_kernel(ids_s, perm, ct, t_eff, fmajor=True):
     """B3's kernel alone, on the output of `sort_ids`."""
-    ids_s, ct, F, M = _check(ids_s, ct_fm, t_eff)
+    ids_s, ct, F, M = _check(ids_s, ct, t_eff, fmajor)
     perm = perm.to(torch.int64).contiguous()
-    out = torch.zeros((F, t_eff), dtype=torch.float32, device=ids_s.device)
+    out = _zeros(F, t_eff, fmajor, ids_s.device)
     if M:
         scratch = torch.empty(2 * -(-M // SEG) * F, dtype=torch.float32,
                               device=ids_s.device)
         lib = _lib()
         err = lib.spnerf_dtab_sorted(ids_s.data_ptr(), perm.data_ptr(),
                                      ct.data_ptr(), M, F, t_eff,
-                                     out.data_ptr(), scratch.data_ptr(),
-                                     _stream(ids_s.device))
+                                     int(not fmajor), out.data_ptr(),
+                                     scratch.data_ptr(), _stream(ids_s.device))
         _raise_on(lib, err, "dtab_sorted")
         launches["dtab_sorted"] += 1
     return out
 
 
-def dtab_sorted(ids, ct_fm, t_eff):
+def dtab_sorted(ids, ct, t_eff, fmajor=True):
     """B3 on CUDA tensors: sort, then the segmented-sum kernel. The result
     is the same bits from run to run."""
     ids_s, perm = sort_ids(ids)
-    return dtab_sorted_kernel(ids_s, perm, ct_fm, t_eff)
+    return dtab_sorted_kernel(ids_s, perm, ct, t_eff, fmajor)
 
 
-def dtab(ids, ct_fm, t_eff, F, impl=None):
-    """Router: (M,) ids, (F, M) cotangent -> (F, t_eff) table gradient.
+def dtab_sorted_partials(ids, ct, t_eff, fmajor=True):
+    """B3′ on CUDA tensors: sort, the runs' sums per chunk into partials,
+    then float-atomic adds of the partials. The last bits vary run to run."""
+    ids, ct, F, M = _check(ids, ct, t_eff, fmajor)
+    out = _zeros(F, t_eff, fmajor, ids.device)
+    if M:
+        ids_s, perm = sort_ids(ids)
+        part_ids = torch.empty(M, dtype=torch.int32, device=ids.device)
+        part_vals = torch.empty(M * F, dtype=torch.float32, device=ids.device)
+        lib = _lib()
+        err = lib.spnerf_dtab_sorted_partials(
+            ids_s.data_ptr(), perm.data_ptr(), ct.data_ptr(), M, F, t_eff,
+            int(not fmajor), out.data_ptr(), part_ids.data_ptr(),
+            part_vals.data_ptr(), _stream(ids.device))
+        _raise_on(lib, err, "dtab_sorted_partials")
+        launches["dtab_sorted_partials"] += 1
+    return out
 
-    CPU tensors take the plain version. CUDA tensors take B3 or B2 as
-    `route` says, or the plain version when the caller asks for it with
-    impl="plain" (a reference run, never a fallback)."""
-    if ct_fm.shape[0] != F:
-        raise ValueError(f"ct_fm has {ct_fm.shape[0]} features, expected {F}")
+
+_KERNELS = {"dense": dtab_dense, "sorted": dtab_sorted,
+            "partials": dtab_sorted_partials}
+
+
+def dtab(ids, ct, t_eff, F, impl=None, fmajor=True, sw_acc=None):
+    """Router: (M,) ids and a cotangent of F features -> the table gradient,
+    (F, t_eff) for a feature-major ct (F, M), (t_eff, F) for a t-major ct
+    (M, F) (fmajor=False).
+
+    CPU tensors take the plain version. CUDA tensors take B3, B3′ or B2 as
+    `route` says (sw_acc: None reads SPNERF_HASH_SW_ACC), or the plain
+    version when the caller asks for it with impl="plain" (a reference run,
+    never a fallback)."""
+    got = ct.shape[0] if fmajor else ct.shape[-1]
+    if got != F:
+        raise ValueError(f"ct has {got} features, expected {F}")
     if impl not in (None, "plain"):
         raise ValueError(f"unknown dtab impl {impl!r}")
     if impl == "plain" or ids.device.type == "cpu":
-        return dtab_plain(ids, ct_fm, t_eff)
-    if route(t_eff, F, ids.shape[0]) == "sorted":
-        return dtab_sorted(ids, ct_fm, t_eff)
-    return dtab_dense(ids, ct_fm, t_eff)
+        return dtab_plain(ids, ct, t_eff, fmajor)
+    name = route(t_eff, F, ids.shape[0], sw_acc)
+    return _KERNELS[name](ids, ct, t_eff, fmajor)
+
+
+# ------------------------------------------------------------- batched, B4
+
+def dtab_batched_plain(ids, ct, T):
+    """The plain version of B4: one `index_add_` into a zeroed (L * T, F)
+    table at rows l * T + id; ids outside [0, T) go to one extra row that is
+    dropped."""
+    L, M = ids.shape
+    F = ct.shape[-1]
+    ids = ids.long()
+    offs = torch.arange(L, device=ids.device)[:, None] * T
+    rows = torch.where((ids >= 0) & (ids < T), ids + offs, L * T)
+    out = torch.zeros((L * T + 1, F), dtype=torch.float32, device=ct.device)
+    out.index_add_(0, rows.reshape(-1), ct.reshape(L * M, F).float())
+    return out[:L * T].reshape(L, T, F)
+
+
+def dtab_batched(ids, ct, T):
+    """B4 on CUDA tensors: ids (L, M), ct (L, M, F) -> (L, T, F). The keys
+    kernel, one stable sort of the L * M keys, the segmented sum. The result
+    is the same bits from run to run."""
+    if ids.dim() != 2 or ct.dim() != 3 or ct.shape[:2] != ids.shape:
+        raise ValueError(f"ids {tuple(ids.shape)} and ct {tuple(ct.shape)} "
+                         f"are not (L, M) and (L, M, F)")
+    L, M = ids.shape
+    F = ct.shape[2]
+    if not 1 <= F <= MAX_F:
+        raise ValueError(f"the dtab kernels take 1 <= F <= {MAX_F}, got {F}")
+    if L * T >= INT32_LIMIT or L * M >= INT32_LIMIT \
+            or F * L * T >= INT32_LIMIT:
+        raise ValueError(f"B4's keys l * T + id are 32-bit: L={L}, T={T}, "
+                         f"M={M}, F={F} do not fit")
+    if ids.device.type != "cuda":
+        raise ValueError("the dtab kernels take CUDA tensors")
+    if ct.device != ids.device:
+        raise ValueError(f"ct on {ct.device}, ids on {ids.device}")
+    ids = ids.to(torch.int32).contiguous()
+    ct = ct.to(torch.float32).contiguous()
+    out = torch.zeros((L, T, F), dtype=torch.float32, device=ids.device)
+    if M:
+        lib = _lib()
+        stream = _stream(ids.device)
+        keys = torch.empty((L, M), dtype=torch.int32, device=ids.device)
+        err = lib.spnerf_dtab_batched_keys(ids.data_ptr(), L, M, T,
+                                           keys.data_ptr(), stream)
+        _raise_on(lib, err, "dtab_batched (keys)")
+        keys_s, perm = torch.sort(keys.reshape(-1), stable=True)
+        scratch = torch.empty(2 * -(-(L * M) // SEG) * F,
+                              dtype=torch.float32, device=ids.device)
+        err = lib.spnerf_dtab_sorted_batched(
+            keys_s.data_ptr(), perm.data_ptr(), ct.data_ptr(), L, M, F, T,
+            out.data_ptr(), scratch.data_ptr(), stream)
+        _raise_on(lib, err, "dtab_batched")
+        launches["dtab_batched"] += 1
+    return out
+
+
+def dtab_levels(ids, ct, T, impl=None):
+    """Router of the batched form: ids (L, M), ct (L, M, F) -> (L, T, F).
+    CPU tensors and impl="plain" take the plain version, CUDA tensors B4."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"unknown dtab impl {impl!r}")
+    if impl == "plain" or ids.device.type == "cpu":
+        return dtab_batched_plain(ids, ct, T)
+    return dtab_batched(ids, ct, T)

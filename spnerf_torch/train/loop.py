@@ -11,15 +11,17 @@ increments, as optax does. Beta warm-up (the SNeRF colour loss for the
 first `first_beta_epoch` epochs) and the ds/ss drop schedules switch on the
 step count.
 
+The options `grad_clip`, `table_level_lr_decay`, `table_wd` and
+`weight_decay` replace Adam by the JAX package's optax chain, in its order
+(`AdamChain`); at their defaults the optimizer stays `torch.optim.Adam`.
+
 The step runs eagerly and updates the state in place: the model's
 parameters, the optimizer's moments and the step count. `train_steps(n)`
 takes n steps in a plain loop where the JAX package scans them in one
 program.
 
 Not ported (they raise NotImplementedError): a device mesh, the occupancy
-grid, the proposal sampler, the fine pass (`n_importance > 0`), and the
-optimizer options `grad_clip`, `table_wd`, `table_level_lr_decay` and
-`weight_decay` (ROADMAP A6).
+grid, the proposal sampler and the fine pass (`n_importance > 0`).
 """
 
 from dataclasses import dataclass
@@ -43,25 +45,109 @@ def make_lr_schedule(lr, steps_per_epoch, gamma=0.9):
     return lambda step: lr * gamma ** (int(step) // spe)
 
 
-_OPTIMIZER_DEFAULTS = {"table_wd": 0.0, "table_level_lr_decay": 1.0,
-                       "weight_decay": 0.0, "grad_clip": 0.0}
+class AdamChain(torch.optim.Optimizer):
+    """The JAX package's optimizer with its regularisers
+    (`spnerf_tpu/train/loop.py` `make_optimizer`), the optax chain in its
+    order:
+
+      1. clip_by_global_norm(grad_clip) when grad_clip > 0: g if the global
+         norm is below grad_clip, else g / norm * grad_clip;
+      2. scale_by_adam (b1 0.9, b2 0.999, eps 1e-8 outside the square root,
+         bias correction at the incremented count);
+      3. the table's update times gamma^l per level, a (L, 1) multiplier
+         broadcast against the table as numpy broadcasts it, when
+         table_level_lr_decay != 1;
+      4. + table_wd * param on the table;
+      5. + weight_decay * param on every parameter;
+      6. times -lr, the group's "lr" at the step.
+
+    `named_params` is a list of (name, parameter); the table is the one
+    named `table` (a leaf name, as the JAX package's mask reads it). A
+    parameter without a gradient takes a zero gradient, as optax does."""
+
+    def __init__(self, named_params, lr, n_levels=8, table_wd=0.0,
+                 table_level_lr_decay=1.0, weight_decay=0.0, grad_clip=0.0,
+                 betas=(0.9, 0.999), eps=1e-8):
+        named_params = list(named_params)
+        super().__init__([p for _, p in named_params], dict(lr=lr))
+        tables = [p for name, p in named_params
+                  if name.split(".")[-1] == "table"]
+        self.table_ids = {id(p) for p in tables}
+        self.grad_clip = float(grad_clip)
+        self.table_wd = float(table_wd)
+        self.weight_decay = float(weight_decay)
+        self.betas, self.eps = betas, eps
+        self.count = 0
+        self.mult = None
+        if table_level_lr_decay != 1.0:
+            # gamma^l as the JAX package's `_scale_table_levels` builds it:
+            # float64 powers cast to float32, shape (L, 1)
+            powers = np.arange(n_levels, dtype=np.float64)
+            self.mult = torch.from_numpy(
+                (float(table_level_lr_decay) ** powers).astype(np.float32)
+                [:, None])
+            for p in tables:
+                try:
+                    shape = np.broadcast_shapes(tuple(p.shape),
+                                                tuple(self.mult.shape))
+                except ValueError:
+                    shape = None
+                if shape != tuple(p.shape):
+                    raise ValueError(
+                        f"table_level_lr_decay: the ({n_levels}, 1) level "
+                        f"multiplier does not broadcast against the table "
+                        f"{tuple(p.shape)} (the JAX package fails the same "
+                        f"way on the (L, T, F) table)")
+
+    @torch.no_grad()
+    def step(self):
+        params = [p for g in self.param_groups for p in g["params"]]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        if self.grad_clip > 0.0:
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            grads = [torch.where(norm < self.grad_clip, g,
+                                 g / norm * self.grad_clip) for g in grads]
+        b1, b2 = self.betas
+        self.count += 1
+        bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
+        grads = iter(grads)
+        for group in self.param_groups:
+            lr = group["lr"]
+            for p, g in zip(group["params"], grads):
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                mu, nu = st["mu"], st["nu"]
+                mu.copy_((1.0 - b1) * g + b1 * mu)
+                nu.copy_((1.0 - b2) * g * g + b2 * nu)
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                if id(p) in self.table_ids:
+                    if self.mult is not None:
+                        u = u * self.mult.to(u.device)
+                    if self.table_wd:
+                        u = u + self.table_wd * p
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                p.add_(u, alpha=-lr)
 
 
-def check_optimizer_options(**options):
-    """The JAX optimizer's regularisers are not ported: any of them at a
-    non-default value raises."""
-    for name, value in options.items():
-        if value != _OPTIMIZER_DEFAULTS[name]:
-            raise NotImplementedError(
-                f"optimizer option {name}={value} is not ported (ROADMAP A6)")
-
-
-def make_optimizer(params, lr_schedule, **options):
-    """Adam with the JAX package's hyperparameters (see
-    check_optimizer_options for the options)."""
-    check_optimizer_options(**options)
-    return torch.optim.Adam(params, lr=lr_schedule(0), betas=(0.9, 0.999),
-                            eps=1e-8)
+def make_optimizer(named_params, lr_schedule, n_levels=8, table_wd=0.0,
+                   table_level_lr_decay=1.0, weight_decay=0.0, grad_clip=0.0):
+    """Adam with the JAX package's hyperparameters; with any of its
+    regularisers set, the optax chain `AdamChain`. named_params: a list of
+    (name, parameter)."""
+    named_params = list(named_params)
+    if (table_wd == 0.0 and table_level_lr_decay == 1.0
+            and weight_decay == 0.0 and grad_clip == 0.0):
+        return torch.optim.Adam([p for _, p in named_params],
+                                lr=lr_schedule(0), betas=(0.9, 0.999),
+                                eps=1e-8)
+    return AdamChain(named_params, lr_schedule(0), n_levels=n_levels,
+                     table_wd=table_wd,
+                     table_level_lr_decay=table_level_lr_decay,
+                     weight_decay=weight_decay, grad_clip=grad_clip)
 
 
 @dataclass
@@ -101,7 +187,6 @@ class Trainer:
         self.opt_options = dict(table_wd=table_wd,
                                 table_level_lr_decay=table_level_lr_decay,
                                 weight_decay=weight_decay, grad_clip=grad_clip)
-        check_optimizer_options(**self.opt_options)
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator=None) -> TrainState:
@@ -113,12 +198,15 @@ class Trainer:
         if self.mc.beta:
             t_embed = TransientEmbedding(self.t_vocab, self.mc.t_embedding_dims,
                                          generator).to(self.device)
-        params = list(model.parameters())
+        params = list(model.named_parameters())
         if t_embed is not None:
-            params += list(t_embed.parameters())
+            params += [(f"t_embed.{name}", p)
+                       for name, p in t_embed.named_parameters()]
         return TrainState(step=0, model=model, t_embed=t_embed,
-                          optimizer=make_optimizer(params, self.lr_schedule,
-                                                   **self.opt_options))
+                          optimizer=make_optimizer(
+                              params, self.lr_schedule,
+                              n_levels=self.mc.hash_levels,
+                              **self.opt_options))
 
     def to_device(self, data):
         """Scene arrays (numpy or tensors) as tensors on the device."""
@@ -186,7 +274,8 @@ class Trainer:
         return {k: v[idx] for k, v in data.items()}
 
     def apply_gradients(self, state, loss):
-        """Backward, then one Adam update at the step's learning rate."""
+        """Backward, then one optimizer update at the step's learning
+        rate."""
         for group in state.optimizer.param_groups:
             group["lr"] = self.lr_schedule(state.step)
         state.optimizer.zero_grad(set_to_none=True)

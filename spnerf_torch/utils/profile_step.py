@@ -3,6 +3,13 @@
 Usage (from the repository root, on a machine with a CUDA device):
 
     python -m spnerf_torch.utils.profile_step --family hash --steps 5
+    SPNERF_HASH_SW_BATCHED=1 python -m spnerf_torch.utils.profile_step \
+        --no_flat_table
+
+`--no_flat_table` profiles the hash step with the (L, T, F) table. The
+table-gradient router reads SPNERF_HASH_SW_ACC and SPNERF_HASH_SW_BATCHED
+from the environment at call time, so the hash step's variants are
+profiled by setting them for the command; the output names them.
 
 Builds the flagship ("siren") or hash train step of `train_setup`, takes 2
 warm-up steps, times `--steps` steps with CUDA events, then runs the same
@@ -17,6 +24,7 @@ records none, they are printed as null ("not measured").
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -24,7 +32,7 @@ import time
 import torch
 
 CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("port: dtab", ("dtab_dense", "seg_sum")),
+    ("port: dtab", ("dtab_dense", "seg_", "partials", "batched_keys")),
     ("port: field_eval", ("field_eval",)),
     ("sort", ("radix", "Sort", "sort")),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "Gemm")),
@@ -61,6 +69,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--no_flat_table", action="store_true",
+                    help="hash family: the (L, T, F) table")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_step needs a CUDA device")
@@ -71,7 +81,8 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip().splitlines()[0]
-    tr, data = train_setup(args.family, device="cuda")
+    tr, data = train_setup(args.family, device="cuda",
+                           flat_table=not args.no_flat_table)
     state = tr.init_state(torch.Generator().manual_seed(0))
     for _ in range(2):
         tr.train_step(state, data, args.batch)
@@ -95,6 +106,9 @@ def main(argv=None):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     rec = {"family": args.family, "batch": args.batch, "steps": args.steps,
+           "flat_table": not args.no_flat_table,
+           "env": {k: v for k, v in sorted(os.environ.items())
+                   if k.startswith("SPNERF_")},
            "ms_per_step": ms_per_step, "card": card}
     if not kernels:
         rec.update(device_busy_ms_per_step=None, idle_share=None,

@@ -31,24 +31,26 @@ def flagship_loss_config():
                       sem=True, ss_lambda=1.0)
 
 
-def hash_configs(n_samples=64):
+def hash_configs(n_samples=64, flat_table=True):
     """The flagship configuration with the hash-grid trunk (8 levels x 4
     features, T = 2^19, hidden 64): (model, render, loss) configs. It
-    trains at lr HASH_LR."""
+    trains at lr HASH_LR. flat_table=False keeps the table as (L, T, F)."""
     mc, rc = flagship_configs(n_samples)
-    return replace(mc, encoding="hash"), rc, flagship_loss_config()
+    mc = replace(mc, encoding="hash", hash_flat_table=flat_table)
+    return mc, rc, flagship_loss_config()
 
 
-def train_setup(encoding="siren", n_rays=65536, device=None, seed=0):
+def train_setup(encoding="siren", n_rays=65536, device=None, seed=0,
+                flat_table=True):
     """(trainer, data) of the flagship train step (encoding="siren", lr
-    5e-4) or its hash family (encoding="hash", lr 1e-2): a Trainer at 1000
-    steps per epoch and 30,000 steps, and a device-resident synthetic scene
-    of n_rays rows from `seed`. The state comes from
-    `trainer.init_state(generator)`."""
+    5e-4) or its hash family (encoding="hash", lr 1e-2; flat_table=False
+    for the (L, T, F) table): a Trainer at 1000 steps per epoch and 30,000
+    steps, and a device-resident synthetic scene of n_rays rows from `seed`.
+    The state comes from `trainer.init_state(generator)`."""
     from ..train.loop import Trainer
 
     if encoding == "hash":
-        (mc, rc, lc), lr = hash_configs(), HASH_LR
+        (mc, rc, lc), lr = hash_configs(flat_table=flat_table), HASH_LR
     else:
         mc, rc = flagship_configs()
         lc, lr = flagship_loss_config(), FLAGSHIP_LR

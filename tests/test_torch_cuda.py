@@ -8,7 +8,8 @@ no JAX, so it also runs where JAX is not installed:
 Tolerances: the field kernel, bf16, 2e-2 absolute (the kernel and the plain
 version sum in different orders, which can move an activation by one bf16
 ulp); the table-gradient kernels, float32, 1e-5 of the largest entry (sums of
-up to thousands of rows in another order), and B3 bitwise equal to itself.
+up to thousands of rows in another order), and B3 and B4 bitwise equal to
+themselves.
 """
 
 import itertools
@@ -153,6 +154,104 @@ def test_dtab_kernels_match_plain(device, kind, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "end", "ragged", "f8",
+                                  "large"])
+@pytest.mark.parametrize("name", ["dense", "sorted", "partials"])
+def test_dtab_kernels_match_plain_tmajor(device, kind, name):
+    """B2, B3 and B3′ on the t-major layout of the (L, T, F) table (ct
+    (M, F), out (t_eff, F)) against the plain version; B3′ also on the
+    feature-major layout. 1e-5 of the largest entry."""
+    from spnerf_torch.ops import dtab as dt
+
+    ids, ct_fm, t_eff = dtab_case(kind, device)
+    key = {"dense": "dtab_dense", "sorted": "dtab_sorted",
+           "partials": "dtab_sorted_partials"}[name]
+    fn = {"dense": dt.dtab_dense, "sorted": dt.dtab_sorted,
+          "partials": dt.dtab_sorted_partials}[name]
+    for fmajor in ((False, True) if name == "partials" else (False,)):
+        ct = ct_fm if fmajor else ct_fm.t().contiguous()
+        before = dt.launches[key]
+        out = fn(ids, ct, t_eff, fmajor=fmajor)
+        torch.cuda.synchronize()
+        assert dt.launches[key] == before + 1
+        ref = dt.dtab_plain(ids, ct, t_eff, fmajor=fmajor)
+        assert out.shape == ref.shape
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), (fmajor, err)
+
+
+def batched_case(device, M=300_000, seed=0):
+    """(ids (L, M), ct (L, M, F), T) with L = 5 levels: uniform, direct-coarse
+    ids below 4,913, skewed onto 64 ids, ids at both ends of the level, and
+    out-of-range ids (-1, T, T + 5) mixed into a uniform level."""
+    g = np.random.default_rng(seed)
+    T, F = 2 ** 19, 4
+    ids = g.integers(0, T, (5, M))
+    ids[1] = g.integers(0, 4913, M)
+    ids[2, : M // 2] = g.integers(0, 64, M // 2)
+    ids[3] = np.where(g.uniform(size=M) < 0.5, g.integers(0, 100, M),
+                      g.integers(T - 100, T, M))
+    bad = g.uniform(size=M) < 0.1
+    ids[4] = np.where(bad, g.choice([-1, T, T + 5], M), ids[4])
+    ct = g.normal(size=(5, M, F)).astype(np.float32)
+    return (torch.from_numpy(ids.astype(np.int32)).to(device),
+            torch.from_numpy(ct).to(device), T)
+
+
+@pytest.mark.cuda
+def test_dtab_batched_matches_plain_and_repeats(device):
+    """B4 against its plain version (1e-5 of the largest entry), the same
+    bits twice, out-of-range ids dropped in their own level, and the router
+    launching it once per call."""
+    from spnerf_torch.ops import dtab as dt
+
+    ids, ct, T = batched_case(device)
+    before = dict(dt.launches)
+    out = dt.dtab_levels(ids, ct, T)
+    torch.cuda.synchronize()
+    assert dt.launches["dtab_batched"] == before["dtab_batched"] + 1
+    assert sum(dt.launches.values()) == sum(before.values()) + 1
+    ref = dt.dtab_batched_plain(ids, ct, T)
+    assert out.shape == (5, T, 4)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), err
+    assert torch.equal(out, dt.dtab_batched(ids, ct, T))
+    # level 4 equals its in-range rows alone
+    keep = (ids[4] >= 0) & (ids[4] < T)
+    one = dt.dtab_plain(ids[4][keep], ct[4][keep], T, fmajor=False)
+    assert (out[4] - one).abs().max() <= 1e-5 * max(one.abs().max(), 1.0)
+    assert dt.dtab_levels(ids, ct, T, impl="plain").shape == out.shape
+
+
+def small_hash_trainer(device, flat_table=True):
+    from spnerf_torch.config import LossConfig
+    from spnerf_torch.train.loop import Trainer
+
+    mc = ModelConfig(encoding="hash", hash_levels=4, hash_log2T=16,
+                     hash_hidden=32, sem=True, num_sem_classes=3,
+                     hash_flat_table=flat_table)
+    rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
+                      sem=True, compute_dtype="bfloat16")
+    lc = LossConfig(sc_lambda=0.1, depth=True, ds_lambda=1.0, sem=True,
+                    ss_lambda=1.0)
+    tr = Trainer(mc, rc, lc, lr=1e-2, device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    data = tr.to_device(fake_batch(np.random.default_rng(0), 4096))
+    return mc, tr, state, data
+
+
+def step_grads(tr, state, data, impl, batch=512):
+    state.model.encoding.dtab_impl = impl
+    state.optimizer.zero_grad(set_to_none=True)
+    g = tr.step_generator(0, 1)
+    loss, _ = tr.loss_fn(state, tr.sample_batch(data, batch, g), 0,
+                         generator=g)
+    loss.backward()
+    state.model.encoding.dtab_impl = None
+    return loss.item(), state.model.encoding.table.grad.clone()
+
+
+@pytest.mark.cuda
 def test_dtab_router_launches_kernels_on_cuda(device):
     from spnerf_torch.ops import dtab as dt
 
@@ -190,14 +289,7 @@ def test_hash_train_step_runs_through_kernels(device):
     data = tr.to_device(fake_batch(np.random.default_rng(0), 4096))
 
     def grads(impl):
-        state.model.encoding.dtab_impl = impl
-        state.optimizer.zero_grad(set_to_none=True)
-        g = tr.step_generator(0, 1)
-        loss, _ = tr.loss_fn(state, tr.sample_batch(data, 512, g), 0,
-                             generator=g)
-        loss.backward()
-        state.model.encoding.dtab_impl = None
-        return loss.item(), state.model.encoding.table.grad.clone()
+        return step_grads(tr, state, data, impl)
 
     before = sum(dt.launches.values())
     loss_k, g_k = grads(None)
@@ -205,6 +297,45 @@ def test_hash_train_step_runs_through_kernels(device):
     assert sum(dt.launches.values()) == before + 3 * mc.hash_levels
     loss_p, g_p = grads("plain")
     assert sum(dt.launches.values()) == before + 3 * mc.hash_levels
+    assert abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
+    assert (g_k - g_p).abs().max() <= 1e-4 * g_p.abs().max()
+    ld = tr.train_steps(state, data, 2, batch_size=512)
+    assert np.isfinite(ld["loss"].item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tlf", "tlf_batched", "flat_sw_acc0"])
+def test_hash_step_variants_run_through_kernels(device, monkeypatch, variant):
+    """The (L, T, F) table's step (per-level t-major B2/B3, or B4 under
+    SPNERF_HASH_SW_BATCHED=1) and the flat step under SPNERF_HASH_SW_ACC=0
+    (B3′): every table gradient through a kernel of the variant, the table
+    gradient within 1e-4 of the plain run's largest entry, the loss within
+    1e-6."""
+    from spnerf_torch.ops import dtab as dt
+
+    if variant == "tlf_batched":
+        monkeypatch.setenv("SPNERF_HASH_SW_BATCHED", "1")
+    if variant == "flat_sw_acc0":
+        monkeypatch.setenv("SPNERF_HASH_SW_ACC", "0")
+    mc, tr, state, data = small_hash_trainer(
+        device, flat_table=variant == "flat_sw_acc0")
+    # batch 512 x 16 samples x 8 corners = 65,536 rows: hashed T = 2^16
+    # levels are window-eligible from 4 * 256 * 1024 / 16 = 65,536 rows on
+    before = dict(dt.launches)
+    loss_k, g_k = step_grads(tr, state, data, None)
+    torch.cuda.synchronize()
+    n = {k: dt.launches[k] - before[k] for k in before}
+    if variant == "tlf_batched":
+        assert n == {"dtab_dense": 0, "dtab_sorted": 0,
+                     "dtab_sorted_partials": 0, "dtab_batched": 3}, n
+        assert g_k.shape == (4, 2 ** 16, 4)
+    else:
+        assert sum(n.values()) == 3 * mc.hash_levels, n
+        assert n["dtab_batched"] == 0
+        window = "dtab_sorted_partials" if variant == "flat_sw_acc0" \
+            else "dtab_sorted"
+        assert n[window] > 0, n
+    loss_p, g_p = step_grads(tr, state, data, "plain")
     assert abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
     assert (g_k - g_p).abs().max() <= 1e-4 * g_p.abs().max()
     ld = tr.train_steps(state, data, 2, batch_size=512)

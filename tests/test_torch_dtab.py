@@ -1,14 +1,16 @@
 """The hash-table gradient (`spnerf_torch/ops/dtab.py`) against the JAX
-package's Pallas kernels in interpret mode, and its router against the
-routing of `_matmul_dtab` on an accelerator.
+package's Pallas kernels in interpret mode, and its routers against the
+routing of `_matmul_dtab` and `HashGridEncoding` on an accelerator.
 
 The plain version (what CPU tensors run, and what the card's kernels are
-held to) is compared with `dtab_pallas` (B2) and `dtab_sorted_window` (B3,
-accumulating column branch) on the cases of `tests/test_pallas.py`: uniform
-ids, skewed ids that force the sorted window's tail fallback, a row count
-that is not a multiple of the kernels' block, ids at the end of the table,
-and F = 2 and 8. Tolerances as there: 1e-4 against B2 and 1e-3 against B3
-(float32 sums in other orders over up to thousands of rows).
+held to) is compared with `dtab_pallas` (B2), `dtab_sorted_window` (B3,
+accumulating column branch; B3′, its non-accumulating branch under
+SPNERF_HASH_SW_ACC=0, in both layouts) and `dtab_sorted_window_batched` (B4)
+on the cases of `tests/test_pallas.py`: uniform ids, skewed ids that force
+the sorted window's tail fallback, a row count that is not a multiple of the
+kernels' block, ids at the end of the table, F = 2 and 8, and for B4 a level
+of direct-coarse ids. Tolerances as there: 1e-4 against B2 and 1e-3 against
+B3, B3′ and B4 (float32 sums in other orders over up to thousands of rows).
 """
 
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from spnerf_tpu.ops.pallas import dtab as jdtab
-from spnerf_torch.models.hashgrid import HashGridEncoding
+from spnerf_torch.models.hashgrid import HashGridEncoding, use_batched
 from spnerf_torch.ops import dtab as tdtab
 
 CASES = {
@@ -135,3 +137,142 @@ def test_plain_drops_nothing_and_keeps_dtype():
     expect[:, 0] = ct[:, 2]
     expect[:, 7] = ct[:, 3]
     assert torch.equal(out, expect)
+
+
+@pytest.mark.parametrize("fmajor", [True, False])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_non_accumulating_window(monkeypatch, name, fmajor):
+    """B3′'s function: the JAX sorted window with SPNERF_HASH_SW_ACC=0 (read
+    at trace time, hence the cleared cache) in both layouts, against the
+    router on CPU tensors under the same env."""
+    T, F, ids, ct_fm = case_inputs(name)
+    ct = ct_fm if fmajor else np.ascontiguousarray(ct_fm.T)
+    monkeypatch.setenv("SPNERF_HASH_SW_ACC", "0")
+    jdtab.dtab_sorted_window.clear_cache()
+    try:
+        ref = jdtab.dtab_sorted_window(jnp.asarray(ids), jnp.asarray(ct), T,
+                                       F, fmajor=fmajor, interpret=True)
+        ref = np.asarray(ref)
+    finally:
+        jdtab.dtab_sorted_window.clear_cache()
+    before = dict(tdtab.launches)
+    out = tdtab.dtab(torch.from_numpy(ids), torch.from_numpy(ct), T, F,
+                     fmajor=fmajor)
+    assert tdtab.launches == before
+    assert out.shape == ((F, T) if fmajor else (T, F))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-3, rtol=0)
+
+
+def batched_case(rng):
+    """The three levels of tests/test_pallas.py: uniform, direct-coarse ids
+    below 4,913, and a level skewed onto 64 ids (the TPU kernel's tail)."""
+    T, F, M = 2 ** 15, 4, 70000
+    lvl0 = rng.integers(0, T, M)
+    lvl1 = rng.integers(0, 4913, M)
+    lvl2 = rng.integers(0, T, M)
+    lvl2[: M // 2] = rng.integers(0, 64, M // 2)
+    ids = np.stack([lvl0, lvl1, lvl2]).astype(np.int32)
+    ct = rng.normal(size=(3, M, F)).astype(np.float32)
+    return T, F, ids, ct
+
+
+def test_batched_plain_matches_pallas(rng):
+    T, F, ids, ct = batched_case(rng)
+    ref = jdtab.dtab_sorted_window_batched(jnp.asarray(ids), jnp.asarray(ct),
+                                           T, F, interpret=True)
+    before = dict(tdtab.launches)
+    out = tdtab.dtab_levels(torch.from_numpy(ids), torch.from_numpy(ct), T)
+    assert tdtab.launches == before
+    assert out.shape == (3, T, F) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3, rtol=0)
+    # and the per-level plain version, level by level
+    for l in range(3):
+        one = tdtab.dtab_plain(torch.from_numpy(ids[l]),
+                               torch.from_numpy(ct[l]), T, fmajor=False)
+        np.testing.assert_allclose(out[l].numpy(), one.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+def test_batched_plain_drops_out_of_range_ids_per_level():
+    """An id outside [0, T) is dropped in its own level; it does not land in
+    the next level's rows at l * T + id."""
+    T = 8
+    ids = torch.tensor([[T, 2, -1], [T - 1, 9, 0]], dtype=torch.int32)
+    ct = torch.arange(12, dtype=torch.float32).reshape(2, 3, 2)
+    out = tdtab.dtab_batched_plain(ids, ct, T)
+    expect = torch.zeros(2, T, 2)
+    expect[0, 2] = ct[0, 1]
+    expect[1, T - 1] = ct[1, 0]
+    expect[1, 0] = ct[1, 2]
+    assert torch.equal(out, expect)
+
+
+def test_router_sw_acc_sends_window_calls_to_partials(monkeypatch):
+    """SPNERF_HASH_SW_ACC=0, read at call time, sends the hash step's 21
+    window calls to B3′; the 3 dense calls stay on B2. An explicit sw_acc
+    overrides the env."""
+    t_effs = HashGridEncoding(n_levels=8, n_features=4,
+                              log2_table_size=19).level_table_sizes()
+    shapes = [(t_eff, 1024 * s * 8) for s in (64, 64, 128) for t_eff in t_effs]
+
+    def counts():
+        c = {"dense": 0, "sorted": 0, "partials": 0}
+        for t_eff, M in shapes:
+            c[tdtab.route(t_eff, 4, M)] += 1
+        return c
+
+    monkeypatch.delenv("SPNERF_HASH_SW_ACC", raising=False)
+    assert counts() == {"dense": 3, "sorted": 21, "partials": 0}
+    monkeypatch.setenv("SPNERF_HASH_SW_ACC", "0")
+    assert counts() == {"dense": 3, "sorted": 0, "partials": 21}
+    assert tdtab.route(2 ** 19, 4, 524288, sw_acc=True) == "sorted"
+    assert tdtab.route(8192, 4, 524288, sw_acc=False) == "dense"
+    monkeypatch.setenv("SPNERF_HASH_SW_ACC", "1")
+    assert tdtab.route(2 ** 19, 4, 524288, sw_acc=False) == "partials"
+    assert counts() == {"dense": 3, "sorted": 21, "partials": 0}
+
+
+def test_batched_gate_matches_jax_conditions():
+    """`use_batched` against the JAX package's gate (`HashGridEncoding`:
+    impl "matmul_vjp", the (L, T, F) table, SPNERF_HASH_SW_BATCHED=1, an
+    accelerator, window_eligible(T, F, n * 8)) on a grid around the
+    window_eligible edge."""
+    n_cases = 0
+    for log2T in (13, 15, 17, 19):
+        T = 2 ** log2T
+        for F in (2, 4, 8):
+            A = T // (jdtab.LANES // F)
+            edge = -(-4 * A * jdtab.MBLK // (jdtab.WIN * 8))  # points
+            for n in (1, edge - 1, edge, edge + 1, 65536):
+                for impl in ("auto", "matmul_vjp", "xla", "sorted_vjp"):
+                    for flat in (True, False):
+                        for sw in (True, False):
+                            for dev in ("cpu", "cuda"):
+                                jimpl = ("matmul_vjp" if impl == "auto"
+                                         and dev != "cpu" else impl)
+                                ref = (jimpl == "matmul_vjp" and not flat
+                                       and sw and dev != "cpu"
+                                       and jdtab.window_eligible(T, F, n * 8))
+                                got = use_batched(impl, flat, dev, T, F, n,
+                                                  sw_batched=sw)
+                                assert got == ref, (T, F, n, impl, flat, sw,
+                                                    dev)
+                                n_cases += 1
+    assert n_cases > 1000
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdtab.dtab_sorted_partials(ids, torch.zeros(2, 4), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdtab.dtab_sorted(ids, torch.zeros(4, 2), 8, fmajor=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdtab.dtab_batched(ids.reshape(2, 2), torch.zeros(2, 2, 4), 8)
+    with pytest.raises(ValueError, match="32-bit"):
+        tdtab.dtab_batched(ids.reshape(2, 2), torch.zeros(2, 2, 4), 2 ** 30)
+    with pytest.raises(ValueError, match="impl"):
+        tdtab.dtab_levels(ids.reshape(2, 2), torch.zeros(2, 2, 4), 8,
+                          impl="fast")
+    with pytest.raises(ValueError, match="features"):
+        tdtab.dtab(ids, torch.zeros(4, 2), 8, 3, fmajor=False)

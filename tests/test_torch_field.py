@@ -150,9 +150,11 @@ def test_init_is_seeded_and_bounded():
 
 
 def test_hash_encoding_not_ported():
-    """The hash family is ported; its multi-AOI frames and the non-flat
-    table are not, and raise."""
-    for kw in (dict(hash_frames=2), dict(hash_flat_table=False)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            load_model(ModelConfig(encoding="hash", hash_log2T=10, **kw),
-                       device="cpu")
+    """The hash family is ported with both table layouts; its multi-AOI
+    frames are not, and raise."""
+    with pytest.raises(NotImplementedError, match="A11"):
+        load_model(ModelConfig(encoding="hash", hash_log2T=10, hash_frames=2),
+                   device="cpu")
+    model = load_model(ModelConfig(encoding="hash", hash_log2T=10,
+                                   hash_flat_table=False), device="cpu")
+    assert model.encoding.table.shape == (8, 2 ** 10, 4)

@@ -11,14 +11,21 @@ weights and a fixed batch, in float32 on the CPU.
   weights, which scales float32 differences up (1e-4 on render outputs in
   tests/test_torch_render.py), and the depth and solar terms sum thousands
   of them.
+* The same for the (L, T, F) hash table (`hash_flat_table=False`).
 * A 5-step Adam trajectory on a fixed batch: losses within 1e-4 relative.
   Parameters are not compared: where a gradient entry is near zero its sign
-  may differ by rounding, and Adam turns that into a ±lr update.
+  may differ by rounding, and Adam turns that into a ±lr update. The same
+  for each optimizer option (`grad_clip`, `table_wd`,
+  `table_level_lr_decay`, `weight_decay`, and `table_wd` with
+  `weight_decay`) against the JAX Trainer's optax chain, each set large
+  enough to move the trajectory well past the tolerance. On the (L, T, F)
+  table `table_level_lr_decay` fails in both packages.
 * The step with its generator (batch draws, jitter, guided draws) is a
   function of the seed.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +48,9 @@ LC = dict(sc_lambda=0.1, depth=True, ds_lambda=1.0, stdscale=1.0, sem=True,
 MC = {
     "hash": dict(encoding="hash", hash_levels=4, hash_features=2,
                  hash_log2T=14, hash_hidden=32, sem=True, num_sem_classes=3),
+    "hash_nonflat": dict(encoding="hash", hash_levels=4, hash_features=2,
+                         hash_log2T=14, hash_hidden=32, sem=True,
+                         num_sem_classes=3, hash_flat_table=False),
     "siren": dict(mapping=True, sem=True, num_sem_classes=3, fc_units=32,
                   fc_layers=8, skips=(4,)),
 }
@@ -66,7 +76,7 @@ def make_pair(family, lr=1e-2, **tr_kw):
                      **tr_kw)
     params = jtr.init_state(jax.random.PRNGKey(0)).params
     coarse = dict(params["coarse"])
-    if family == "hash":
+    if family.startswith("hash"):
         table = coarse["HashGridEncoding_0"]["table"]
         coarse["HashGridEncoding_0"] = {"table": jnp.asarray(
             np.random.default_rng(1).normal(size=table.shape)
@@ -91,7 +101,7 @@ def port_grads(state):
                               state.model.named_parameters()})
 
 
-@pytest.mark.parametrize("family", ["hash", "siren"])
+@pytest.mark.parametrize("family", ["hash", "siren", "hash_nonflat"])
 def test_one_step_loss_and_grads_match_jax(family):
     jtr, params, ttr, state = make_pair(family)
     jb, tb = batches()
@@ -116,13 +126,17 @@ def test_one_step_loss_and_grads_match_jax(family):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-def test_five_adam_steps_track_jax():
-    jtr, params, ttr, state = make_pair("hash")
+def trajectories(n=5, family="hash", grad_fn=None, **opts):
+    """n steps of the JAX Trainer's optax chain and of the port's optimizer
+    from the same weights on one fixed batch: (JAX losses, port losses,
+    the jitted JAX gradient function, for reuse)."""
+    jtr, params, ttr, state = make_pair(family, **opts)
     jb, tb = batches()
     opt = jtr.tx.init(params)
-    grad_fn = jax.jit(jax.value_and_grad(jtr._loss_fn, has_aux=True))
+    if grad_fn is None:
+        grad_fn = jax.jit(jax.value_and_grad(jtr._loss_fn, has_aux=True))
     jlosses, tlosses = [], []
-    for step in range(5):
+    for step in range(n):
         (jloss, _), g = grad_fn(params, jb, None, jnp.int32(step))
         updates, opt = jtr.tx.update(g, opt, params)
         params = optax.apply_updates(params, updates)
@@ -130,9 +144,67 @@ def test_five_adam_steps_track_jax():
         loss, _ = ttr.loss_fn(state, tb, state.step)
         ttr.apply_gradients(state, loss)
         tlosses.append(loss.item())
-    assert state.step == 5
+    assert state.step == n
+    return jlosses, tlosses, grad_fn
+
+
+def test_five_adam_steps_track_jax():
+    jlosses, tlosses, _ = trajectories()
     assert tlosses[-1] < tlosses[0]  # it learns
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+
+
+# large enough that each moves the 5-step losses by far more than 1e-4
+OPTIONS = {
+    "grad_clip": dict(grad_clip=1e-5),
+    "table_wd": dict(table_wd=20.0),
+    "table_level_lr_decay": dict(table_level_lr_decay=0.2),
+    "weight_decay": dict(weight_decay=5.0),
+    "table_wd+weight_decay": dict(table_wd=10.0, weight_decay=2.0),
+}
+
+
+@functools.lru_cache(maxsize=1)
+def plain_trajectory():
+    """The JAX losses of plain Adam and the jitted JAX gradient, shared by
+    the option cases (the options change only the optimizer)."""
+    jlosses, _, grad_fn = trajectories()
+    return jlosses, grad_fn
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_optimizer_options_track_jax(name):
+    """The option's 5-step trajectory tracks the JAX Trainer's optax chain
+    within 1e-4, and differs from plain Adam's by more than 1e-3: the
+    option is exercised, not vacuous."""
+    jplain, grad_fn = plain_trajectory()
+    jl, tl, _ = trajectories(grad_fn=grad_fn, **OPTIONS[name])
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    moved = np.max(np.abs(np.array(jl) / np.array(jplain) - 1.0))
+    assert moved > 1e-3, moved
+
+
+def test_level_decay_on_nonflat_table_fails_as_in_jax():
+    """The (L, 1) level multiplier does not broadcast against an (L, T, F)
+    table: the JAX chain fails on its first update, the port refuses when
+    it builds the optimizer."""
+    mc, rc, lc = MC["hash_nonflat"], RC, LC
+    jtr = JaxTrainer(jconfig.ModelConfig(**mc), jconfig.RenderConfig(**rc),
+                     jconfig.LossConfig(**lc), table_level_lr_decay=0.5)
+    params = jtr.init_state(jax.random.PRNGKey(0)).params
+    assert params["coarse"]["HashGridEncoding_0"]["table"].ndim == 3
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
+    with pytest.raises(ValueError):
+        jtr.tx.update(zeros, jtr.tx.init(params), params)
+    for flat, fails in ((False, True), (True, False)):
+        ttr = Trainer(ModelConfig(**dict(mc, hash_flat_table=flat)),
+                      RenderConfig(**rc), LossConfig(**lc), device="cpu",
+                      table_level_lr_decay=0.5)
+        if fails:
+            with pytest.raises(ValueError, match="table_level_lr_decay"):
+                ttr.init_state(torch.Generator().manual_seed(0))
+        else:  # the flat table takes it
+            ttr.init_state(torch.Generator().manual_seed(0))
 
 
 def test_generator_path_is_a_function_of_the_seed():
@@ -208,11 +280,8 @@ def test_anneal_schedule_matches_jax():
 def test_trainer_refuses_unported_options():
     mc, rc, lc = (ModelConfig(**MC["hash"]), RenderConfig(**RC),
                   LossConfig(**LC))
-    for kw in (dict(grad_clip=1.0), dict(table_wd=1e-6),
-               dict(table_level_lr_decay=0.9), dict(weight_decay=1e-4),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            Trainer(mc, rc, lc, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Trainer(mc, rc, lc, device="cpu", mesh=object())
     for rkw in (dict(occ_grid=True), dict(proposal=True),
                 dict(n_importance=8)):
         with pytest.raises(NotImplementedError):
