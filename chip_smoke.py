@@ -27,10 +27,15 @@ Phases, each fatal on failure:
      version records the 24 (ids, cotangent) pairs the step hands the table
      gradient; each is sent to the kernel the router picks and held against
      the plain version, plus a skewed case (half the rows on 64 ids) for
-     both kernels; B3 must give the same bits twice. Every call is timed
-     (CUDA events, host launches included) beside the plain version, the
-     library call `index_add_` and its bytes bound, and the kernels' own
-     device time is read from torch.profiler;
+     both kernels and B3's edge cases (`spnerf_torch/utils/dtab_cases.py`:
+     every row on one id, ids outside [0, t_eff) at both ends, M = 1 and 0,
+     M not a multiple of the partition tile, t_eff not a multiple of a
+     slice, F = 1, 3 and 8, more table windows than slices with split
+     slices; both layouts, int64 and int32 ids); B3 must give the same bits
+     twice. Every call is timed (CUDA events, host launches included)
+     beside the plain version, the library call `index_add_` into a zeroed
+     table and with its zero fill, and its bytes bound, and the kernels' own
+     device time and device launches per call are read from torch.profiler;
   7. the hash train step at full width on a 65,536-ray synthetic scene
      (seed 0): the same step's table gradient and loss through the kernels
      and through the plain version agree; one step through the trainer
@@ -44,9 +49,10 @@ Phases, each fatal on failure:
      gradient through the kernels agree with the plain run; one step
      launches B2 3 times and B3 21 times; then 1 warm-up and 10 timed steps;
  10. SPNERF_HASH_SW_ACC=0 on the flat step: B3′ (dtab_sorted_partials) held
-     against the plain version on the step's own 21 window-route inputs and
-     the skewed case of phase 6, timed beside the plain version,
-     `index_add_` and its bound, with profiler device times (sort apart);
+     against the plain version on the step's own 21 window-route inputs,
+     the skewed case and the edge cases of phase 6, timed beside the plain
+     version, `index_add_` and its bound, with profiler device times (its
+     zero fill, a memset in the same C call, included);
      the step through the kernels agrees with the plain step; one step
      launches B2 3 times and B3′ 21 times; then timed;
  11. SPNERF_HASH_SW_BATCHED=1 on the (L, T, F) step: B4 (dtab_batched) held
@@ -132,26 +138,36 @@ def rel_check(out, ref, tag):
     return err, (err / scale if scale else 0.0)
 
 
-# names of the port's table-gradient kernels and of the library sort's
-PORT_KERNEL_KEYS = ("dtab_dense", "seg_", "partials", "batched_keys")
+# names of the port's table-gradient kernels (B3′'s zero fill, a memset in
+# its C call, counts as its own) and of the library sort's
+PORT_KERNEL_KEYS = ("dtab_dense", "seg_", "slice_", "tile_agg",
+                    "batched_keys")
+MEMSET_KEYS = ("Memset",)
 SORT_KEYS = ("adix", "Sort")
 
 
 def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
-    """Device time per call of `run` (which makes n_calls calls) under
-    torch.profiler: {"kernel": the kernels whose names hold one of `keys`,
-    "sort": the library sort}. A profiling pass that records no device
-    activity (seen now and then after several passes in one process) is
-    run again, up to `attempts` times; then both are None ("not
-    measured")."""
+    """Device time and device launches per call of `run` (which makes
+    n_calls calls) under torch.profiler: {"kernel": ms of the kernels whose
+    names hold one of `keys`, "sort": ms of the library sort, "launches":
+    those kernels' launches, "sort_launches": the sort's, "names": launches
+    per call by kernel name}. Each pass opens with a fill of its own,
+    synchronised, because the first device activity of a pass now and then
+    goes unrecorded. A profiling pass that records no device activity (seen
+    now and then after several passes in one process) is run again, up to
+    `attempts` times; then every value is None ("not measured")."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda")
+            torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
         us = {"kernel": 0.0, "sort": 0.0}
+        n = {"kernel": 0, "sort": 0}
+        names = {}
         seen = False
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -159,12 +175,22 @@ def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
             seen = True
             d = e.time_range.end - e.time_range.start
             if any(k in e.name for k in keys):
-                us["kernel"] += d
+                kind = "kernel"
+                name = e.name.split("(")[0].removeprefix("void ")
+                names[name] = names.get(name, 0) + 1 / n_calls
             elif any(k in e.name for k in SORT_KEYS):
-                us["sort"] += d
+                kind = "sort"
+            else:
+                continue
+            us[kind] += d
+            n[kind] += 1
         if seen:
-            return {k: v / 1e3 / n_calls for k, v in us.items()}
-    return {"kernel": None, "sort": None}
+            return {"kernel": us["kernel"] / 1e3 / n_calls,
+                    "sort": us["sort"] / 1e3 / n_calls,
+                    "launches": n["kernel"] / n_calls,
+                    "sort_launches": n["sort"] / n_calls, "names": names}
+    return dict.fromkeys(("kernel", "sort", "launches", "sort_launches",
+                          "names"))
 
 
 @contextlib.contextmanager
@@ -202,6 +228,8 @@ def main():
         from spnerf_torch.render import build_render_fn, chunk_size
         from spnerf_torch.models import hashgrid as hg
         from spnerf_torch.ops import dtab as dt
+        from spnerf_torch.utils.dtab_cases import (EDGE_CASES,
+                                                   dtab_plain_kept, edge_case)
         from spnerf_torch.utils.synth import (fake_batch, flagship_configs,
                                               train_setup)
     except ImportError as e:
@@ -423,8 +451,11 @@ def main():
             setattr(hg, name, real)
         return calls, loss, grad
 
-    def bound_ms(M, t_eff):
-        return (M * (4 + 4 * n_feat) + n_feat * t_eff * 4) / PEAK_BYTES * 1e3
+    def bound_ms(M, t_eff, F=None, id_bytes=8):
+        """Each input read once (the ids at their own width, int64 from the
+        step) and the table written once, at the card's memory rate."""
+        F = n_feat if F is None else F
+        return (M * (id_bytes + 4 * F) + F * t_eff * 4) / PEAK_BYTES * 1e3
 
     kernels = {"dense": dt.dtab_dense, "sorted": dt.dtab_sorted,
                "partials": dt.dtab_sorted_partials}
@@ -432,10 +463,12 @@ def main():
     def hold(name, ids, ct, t_eff, fmajor, tag, timed=True):
         """Kernel `name` against the plain version on one call (B3 also
         against itself), then timed beside the plain version, `index_add_`
-        and the bytes bound."""
+        into a zeroed table, `index_add_` with its zero fill (the function
+        the wrapper computes) and the bytes bound. Ids outside [0, t_eff)
+        go to an extra row of the plain version's table, which is cut."""
         fn = kernels[name]
         out = fn(ids, ct, t_eff, fmajor)
-        ref = dt.dtab_plain(ids, ct, t_eff, fmajor)
+        ref = dtab_plain_kept(ids, ct, t_eff, fmajor)
         err, rel = rel_check(out, ref, f"dtab_{name} {tag}")
         if name == "sorted" and not torch.equal(out, fn(ids, ct, t_eff,
                                                         fmajor)):
@@ -445,25 +478,37 @@ def main():
         if not timed:
             return rec
         ids_long = ids.long()
+        dim = 1 if fmajor else 0
         lib_out = torch.zeros_like(ref)
         rec.update(
             ms=cuda_ms(lambda: fn(ids, ct, t_eff, fmajor), 5),
             plain_ms=cuda_ms(lambda: dt.dtab_plain(ids, ct, t_eff, fmajor), 3),
-            library_ms=cuda_ms(lambda: lib_out.index_add_(
-                1 if fmajor else 0, ids_long, ct), 3),
-            bound_ms=bound_ms(M, t_eff))
-        if name == "sorted":
-            ids_s, perm = dt.sort_ids(ids)
-            rec["kernel_only_ms"] = cuda_ms(
-                lambda: dt.dtab_sorted_kernel(ids_s, perm, ct, t_eff, fmajor),
-                5)
+            library_ms=cuda_ms(lambda: lib_out.index_add_(dim, ids_long, ct),
+                               3),
+            library_zero_ms=cuda_ms(lambda: torch.zeros_like(ref).index_add_(
+                dim, ids_long, ct), 3),
+            bound_ms=bound_ms(M, t_eff, id_bytes=ids.element_size()))
         log(f"dtab_{name} {tag}: max abs err {err:.3g} ({rel:.3g} of the "
-            f"largest entry), kernel {rec['ms']:.3f} ms"
-            + (f" ({rec['kernel_only_ms']:.3f} ms without its sort)"
-               if name == "sorted" else "")
-            + f", plain {rec['plain_ms']:.3f} ms, index_add_ "
-            f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms")
+            f"largest entry), kernel {rec['ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, index_add_ {rec['library_ms']:.3f} ms"
+            f" ({rec['library_zero_ms']:.3f} ms with its zero fill), bound "
+            f"{rec['bound_ms']:.4f} ms")
         return rec
+
+    def hold_edges(name):
+        """Kernel `name` on every edge case of `utils/dtab_cases.py` in both
+        layouts, int64 and int32 ids; {kind: max relative error}."""
+        rels = {}
+        for kind in EDGE_CASES:
+            for fmajor in (True, False):
+                for ids64 in (True, False):
+                    ids, ct, t_eff = edge_case(kind, device, fmajor, ids64)
+                    r = hold(name, ids, ct, t_eff, fmajor, f"edge {kind}",
+                             timed=False)
+                    rels[kind] = max(rels.get(kind, 0.0), r["rel"])
+        log(f"dtab_{name} edge cases, both layouts, int64 and int32 ids, "
+            f"max err / largest entry: {json.dumps(rels)}")
+        return rels
 
     def hold_calls(calls, sw_acc, names):
         """Every recorded per-level call on the kernel its route names, held
@@ -479,7 +524,9 @@ def main():
                                   f"{layout} t_eff={t_eff} M={ids.shape[0]}"))
             by[name].append((ids, ct, t_eff, fmajor))
         dev = {n: device_ms(lambda: [kernels[n](*c) for c in by[n]],
-                            len(by[n])) for n in names}
+                            len(by[n]), keys=PORT_KERNEL_KEYS
+                            + (MEMSET_KEYS if n == "partials" else ()))
+               for n in names}
         log(f"device time per launch (profiler): {json.dumps(dev)}")
         return per, dev
 
@@ -551,6 +598,7 @@ def main():
                            timed=False) for name in ("dense", "sorted")}
     log(f"skewed (half the rows on 64 ids), t_eff={t_eff6} "
         f"M={skew.shape[0]}: " + json.dumps(skew_err))
+    edge6 = hold_edges("sorted")
     del calls, ids
     torch.cuda.empty_cache()
 
@@ -606,6 +654,7 @@ def main():
         skew10 = hold("partials", skew, ct6, t_eff6, True, "skewed",
                       timed=False)
         log(f"dtab_sorted_partials skewed: {json.dumps(skew10)}")
+        edge10 = hold_edges("partials")
         del calls
         match10 = step_match("hash step, SW_ACC=0", htr, hstate, hdata,
                              loss_plain, grad_plain)
@@ -690,7 +739,8 @@ def main():
     def entry(name, source_line, recs, launches, extra_recs, dev, **more):
         n = len(recs)
         tot = {k: sum(r[k] for r in recs)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for k in ("ms", "plain_ms", "library_ms", "library_zero_ms",
+                         "bound_ms") if k in recs[0]}
         e = {
             "name": name,
             "route": "cuda",
@@ -710,22 +760,28 @@ def main():
             "library_ms_per_step": tot["library_ms"],
             "bound_ms_per_step": tot["bound_ms"],
             "device_ms": dev["kernel"],
+            "kernel_launches_per_call": dev["launches"],
+            "kernels_per_call": dev["names"],
+            "library_zero_ms": tot.get("library_zero_ms", n * np.nan) / n,
             "calls": [{k: v for k, v in r.items() if k not in ("err", "rel")}
                       for r in recs],
             "card": card,
         }
-        if name != "dtab_dense":
+        if name == "dtab_batched":
             e["sort_device_ms"] = dev["sort"]
+            e["sort_launches_per_call"] = dev["sort_launches"]
+            del e["library_zero_ms"]
         e.update(more)
         return e
 
     def tmajor(recs, dev):
         """The same kernel's numbers on the (L, T, F) step's t-major calls."""
         n = len(recs)
-        return {"ms": sum(r["ms"] for r in recs) / n,
-                "library_ms": sum(r["library_ms"] for r in recs) / n,
-                "device_ms": dev["kernel"], "sort_device_ms": dev["sort"],
-                "max_rel_err": max(r["rel"] for r in recs)}
+        return {k: sum(r[k] for r in recs) / n
+                for k in ("ms", "library_ms", "library_zero_ms", "bound_ms")
+                } | {"device_ms": dev["kernel"],
+                     "kernel_launches_per_call": dev["launches"],
+                     "max_rel_err": max(r["rel"] for r in recs)}
 
     src = "spnerf_tpu/ops/pallas/dtab.py"
     dense = entry("dtab_dense", f"{src}:127", per["dense"],
@@ -733,14 +789,11 @@ def main():
                   tmajor=tmajor(per9["dense"], dev9["dense"]))
     sorted_ = entry("dtab_sorted", f"{src}:307", per["sorted"],
                     launches7["dtab_sorted"], [skew_err["sorted"]],
-                    dev6["sorted"],
-                    kernel_only_ms=sum(r["kernel_only_ms"]
-                                       for r in per["sorted"])
-                    / len(per["sorted"]),
+                    dev6["sorted"], edge_rel_err=edge6,
                     tmajor=tmajor(per9["sorted"], dev9["sorted"]))
     partials = entry("dtab_sorted_partials", f"{src}:307 (branch :475)",
                      per10["partials"], launches10["dtab_sorted_partials"],
-                     [skew10], dev10["partials"])
+                     [skew10], dev10["partials"], edge_rel_err=edge10)
     batched = entry("dtab_batched", f"{src}:584", per11,
                     launches11["dtab_batched"], [extra11], dev11)
     print(json.dumps({

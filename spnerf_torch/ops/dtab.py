@@ -14,11 +14,14 @@ ct (M, F) -> (t_eff, F)). Results are float32.
   (`spnerf_tpu/ops/pallas/dtab.py`): a scatter-add with float atomics,
   accumulated per block in shared memory when the table fits there.
 * `dtab_sorted` (B3) replaces the accumulating branch of
-  `dtab_sorted_window` (same file): a stable sort of the ids, then a
-  segmented sum that writes every run of equal ids once. Deterministic.
+  `dtab_sorted_window` (same file), which accumulates per window of table
+  rows: a stable partition of the rows by slice of table rows, then one
+  block per slice sums its rows in shared memory in their order and writes
+  the whole slice once. No sort, no zero fill; deterministic.
 * `dtab_sorted_partials` (B3′) replaces its non-accumulating branch
-  (`SPNERF_HASH_SW_ACC=0`): the same sort and scan, the runs' sums written
-  to partials, then added to the table with float atomics.
+  (`SPNERF_HASH_SW_ACC=0`), partials per block then a scatter: each block
+  merges the equal ids of a tile of rows in a shared-memory hash table and
+  adds one partial per distinct id to the table with float atomics.
 * `dtab_plain` is the plain version of all three, `index_add_`; CPU tensors
   use it.
 * `dtab` routes a call as `_matmul_dtab` routes it on an accelerator
@@ -40,7 +43,9 @@ to the plain version. `launches` counts kernel launches by name,
 process-wide.
 """
 
+import collections
 import ctypes
+import functools
 import os
 
 import torch
@@ -49,7 +54,7 @@ LANES = 1024  # lane width of the TPU kernels' output tile: B = LANES // F
 MBLK = 1024  # index rows per grid step of the TPU kernels
 WIN = 16  # sorted-window width in A-rows
 MAX_F = 8  # csrc/dtab.cu MAXF
-SEG = 256  # csrc/dtab.cu SEG: sorted rows per chunk
+SEG = 256  # csrc/dtab.cu SEG: B4's sorted rows per chunk
 INT32_LIMIT = 2 ** 31
 
 launches = {"dtab_dense": 0, "dtab_sorted": 0, "dtab_sorted_partials": 0,
@@ -88,45 +93,76 @@ def dtab_plain(ids, ct, t_eff, fmajor=True):
     return out.index_add_(1 if fmajor else 0, ids.long(), ct.float())
 
 
-def _check(ids, ct, t_eff, fmajor):
-    if ids.device.type != "cuda":
-        raise ValueError("the dtab kernels take CUDA tensors")
-    if ct.device != ids.device:
-        raise ValueError(f"ct on {ct.device}, ids on {ids.device}")
+def _shapes(ids, ct, t_eff, fmajor):
+    """(F, M) of a per-level call; raises on shapes the kernels do not
+    take."""
+    if ct.dim() != 2:
+        raise ValueError(f"ct {tuple(ct.shape)} is not 2-D")
     F, M = ct.shape if fmajor else ct.shape[::-1]
     if ids.shape != (M,):
         raise ValueError(f"ids {tuple(ids.shape)} do not match ct "
                          f"{tuple(ct.shape)} (fmajor={fmajor})")
     if not 1 <= F <= MAX_F:
         raise ValueError(f"the dtab kernels take 1 <= F <= {MAX_F}, got {F}")
-    if M >= INT32_LIMIT or F * t_eff >= INT32_LIMIT:
+    if t_eff < 1 or M >= INT32_LIMIT or F * t_eff >= INT32_LIMIT:
         raise ValueError("the dtab kernels index with 32-bit ints")
+    if ids.device.type != "cuda":
+        raise ValueError("the dtab kernels take CUDA tensors")
+    if ct.device != ids.device:
+        raise ValueError(f"ct on {ct.device}, ids on {ids.device}")
+    return F, M
+
+
+def _check(ids, ct, t_eff, fmajor):
+    """B2's inputs: int32 ids, contiguous float32 ct."""
+    F, M = _shapes(ids, ct, t_eff, fmajor)
     return (ids.to(torch.int32).contiguous(),
             ct.to(torch.float32).contiguous(), F, M)
 
 
-def _lib():
-    from . import _build
+def _ids_ct(ids, ct, t_eff, fmajor):
+    """B3's and B3′'s inputs: int32 or int64 ids and a float32 ct as they
+    come (no copy when they are contiguous), F, M and the ids64 flag."""
+    F, M = _shapes(ids, ct, t_eff, fmajor)
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.long()
+    return (ids.contiguous(), ct.to(torch.float32).contiguous(), F, M,
+            int(ids.dtype == torch.int64))
 
-    lib = _build.load("dtab")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, args in (
-            ("spnerf_dtab_dense", [ptr] * 2 + [i32] * 4 + [ptr] * 2),
-            ("spnerf_dtab_sorted", [ptr] * 3 + [i32] * 4 + [ptr] * 3),
-            ("spnerf_dtab_sorted_partials", [ptr] * 3 + [i32] * 4 + [ptr] * 4),
-            ("spnerf_dtab_batched_keys", [ptr] + [i32] * 3 + [ptr] * 2),
-            ("spnerf_dtab_sorted_batched", [ptr] * 3 + [i32] * 4 + [ptr] * 3)):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = i32
-    lib.spnerf_dtab_error_string.argtypes = [i32]
-    lib.spnerf_dtab_error_string.restype = ctypes.c_char_p
-    return lib
+
+_LIB = None
+
+
+def _lib():
+    """The dtab library, its entry points' argtypes set once."""
+    global _LIB
+    if _LIB is None:
+        from . import _build
+
+        lib = _build.load("dtab")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for name, args in (
+                ("spnerf_dtab_dense", [ptr] * 2 + [i32] * 4 + [ptr] * 2),
+                ("spnerf_dtab_owner_plan",
+                 [i32] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
+                ("spnerf_dtab_owner", [ptr, i32, ptr] + [i32] * 4
+                 + [ptr] * 2 + [ctypes.c_longlong, ptr]),
+                ("spnerf_dtab_tile_agg", [ptr, i32, ptr] + [i32] * 4
+                 + [ptr] * 2),
+                ("spnerf_dtab_batched_keys", [ptr] + [i32] * 3 + [ptr] * 2),
+                ("spnerf_dtab_sorted_batched",
+                 [ptr] * 3 + [i32] * 4 + [ptr] * 3)):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = i32
+        lib.spnerf_dtab_error_string.argtypes = [i32]
+        lib.spnerf_dtab_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
 def _stream(device):
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(lib, err, name):
@@ -135,15 +171,18 @@ def _raise_on(lib, err, name):
                            + lib.spnerf_dtab_error_string(err).decode())
 
 
-def _zeros(F, t_eff, fmajor, device):
+def _table(alloc, F, t_eff, fmajor, device):
+    """A float32 table gradient in the call's layout from `alloc`
+    (`torch.zeros` for B2, which adds into it; `torch.empty` for B3 and B3′,
+    which write or zero it themselves)."""
     shape = (F, t_eff) if fmajor else (t_eff, F)
-    return torch.zeros(shape, dtype=torch.float32, device=device)
+    return alloc(shape, dtype=torch.float32, device=device)
 
 
 def dtab_dense(ids, ct, t_eff, fmajor=True):
     """B2 on CUDA tensors. Float atomics: the last bits vary run to run."""
     ids, ct, F, M = _check(ids, ct, t_eff, fmajor)
-    out = _zeros(F, t_eff, fmajor, ids.device)
+    out = _table(torch.zeros, F, t_eff, fmajor, ids.device)
     if M:
         lib = _lib()
         err = lib.spnerf_dtab_dense(ids.data_ptr(), ct.data_ptr(), M, F,
@@ -154,52 +193,56 @@ def dtab_dense(ids, ct, t_eff, fmajor=True):
     return out
 
 
-def sort_ids(ids):
-    """The stable sort B3 and B3′ run before their kernels: (sorted ids,
-    permutation)."""
-    return torch.sort(ids.to(torch.int32), stable=True)
+OwnerPlan = collections.namedtuple("OwnerPlan", "S wps n_slices scratch_words")
 
 
-def dtab_sorted_kernel(ids_s, perm, ct, t_eff, fmajor=True):
-    """B3's kernel alone, on the output of `sort_ids`."""
-    ids_s, ct, F, M = _check(ids_s, ct, t_eff, fmajor)
-    perm = perm.to(torch.int64).contiguous()
-    out = _zeros(F, t_eff, fmajor, ids_s.device)
+@functools.lru_cache(maxsize=None)
+def owner_plan(M, F, t_eff, device_index):
+    """B3's plan on CUDA device `device_index`, from the C side
+    (`csrc/dtab.cu` `owner_plan`), kept per shape: windows of S table rows,
+    wps windows a slice, n_slices slices, and the 32-bit words of scratch
+    the call needs."""
+    lib = _lib()
+    plan = (ctypes.c_longlong * 4)()
+    _raise_on(lib, lib.spnerf_dtab_owner_plan(M, F, t_eff, device_index, plan),
+              "dtab_sorted (plan)")
+    return OwnerPlan(*plan)
+
+
+def dtab_sorted(ids, ct, t_eff, fmajor=True):
+    """B3 on CUDA tensors: owner-computes table slices, five launches in one
+    C call, no sort and no zero fill. The result is the same bits from run
+    to run."""
+    ids, ct, F, M, ids64 = _ids_ct(ids, ct, t_eff, fmajor)
+    index = ids.device.index
+    plan = owner_plan(M, F, t_eff, torch.cuda.current_device()
+                      if index is None else index)
+    out = _table(torch.empty, F, t_eff, fmajor, ids.device)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
+                          device=ids.device)
+    lib = _lib()
+    err = lib.spnerf_dtab_owner(ids.data_ptr(), ids64, ct.data_ptr(), M, F,
+                                t_eff, int(not fmajor), out.data_ptr(),
+                                scratch.data_ptr(), plan.scratch_words,
+                                _stream(ids.device))
+    _raise_on(lib, err, "dtab_sorted")
     if M:
-        scratch = torch.empty(2 * -(-M // SEG) * F, dtype=torch.float32,
-                              device=ids_s.device)
-        lib = _lib()
-        err = lib.spnerf_dtab_sorted(ids_s.data_ptr(), perm.data_ptr(),
-                                     ct.data_ptr(), M, F, t_eff,
-                                     int(not fmajor), out.data_ptr(),
-                                     scratch.data_ptr(), _stream(ids_s.device))
-        _raise_on(lib, err, "dtab_sorted")
         launches["dtab_sorted"] += 1
     return out
 
 
-def dtab_sorted(ids, ct, t_eff, fmajor=True):
-    """B3 on CUDA tensors: sort, then the segmented-sum kernel. The result
-    is the same bits from run to run."""
-    ids_s, perm = sort_ids(ids)
-    return dtab_sorted_kernel(ids_s, perm, ct, t_eff, fmajor)
-
-
 def dtab_sorted_partials(ids, ct, t_eff, fmajor=True):
-    """B3′ on CUDA tensors: sort, the runs' sums per chunk into partials,
-    then float-atomic adds of the partials. The last bits vary run to run."""
-    ids, ct, F, M = _check(ids, ct, t_eff, fmajor)
-    out = _zeros(F, t_eff, fmajor, ids.device)
+    """B3′ on CUDA tensors: equal ids merged per tile of rows in shared
+    memory, then float-atomic adds into the table, zeroed in the same C
+    call. The last bits vary run to run."""
+    ids, ct, F, M, ids64 = _ids_ct(ids, ct, t_eff, fmajor)
+    out = _table(torch.empty, F, t_eff, fmajor, ids.device)
+    lib = _lib()
+    err = lib.spnerf_dtab_tile_agg(ids.data_ptr(), ids64, ct.data_ptr(), M,
+                                   F, t_eff, int(not fmajor), out.data_ptr(),
+                                   _stream(ids.device))
+    _raise_on(lib, err, "dtab_sorted_partials")
     if M:
-        ids_s, perm = sort_ids(ids)
-        part_ids = torch.empty(M, dtype=torch.int32, device=ids.device)
-        part_vals = torch.empty(M * F, dtype=torch.float32, device=ids.device)
-        lib = _lib()
-        err = lib.spnerf_dtab_sorted_partials(
-            ids_s.data_ptr(), perm.data_ptr(), ct.data_ptr(), M, F, t_eff,
-            int(not fmajor), out.data_ptr(), part_ids.data_ptr(),
-            part_vals.data_ptr(), _stream(ids.device))
-        _raise_on(lib, err, "dtab_sorted_partials")
         launches["dtab_sorted_partials"] += 1
     return out
 

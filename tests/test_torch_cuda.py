@@ -22,6 +22,8 @@ from spnerf_torch.config import ModelConfig, RenderConfig
 from spnerf_torch.models import load_model
 from spnerf_torch.ops import field_eval as fe
 from spnerf_torch.render import build_render_fn, chunk_size
+from spnerf_torch.utils.dtab_cases import (EDGE_CASES, dtab_plain_kept,
+                                           edge_case)
 from spnerf_torch.utils.synth import fake_batch
 
 ATOL = 2e-2
@@ -178,6 +180,56 @@ def test_dtab_kernels_match_plain_tmajor(device, kind, name):
         assert out.shape == ref.shape
         err = (out - ref).abs().max().item()
         assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), (fmajor, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(EDGE_CASES))
+@pytest.mark.parametrize("name", ["sorted", "partials"])
+def test_dtab_window_kernels_edge_cases(device, kind, name):
+    """B3 and B3′ on the edge cases, in both layouts, with int64 and int32
+    ids, against the plain version within 1e-5 of the largest entry; ids
+    outside [0, t_eff) dropped; B3 the same bits twice."""
+    from spnerf_torch.ops import dtab as dt
+
+    fn = dt.dtab_sorted if name == "sorted" else dt.dtab_sorted_partials
+    key = "dtab_sorted" if name == "sorted" else "dtab_sorted_partials"
+    for fmajor, ids64 in itertools.product((True, False), (True, False)):
+        ids, ct, t_eff = edge_case(kind, device, fmajor, ids64)
+        before = dt.launches[key]
+        out = fn(ids, ct, t_eff, fmajor=fmajor)
+        torch.cuda.synchronize()
+        assert dt.launches[key] == before + (1 if ids.numel() else 0)
+        ref = dtab_plain_kept(ids, ct, t_eff, fmajor=fmajor)
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), \
+            (fmajor, ids64, err)
+        if name == "sorted":
+            assert torch.equal(out, fn(ids, ct, t_eff, fmajor=fmajor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,F,t_eff", [
+    (524_288, 4, 2 ** 19), (1_048_576, 4, 65_536), (1, 1, 1), (0, 4, 8),
+    (50_000, 3, 10_000), (100_000, 8, 2 ** 16), (300_000, 4, 2 ** 21 + 5),
+    (10, 1, 2 ** 30),
+])
+def test_owner_plan(device, M, F, t_eff):
+    """B3's plan from the C side: a window of S table rows, a power of two
+    whose S * F floats fit 32 KB of shared memory; slices of as few windows
+    as keep them at 1,024 or fewer, covering [0, t_eff) with none empty; the
+    scratch holds at least the partitioned ids and cotangent. At the hash
+    step's hashed levels, 256 slices of one window of 2,048 rows."""
+    from spnerf_torch.ops import dtab as dt
+
+    plan = dt.owner_plan(M, F, t_eff, torch.cuda.current_device())
+    S, wps, n = plan.S, plan.wps, plan.n_slices
+    assert S >= 4 and S & (S - 1) == 0 and 4 * S * F <= 32 * 1024
+    assert 1 <= n <= 1024 and n * S * wps >= t_eff > (n - 1) * S * wps
+    assert wps == 1 or -(-t_eff // (S * (wps - 1))) > 1024
+    assert plan.scratch_words >= (1 + F) * M
+    if (M, F, t_eff) == (524_288, 4, 2 ** 19):
+        assert (S, wps, n) == (2048, 1, 256)
 
 
 def batched_case(device, M=300_000, seed=0):

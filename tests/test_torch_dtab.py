@@ -21,6 +21,7 @@ import torch
 from spnerf_tpu.ops.pallas import dtab as jdtab
 from spnerf_torch.models.hashgrid import HashGridEncoding, use_batched
 from spnerf_torch.ops import dtab as tdtab
+from spnerf_torch.utils import dtab_cases
 
 CASES = {
     "uniform": (2 ** 15, 4, 20000, "uniform"),
@@ -276,3 +277,59 @@ def test_new_kernel_wrappers_refuse_cpu_tensors():
                           impl="fast")
     with pytest.raises(ValueError, match="features"):
         tdtab.dtab(ids, torch.zeros(4, 2), 8, 3, fmajor=False)
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("name", ["dense", "sorted", "partials"])
+def test_per_level_wrappers_refuse_bad_inputs(name, ids_dtype):
+    """B2, B3 and B3′ refuse CPU tensors, F outside 1..8 and ids that do not
+    match the cotangent, in both layouts and with int32 or int64 ids, before
+    anything reaches a kernel."""
+    fn = {"dense": tdtab.dtab_dense, "sorted": tdtab.dtab_sorted,
+          "partials": tdtab.dtab_sorted_partials}[name]
+    ids = torch.zeros(6, dtype=ids_dtype)
+    before = dict(tdtab.launches)
+    for fmajor in (True, False):
+        def ct(F, M=6):
+            return torch.zeros((F, M) if fmajor else (M, F))
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(ids, ct(4), 8, fmajor=fmajor)
+        for F in (0, 9):
+            with pytest.raises(ValueError, match="1 <= F <= 8"):
+                fn(ids, ct(F), 8, fmajor=fmajor)
+        with pytest.raises(ValueError, match="do not match"):
+            fn(ids, ct(4, M=5), 8, fmajor=fmajor)
+        with pytest.raises(ValueError, match="do not match"):
+            fn(ids.reshape(2, 3), ct(4), 8, fmajor=fmajor)
+        with pytest.raises(ValueError, match="32-bit"):
+            fn(ids, ct(4), 2 ** 31 // 4, fmajor=fmajor)
+    assert tdtab.launches == before
+
+
+@pytest.mark.parametrize("kind", sorted(dtab_cases.EDGE_CASES))
+def test_edge_cases_and_their_plain_version(kind):
+    """The edge cases the card holds B3 and B3′ to (`utils/dtab_cases.py`),
+    built on the CPU in both layouts with int64 and int32 ids: their shapes,
+    types and layouts, and `dtab_plain_kept` against numpy's `add.at` over
+    the ids in [0, t_eff) in float64, within 1e-5 of the largest entry."""
+    t_eff, F, M = dtab_cases.EDGE_CASES[kind]
+    for fmajor in (True, False):
+        for ids64 in (True, False):
+            ids, ct, t = dtab_cases.edge_case(kind, "cpu", fmajor, ids64)
+            assert t == t_eff and ids.shape == (M,)
+            assert ids.dtype == (torch.int64 if ids64 else torch.int32)
+            assert ct.dtype == torch.float32 and ct.is_contiguous()
+            assert ct.shape == ((F, M) if fmajor else (M, F))
+            if kind == "one_id":
+                assert (ids == ids[0]).all()
+            if kind == "out_of_range":
+                assert (ids < 0).any() and (ids >= t_eff).any()
+            out = dtab_cases.dtab_plain_kept(ids, ct, t_eff, fmajor)
+            assert out.shape == ((F, t_eff) if fmajor else (t_eff, F))
+            keep = ((ids >= 0) & (ids < t_eff)).numpy()
+            rows = (ct.t() if fmajor else ct).numpy()[keep]
+            ref = np.zeros((t_eff, F))
+            np.add.at(ref, ids.numpy()[keep], rows.astype(np.float64))
+            got = (out.t() if fmajor else out).numpy()
+            assert np.abs(got - ref).max() <= 1e-5 * max(np.abs(ref).max(),
+                                                          1.0)
