@@ -27,15 +27,17 @@ Phases, each fatal on failure:
      version records the 24 (ids, cotangent) pairs the step hands the table
      gradient; each is sent to the kernel the router picks and held against
      the plain version, plus a skewed case (half the rows on 64 ids) for
-     both kernels and B3's edge cases (`spnerf_torch/utils/dtab_cases.py`:
-     every row on one id, ids outside [0, t_eff) at both ends, M = 1 and 0,
-     M not a multiple of the partition tile, t_eff not a multiple of a
-     slice, F = 1, 3 and 8, more table windows than slices with split
-     slices; both layouts, int64 and int32 ids); B3 must give the same bits
-     twice. Every call is timed (CUDA events, host launches included)
-     beside the plain version, the library call `index_add_` into a zeroed
-     table and with its zero fill, and its bytes bound, and the kernels' own
-     device time and device launches per call are read from torch.profiler;
+     both kernels and the edge cases (`spnerf_torch/utils/dtab_cases.py`:
+     every row on one id, ids outside [0, t_eff) at both ends, int64 ones
+     at -2^40 included, M = 1 and 0, M not a multiple of the partition
+     tile, t_eff not a multiple of a slice, F = 1, 3 and 8, more table
+     windows than slices with split slices; int64 and int32 ids) for B3 in
+     both layouts and B2 in the flat table's feature-major one; B3 must give
+     the same bits twice. Every call is timed (CUDA events, host launches
+     included) beside the plain version, the library call `index_add_` into
+     a zeroed table and with its zero fill, and its bytes bound, and the
+     kernels' own device time and device launches per call are read from
+     torch.profiler (B2's zero-fill memset, in its C call, included);
   7. the hash train step at full width on a 65,536-ray synthetic scene
      (seed 0): the same step's table gradient and loss through the kernels
      and through the plain version agree; one step through the trainer
@@ -45,7 +47,8 @@ Phases, each fatal on failure:
      1 warm-up and 3 timed steps;
   9. the hash step with the (L, T, F) table (hash_flat_table=False): its
      24 t-major table gradients recorded and held on B2 and B3 (t-major
-     layout) against the plain version and timed; the step's loss and table
+     layout) against the plain version and timed, B2 also on the edge cases
+     in the t-major layout; the step's loss and table
      gradient through the kernels agree with the plain run; one step
      launches B2 3 times and B3 21 times; then 1 warm-up and 10 timed steps;
  10. SPNERF_HASH_SW_ACC=0 on the flat step: B3′ (dtab_sorted_partials) held
@@ -57,10 +60,15 @@ Phases, each fatal on failure:
      launches B2 3 times and B3′ 21 times; then timed;
  11. SPNERF_HASH_SW_BATCHED=1 on the (L, T, F) step: B4 (dtab_batched) held
      against dtab_batched_plain on the step's 3 recorded batched inputs, a
-     skewed level and a level of direct-coarse ids, and bitwise equal to
-     itself; timed as in 10 (`index_add_` on the flattened table); the step
-     through the kernels agrees with the plain step; one step launches B4 3
-     times and no B2, B3 or B3′; then timed;
+     skewed level and a level of direct-coarse ids, and the batched edge
+     cases of `dtab_cases.py` (L = 1, M = 0 and 1, M not a multiple of 32,
+     ids at -2^40, -1, T and T + 2^32 in one level, a level of one id,
+     F = 1, 3 and 8; int64 and int32 ids), two calls within DTAB_RTOL of
+     each other (float atomics); timed as in 10 (`index_add_` on the
+     flattened table, with and without its zero fill), with profiler device
+     times, the memset included; the step through the kernels agrees with
+     the plain step; one step launches B4 3 times and no B2, B3 or B3′; then
+     timed;
   and print the `kernels` line. The env of phases 10 and 11 is set around
   its phase only and restored after.
 
@@ -138,20 +146,17 @@ def rel_check(out, ref, tag):
     return err, (err / scale if scale else 0.0)
 
 
-# names of the port's table-gradient kernels (B3′'s zero fill, a memset in
-# its C call, counts as its own) and of the library sort's
-PORT_KERNEL_KEYS = ("dtab_dense", "seg_", "slice_", "tile_agg",
-                    "batched_keys")
+# names of the port's table-gradient kernels (the zero fill of B2, B3′ and
+# B4, a memset in their C call, counts as their own)
+PORT_KERNEL_KEYS = ("dtab_scatter", "slice_", "tile_agg")
 MEMSET_KEYS = ("Memset",)
-SORT_KEYS = ("adix", "Sort")
 
 
 def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
     """Device time and device launches per call of `run` (which makes
     n_calls calls) under torch.profiler: {"kernel": ms of the kernels whose
-    names hold one of `keys`, "sort": ms of the library sort, "launches":
-    those kernels' launches, "sort_launches": the sort's, "names": launches
-    per call by kernel name}. Each pass opens with a fill of its own,
+    names hold one of `keys`, "launches": those kernels' launches, "names":
+    launches per call by kernel name}. Each pass opens with a fill of its own,
     synchronised, because the first device activity of a pass now and then
     goes unrecorded. A profiling pass that records no device activity (seen
     now and then after several passes in one process) is run again, up to
@@ -165,32 +170,21 @@ def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
             torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
-        us = {"kernel": 0.0, "sort": 0.0}
-        n = {"kernel": 0, "sort": 0}
-        names = {}
+        us, n, names = 0.0, 0, {}
         seen = False
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             seen = True
-            d = e.time_range.end - e.time_range.start
             if any(k in e.name for k in keys):
-                kind = "kernel"
+                us += e.time_range.end - e.time_range.start
+                n += 1
                 name = e.name.split("(")[0].removeprefix("void ")
                 names[name] = names.get(name, 0) + 1 / n_calls
-            elif any(k in e.name for k in SORT_KEYS):
-                kind = "sort"
-            else:
-                continue
-            us[kind] += d
-            n[kind] += 1
         if seen:
-            return {"kernel": us["kernel"] / 1e3 / n_calls,
-                    "sort": us["sort"] / 1e3 / n_calls,
-                    "launches": n["kernel"] / n_calls,
-                    "sort_launches": n["sort"] / n_calls, "names": names}
-    return dict.fromkeys(("kernel", "sort", "launches", "sort_launches",
-                          "names"))
+            return {"kernel": us / 1e3 / n_calls, "launches": n / n_calls,
+                    "names": names}
+    return dict.fromkeys(("kernel", "launches", "names"))
 
 
 @contextlib.contextmanager
@@ -228,7 +222,8 @@ def main():
         from spnerf_torch.render import build_render_fn, chunk_size
         from spnerf_torch.models import hashgrid as hg
         from spnerf_torch.ops import dtab as dt
-        from spnerf_torch.utils.dtab_cases import (EDGE_CASES,
+        from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
+                                                   batched_edge_case,
                                                    dtab_plain_kept, edge_case)
         from spnerf_torch.utils.synth import (fake_batch, flagship_configs,
                                               train_setup)
@@ -495,18 +490,19 @@ def main():
             f"{rec['bound_ms']:.4f} ms")
         return rec
 
-    def hold_edges(name):
-        """Kernel `name` on every edge case of `utils/dtab_cases.py` in both
-        layouts, int64 and int32 ids; {kind: max relative error}."""
+    def hold_edges(name, layouts=(True, False)):
+        """Kernel `name` on every edge case of `utils/dtab_cases.py` in the
+        layouts given (fmajor flags), int64 and int32 ids; {kind: max
+        relative error}."""
         rels = {}
         for kind in EDGE_CASES:
-            for fmajor in (True, False):
+            for fmajor in layouts:
                 for ids64 in (True, False):
                     ids, ct, t_eff = edge_case(kind, device, fmajor, ids64)
                     r = hold(name, ids, ct, t_eff, fmajor, f"edge {kind}",
                              timed=False)
                     rels[kind] = max(rels.get(kind, 0.0), r["rel"])
-        log(f"dtab_{name} edge cases, both layouts, int64 and int32 ids, "
+        log(f"dtab_{name} edge cases, fmajor {layouts}, int64 and int32 ids, "
             f"max err / largest entry: {json.dumps(rels)}")
         return rels
 
@@ -525,7 +521,7 @@ def main():
             by[name].append((ids, ct, t_eff, fmajor))
         dev = {n: device_ms(lambda: [kernels[n](*c) for c in by[n]],
                             len(by[n]), keys=PORT_KERNEL_KEYS
-                            + (MEMSET_KEYS if n == "partials" else ()))
+                            + (MEMSET_KEYS if n != "sorted" else ()))
                for n in names}
         log(f"device time per launch (profiler): {json.dumps(dev)}")
         return per, dev
@@ -599,6 +595,7 @@ def main():
     log(f"skewed (half the rows on 64 ids), t_eff={t_eff6} "
         f"M={skew.shape[0]}: " + json.dumps(skew_err))
     edge6 = hold_edges("sorted")
+    edge6_dense = hold_edges("dense", (True,))
     del calls, ids
     torch.cuda.empty_cache()
 
@@ -630,6 +627,7 @@ def main():
     if len(calls) != 3 * n_levels or any(c[3] for c in calls):
         fail(f"expected {3 * n_levels} t-major table gradients per step")
     per9, dev9 = hold_calls(calls, True, ("dense", "sorted"))
+    edge9_dense = hold_edges("dense", (False,))
     del calls
     match9 = step_match("(L, T, F) hash step", ttr, tstate, tdata, loss_plain,
                         grad_plain)
@@ -671,33 +669,54 @@ def main():
 
     # 11. SPNERF_HASH_SW_BATCHED=1 on the (L, T, F) step: B4
     def hold_batched(ids, ct, T_, tag, timed=True):
+        """B4 against dtab_batched_plain and against a second call of
+        itself (float atomics: within DTAB_RTOL, not bitwise), then timed
+        beside the plain version, `index_add_` on the flattened (L * T, F)
+        table with and without its zero fill, and the bytes bound."""
         out = dt.dtab_batched(ids, ct, T_)
         ref = dt.dtab_batched_plain(ids, ct, T_)
         err, rel = rel_check(out, ref, f"dtab_batched {tag}")
-        if not torch.equal(out, dt.dtab_batched(ids, ct, T_)):
-            fail(f"dtab_batched {tag}: two calls differ")
+        _, rel2 = rel_check(dt.dtab_batched(ids, ct, T_), out,
+                            f"dtab_batched {tag}, a second call")
         L_, M = ids.shape
+        F = ct.shape[2]
         rec = dict(L=L_, M=M, t_eff=T_, err=err, rel=rel)
         if timed:
             keys = (ids.long() + torch.arange(L_, device=device)[:, None]
                     * T_).reshape(-1)
-            flat_ct = ct.reshape(L_ * M, n_feat)
-            lib_out = torch.zeros((L_ * T_, n_feat), device=device)
+            flat_ct = ct.reshape(L_ * M, F)
+            lib_out = torch.zeros((L_ * T_, F), device=device)
             rec.update(
                 ms=cuda_ms(lambda: dt.dtab_batched(ids, ct, T_), 5),
                 plain_ms=cuda_ms(lambda: dt.dtab_batched_plain(ids, ct, T_),
                                  3),
                 library_ms=cuda_ms(lambda: lib_out.index_add_(0, keys,
                                                               flat_ct), 3),
-                bound_ms=L_ * bound_ms(M, T_))
+                library_zero_ms=cuda_ms(lambda: torch.zeros_like(
+                    lib_out).index_add_(0, keys, flat_ct), 3),
+                bound_ms=L_ * bound_ms(M, T_, F, ids.element_size()))
             log(f"dtab_batched {tag}: max abs err {err:.3g} ({rel:.3g} of "
                 f"the largest entry), kernel {rec['ms']:.3f} ms, plain "
                 f"{rec['plain_ms']:.3f} ms, index_add_ "
-                f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms")
+                f"{rec['library_ms']:.3f} ms ({rec['library_zero_ms']:.3f} "
+                f"ms with its zero fill), bound {rec['bound_ms']:.4f} ms")
         else:
             log(f"dtab_batched {tag}: max abs err {err:.3g} ({rel:.3g} of "
-                f"the largest entry), bitwise equal twice")
+                f"the largest entry); two calls within {rel2:.3g}")
         return rec
+
+    def hold_batched_edges():
+        """B4 on every batched edge case of `utils/dtab_cases.py`, int64
+        and int32 ids; {kind: max relative error}."""
+        rels = {}
+        for kind in BATCHED_CASES:
+            for ids64 in (True, False):
+                ids, ct, T_ = batched_edge_case(kind, device, ids64)
+                r = hold_batched(ids, ct, T_, f"edge {kind}", timed=False)
+                rels[kind] = max(rels.get(kind, 0.0), r["rel"])
+        log(f"dtab_batched edge cases, int64 and int32 ids, max err / "
+            f"largest entry: {json.dumps(rels)}")
+        return rels
 
     with env_set("SPNERF_HASH_SW_BATCHED", "1"):
         ttr, tdata = train_setup("hash", device=device, flat_table=False)
@@ -720,8 +739,9 @@ def main():
                                           generator=gen)
         extra11 = hold_batched(extra, ct, T_, "skewed and direct-coarse "
                                "levels", timed=False)
+        edge11 = hold_batched_edges()
         dev11 = device_ms(lambda: [dt.dtab_batched(*c) for c in bcalls],
-                          len(bcalls))
+                          len(bcalls), keys=PORT_KERNEL_KEYS + MEMSET_KEYS)
         log(f"device time per launch (profiler): {json.dumps(dev11)}")
         del bcalls, ids, ct, extra
         match11 = step_match("(L, T, F) hash step, SW_BATCHED=1", ttr, tstate,
@@ -740,7 +760,7 @@ def main():
         n = len(recs)
         tot = {k: sum(r[k] for r in recs)
                for k in ("ms", "plain_ms", "library_ms", "library_zero_ms",
-                         "bound_ms") if k in recs[0]}
+                         "bound_ms")}
         e = {
             "name": name,
             "route": "cuda",
@@ -762,15 +782,11 @@ def main():
             "device_ms": dev["kernel"],
             "kernel_launches_per_call": dev["launches"],
             "kernels_per_call": dev["names"],
-            "library_zero_ms": tot.get("library_zero_ms", n * np.nan) / n,
+            "library_zero_ms": tot["library_zero_ms"] / n,
             "calls": [{k: v for k, v in r.items() if k not in ("err", "rel")}
                       for r in recs],
             "card": card,
         }
-        if name == "dtab_batched":
-            e["sort_device_ms"] = dev["sort"]
-            e["sort_launches_per_call"] = dev["sort_launches"]
-            del e["library_zero_ms"]
         e.update(more)
         return e
 
@@ -786,6 +802,8 @@ def main():
     src = "spnerf_tpu/ops/pallas/dtab.py"
     dense = entry("dtab_dense", f"{src}:127", per["dense"],
                   launches7["dtab_dense"], [skew_err["dense"]], dev6["dense"],
+                  edge_rel_err={"fmajor": edge6_dense,
+                                "tmajor": edge9_dense},
                   tmajor=tmajor(per9["dense"], dev9["dense"]))
     sorted_ = entry("dtab_sorted", f"{src}:307", per["sorted"],
                     launches7["dtab_sorted"], [skew_err["sorted"]],
@@ -795,7 +813,8 @@ def main():
                      per10["partials"], launches10["dtab_sorted_partials"],
                      [skew10], dev10["partials"], edge_rel_err=edge10)
     batched = entry("dtab_batched", f"{src}:584", per11,
-                    launches11["dtab_batched"], [extra11], dev11)
+                    launches11["dtab_batched"], [extra11], dev11,
+                    edge_rel_err=edge11)
     print(json.dumps({
         "kernels": [field_entry, dense, sorted_, partials, batched],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,

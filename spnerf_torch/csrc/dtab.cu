@@ -1,7 +1,7 @@
 // Hash-table gradient on Hopper (sm_90a):
 //   dtab[t, f] = sum_m [ids_m == t] * ct[m, f]
-// for ids (M,) in [0, t_eff) (int32; B3 and B3' also take int64) and a
-// cotangent of M rows of F float32 values, into a float32 table of t_eff
+// for ids (M,) in [0, t_eff) (int32 or int64, read at their own width) and
+// a cotangent of M rows of F float32 values, into a float32 table of t_eff
 // rows of F. Ids outside [0, t_eff) are dropped, as an XLA scatter drops
 // them.
 //
@@ -10,32 +10,50 @@
 // (L, T, F) table (ct (M, F), out (t_eff, F)). The arithmetic is the same;
 // only the two index functions below differ.
 //
-// B2, `spnerf_dtab_dense`, replaces the Pallas kernel `dtab_pallas`
-// (spnerf_tpu/ops/pallas/dtab.py, `_kernel_cols` / `_kernel`). B3,
-// `spnerf_dtab_owner`, replaces the accumulating branch of
-// `dtab_sorted_window` (same file, `_win_kernel_acc_cols` /
+// B2 and B4, `spnerf_dtab_scatter`, replace the Pallas kernel `dtab_pallas`
+// (spnerf_tpu/ops/pallas/dtab.py, `_kernel_cols` / `_kernel`) and the
+// batched cross-level form `dtab_sorted_window_batched` (same file,
+// `_win_kernel_b`). B3, `spnerf_dtab_owner`, replaces the accumulating
+// branch of `dtab_sorted_window` (`_win_kernel_acc_cols` /
 // `_win_kernel_acc`), B3', `spnerf_dtab_tile_agg`, its non-accumulating
-// branch (`_win_kernel` and the tile scatter after it), and B4,
-// `spnerf_dtab_batched_keys` + `spnerf_dtab_sorted_batched`, the batched
-// cross-level form `dtab_sorted_window_batched` (`_win_kernel_b`). The TPU
-// kernels compute the scatter-add as factorized one-hot matmuls because the
-// TPU has no fast scatter; Hopper has float atomics in shared and global
-// memory and fast shared-memory warp primitives, so no kernel here builds a
-// one-hot.
+// branch (`_win_kernel` and the tile scatter after it). The TPU kernels
+// compute the scatter-add as factorized one-hot matmuls because the TPU has
+// no fast scatter; Hopper has float atomics in shared and global memory and
+// fast shared-memory warp primitives, so no kernel here builds a one-hot.
 //
-// Bound: bytes. The function reads M * (4 + 4F) bytes and writes 4 F t_eff
-// bytes and does M * F additions, far below the card's 295 FLOP/byte ridge.
-// What limits the kernels in practice is contention: the hash ids of the
-// coarse levels repeat thousands of times (every ray crosses the cells near
-// the scene's centre), and additions to one address serialise.
+// Bound: bytes. The function reads M * (id bytes + 4F) bytes and writes
+// 4 F t_eff bytes and does M * F additions, far below the card's 295
+// FLOP/byte ridge. What limits the kernels in practice is contention: the
+// hash ids of the coarse levels repeat thousands of times (every ray crosses
+// the cells near the scene's centre), and additions to one address
+// serialise.
 //
-// B2 design: when the table fits a block's shared memory (128 KB at F = 4,
-// t_eff = 8,192, the only dense level of the hash step), every block
-// accumulates a grid-stride share of the rows into a private copy in shared
-// memory with shared-memory atomics, then adds each nonzero entry to the
-// output with one global atomic. Larger tables take the simple form: one
-// global atomic per row and feature. Float atomics make the summation order,
-// and so the last bits, change from run to run.
+// B2 and B4, `spnerf_dtab_scatter`: one pass over the rows, in their order,
+// with warp-merged rows and float atomics; no sort, no private table. One C
+// call zeroes the table (`cudaMemsetAsync`) and makes one launch. B4 takes
+// all L levels of an (L, T, F) table at once: the rows come level by level,
+// (L, M) row-major, and row m of level l adds to table row l * T + id. B2
+// is the same kernel with L = 1, in either layout. An id is compared with
+// [0, T) at its own width and dropped outside it, so nothing wraps and
+// nothing spills into the next level. A warp takes 32 consecutive rows: in
+// the hash step, the 8 corners of 4 consecutive samples of a ray, which
+// share cells on the coarse levels. Where some row's key equals the key 8
+// lanes back (one shuffle and one ballot), the warp groups its equal keys
+// (`__match_any_sync`), sums each group by pointer jumping, and only the
+// group's last member adds; a warp without such a repeat (the hashed fine
+// levels, nearly always) adds every row as it is, one atomic a row and
+// nothing else. The atomics resolve in the 50 MB L2, which holds B2's whole
+// table (128 KB at t_eff 8,192, F 4) and the 8 MB level of B4's table that
+// the rows are on: one 16-byte `red.global.add.v4.f32` a row in the t-major
+// layout at F = 4 (where `index_add_` makes four), a float2 one at F = 2, F
+// scalar ones otherwise. Each row is read once, 16 bytes a lane where the
+// layout allows; the bound is the bytes above. This replaces, in B4, a keys
+// kernel, a library sort of the L * M keys and a keyed chunk scan, and in
+// B2 a private copy of the table in every block's shared memory (one 8-warp
+// block an SM); the host pays one ctypes call and one `torch.empty`. The
+// order of the additions follows the atomics, so the last bits vary from
+// run to run, as the JAX package lets them vary among equal ids with its
+// unstable sorts (spnerf_tpu/ops/pallas/dtab.py:46-58).
 //
 // B3, `spnerf_dtab_owner`: owner-computes, deterministic, no sort. It
 // replaces the accumulating branch of `dtab_sorted_window`
@@ -84,24 +102,11 @@
 // layout at F = 2 / 4). The zero fill is a `cudaMemsetAsync` in the same C
 // call. The last bits vary from run to run, as in B2.
 //
-// Both: the bound is bytes, M * (id bytes + 4F) read and 4 F t_eff written.
-// What they do about the host: one C call per wrapper call carries every
-// launch, the wrapper allocates with `torch.empty` only and converts nothing
-// (B3's scratch size is asked of the C side once per shape and kept).
-//
-// B4 design: one call for all L levels of an (L, T, F) table. The keys
-// kernel maps level l's id to the key l * T + id (int32; the caller refuses
-// L * T >= 2^31) and an id outside [0, T) to INT_MAX, a key that is never
-// written, so it cannot spill into the next level. After one stable library
-// sort of the L * M keys, two passes run over all rows into the (L * T, F)
-// t-major output, writing each run of equal keys once. Pass 1: one block per
-// chunk of 256 sorted rows runs a keyed inclusive scan (Hillis-Steele in
-// shared memory, a fixed order of additions); a run that begins and ends
-// inside the chunk is written by the thread at its end, a run that crosses
-// into the next chunk leaves the chunk's partial sums of its first and last
-// segments in scratch. Pass 2: one thread per chunk in which such a run
-// begins adds the following chunks' first-segment partials in order and
-// writes the total. Deterministic, exact for any ids.
+// B3 and B3': the bound is bytes, M * (id bytes + 4F) read and 4 F t_eff
+// written. What they do about the host: one C call per wrapper call carries
+// every launch, the wrapper allocates with `torch.empty` only and converts
+// nothing (B3's scratch size is asked of the C side once per shape and
+// kept).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -112,11 +117,8 @@
 
 #define MAXF 8
 #define FULL_MASK 0xffffffffu
-#define DENSE_THREADS 256
-#define DENSE_ROWS_PER_BLOCK 4096  // fewer rows than this per block: fewer blocks
-#define SEG 256                    // B4: sorted rows per chunk (threads per block)
-#define CARRY_THREADS 256
-#define FLAT_THREADS 256
+// B2 and B4
+#define SCATTER_THREADS 256  // rows per block, one a thread
 // B3
 #define B3_THREADS 256                 // every B3 kernel's block
 #define B3_WARPS (B3_THREADS / 32)     // a power of two: table row t -> warp t % 8
@@ -148,147 +150,85 @@ __device__ __forceinline__ size_t out_index(int t, int f, int F, int t_eff,
   return tmajor ? (size_t)t * F + f : (size_t)f * t_eff + t;
 }
 
-// ---------------------------------------------------------------- B2 dense
+// ------------------------------------------------ B2 and B4: one pass
 
-__global__ void dtab_dense_smem_kernel(const int* __restrict__ ids,
-                                       const float* __restrict__ ct, int M,
-                                       int F, int t_eff, int tmajor,
-                                       float* __restrict__ out) {
-  extern __shared__ float acc[];  // the table in the output's layout
-  const int n_out = F * t_eff;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  const int stride = gridDim.x * blockDim.x;
-  for (int m = blockIdx.x * blockDim.x + threadIdx.x; m < M; m += stride) {
-    const int id = ids[m];
-    if ((unsigned)id >= (unsigned)t_eff) continue;
-    for (int f = 0; f < F; ++f)
-      atomicAdd(&acc[out_index(id, f, F, t_eff, tmajor)],
-                ct[ct_index(m, f, M, F, tmajor)]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(&out[i], v);
+// v[0, F) becomes the sum of v over the members of this lane's group
+// (`peers`, this lane included) at or below this lane, by pointer jumping:
+// after round k a lane holds the sum of the 2^(k+1) members ending at it.
+// The group's last member ends with the group's total. Every lane of the
+// warp calls it. (B3's summing pass keeps its own loop, which shuffles all
+// MAXF values without a branch: through this one it took 2-4% more device
+// time.)
+__device__ __forceinline__ void group_sum(unsigned peers, float* v, int F) {
+  const int lane = threadIdx.x & 31;
+  int prev = 31 - __clz(peers & ((1u << lane) - 1));  // the member below, or -1
+  while (__any_sync(FULL_MASK, prev >= 0)) {
+    const int src = prev >= 0 ? prev : lane;
+#pragma unroll
+    for (int f = 0; f < MAXF; ++f) {
+      if (f < F) {  // F is the same in every lane
+        const float u = __shfl_sync(FULL_MASK, v[f], src);
+        if (prev >= 0) v[f] += u;
+      }
+    }
+    const int pp = __shfl_sync(FULL_MASK, prev, src);
+    if (prev >= 0) prev = pp;
   }
 }
 
-__global__ void dtab_dense_global_kernel(const int* __restrict__ ids,
-                                         const float* __restrict__ ct, int M,
-                                         int F, int t_eff, int tmajor,
-                                         float* __restrict__ out) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int m = blockIdx.x * blockDim.x + threadIdx.x; m < M; m += stride) {
-    const int id = ids[m];
-    if ((unsigned)id >= (unsigned)t_eff) continue;
-    for (int f = 0; f < F; ++f)
-      atomicAdd(&out[out_index(id, f, F, t_eff, tmajor)],
-                ct[ct_index(m, f, M, F, tmajor)]);
-  }
-}
-
-// ------------------------------------------------------- B4: chunk scan
-
-// Keyed inclusive scan of chunk c = blockIdx.x, sorted rows [c * SEG,
-// c * SEG + n): on return val[f][t] holds the sum of row t's run segment up
-// to row t, key[t] its id (INT_MAX past the chunk's rows). Returns n.
-__device__ __forceinline__ int chunk_scan(const int* __restrict__ ids_s,
-                                          const int64_t* __restrict__ perm,
-                                          const float* __restrict__ ct, int M,
-                                          int F, int tmajor, int* key,
-                                          float (*val)[SEG]) {
-  const int t = threadIdx.x;
-  const int m0 = blockIdx.x * SEG;
-  const int n = min(SEG, M - m0);
-  int id = INT_MAX;  // rows past M: a key no real id takes, sorted last
-  if (t < n) {
-    id = ids_s[m0 + t];
-    const int src = (int)perm[m0 + t];
-#pragma unroll
-    for (int f = 0; f < MAXF; ++f)
-      val[f][t] = f < F ? ct[ct_index(src, f, M, F, tmajor)] : 0.0f;
-  } else {
-#pragma unroll
-    for (int f = 0; f < MAXF; ++f) val[f][t] = 0.0f;
-  }
-  key[t] = id;
-  __syncthreads();
-  // the ids are sorted, so equal keys at t - off and t mean no run boundary
-  // lies between them
-  for (int off = 1; off < SEG; off <<= 1) {
-    const bool same = t >= off && key[t - off] == id;
-    float add[MAXF];
-#pragma unroll
-    for (int f = 0; f < MAXF; ++f) add[f] = same ? val[f][t - off] : 0.0f;
-    __syncthreads();
-    if (same) {
+// Rows [0, L * M) of ids (L, M) and ct (L * M rows of F): row i, of level
+// l = i / M, adds to table row l * T + id of out (L * T rows of F), zeroed
+// before; ids outside [0, T) are dropped. One row a thread, so a warp holds
+// 32 consecutive rows. vec 4 (2): the t-major layout at F = 4 (2) with ct
+// and out aligned for float4 (float2) loads and atomics.
+template <typename Id>
+__global__ void __launch_bounds__(SCATTER_THREADS)
+    dtab_scatter_kernel(const Id* __restrict__ ids,
+                        const float* __restrict__ ct, int L, int M, int F,
+                        int T, int tmajor, int vec, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int n = L * M;
+  const int i = blockIdx.x * SCATTER_THREADS + threadIdx.x;
+  int key = -1;  // l * T + id, or -1 for a row that is dropped
+  float v[MAXF] = {};
+  if (i < n) {
+    const Id id = ids[i];
+    if (id >= 0 && id < (Id)T) key = i / M * T + (int)id;
+    if (vec == 4) {
+      const float4 u = __ldg((const float4*)ct + i);
+      v[0] = u.x;
+      v[1] = u.y;
+      v[2] = u.z;
+      v[3] = u.w;
+    } else if (vec == 2) {
+      const float2 u = __ldg((const float2*)ct + i);
+      v[0] = u.x;
+      v[1] = u.y;
+    } else {
 #pragma unroll
       for (int f = 0; f < MAXF; ++f)
-        if (f < F) val[f][t] += add[f];
+        if (f < F) v[f] = __ldg(ct + ct_index(i, f, n, F, tmajor));
     }
-    __syncthreads();
   }
-  return n;
-}
-
-// B4 pass 1: runs inside the chunk are written; crossing runs leave partials.
-__global__ void seg_sum_chunk_kernel(const int* __restrict__ ids_s,
-                                     const int64_t* __restrict__ perm,
-                                     const float* __restrict__ ct, int M,
-                                     int F, int t_eff, int tmajor,
-                                     float* __restrict__ out,
-                                     float* __restrict__ part_first,
-                                     float* __restrict__ part_last) {
-  __shared__ int key[SEG];
-  __shared__ float val[MAXF][SEG];
-  const int n = chunk_scan(ids_s, perm, ct, M, F, tmajor, key, val);
-  const int t = threadIdx.x;
-  const int c = blockIdx.x;
-  const int m0 = c * SEG;
-  if (t >= n) return;
-  const int id = key[t];
-  const bool seg_end = t == n - 1 || key[t + 1] != id;
-  if (!seg_end) return;
-  const bool first_seg = key[0] == id;
-  const bool last_seg = t == n - 1;
-  const bool starts_here = !first_seg || m0 == 0 || ids_s[m0 - 1] != id;
-  const bool continues = last_seg && m0 + n < M && ids_s[m0 + n] == id;
-  for (int f = 0; f < F; ++f) {
-    const float v = val[f][t];
-    if (first_seg) part_first[c * F + f] = v;
-    if (last_seg) part_last[c * F + f] = v;
-    if (starts_here && !continues && (unsigned)id < (unsigned)t_eff)
-      out[out_index(id, f, F, t_eff, tmajor)] = v;
+  // merge the warp's equal keys only where a row repeats the key 8 lanes
+  // back: in the hash step, the same corner of the previous sample of a ray
+  const int back = __shfl_up_sync(FULL_MASK, key, 8);
+  bool adds = key >= 0;
+  if (__any_sync(FULL_MASK, adds && lane >= 8 && back == key)) {
+    const unsigned peers = __match_any_sync(FULL_MASK, key);
+    group_sum(peers, v, F);
+    adds = adds && (peers >> lane) == 1u;  // the group's last member
   }
-}
-
-// B4 pass 2: the runs that begin in chunk c and continue past it.
-__global__ void seg_sum_carry_kernel(const int* __restrict__ ids_s, int M,
-                                     int F, int t_eff, int tmajor,
-                                     int n_chunks,
-                                     const float* __restrict__ part_first,
-                                     const float* __restrict__ part_last,
-                                     float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_chunks - 1) return;  // the last chunk's runs end in it
-  const int m0 = c * SEG;
-  const int end = m0 + SEG;  // first row of chunk c + 1, < M
-  const int id = ids_s[end - 1];
-  if (ids_s[end] != id) return;  // the chunk's last run ends in it
-  // a chunk that the run fills, begun in an earlier chunk: not its writer
-  if (m0 > 0 && ids_s[m0] == id && ids_s[m0 - 1] == id) return;
-  float acc[MAXF];
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) acc[f] = f < F ? part_last[c * F + f] : 0.0f;
-  for (int k = c + 1; k < n_chunks; ++k) {
+  if (!adds) return;
+  if (vec == 4) {
+    atomicAdd((float4*)out + key, make_float4(v[0], v[1], v[2], v[3]));
+  } else if (vec == 2) {
+    atomicAdd((float2*)out + key, make_float2(v[0], v[1]));
+  } else {
 #pragma unroll
     for (int f = 0; f < MAXF; ++f)
-      if (f < F) acc[f] += part_first[k * F + f];
-    const int kend = min((k + 1) * SEG, M);
-    if (kend >= M || ids_s[kend - 1] != id || ids_s[kend] != id) break;
+      if (f < F) atomicAdd(&out[out_index(key, f, F, L * T, tmajor)], v[f]);
   }
-  if ((unsigned)id >= (unsigned)t_eff) return;
-  for (int f = 0; f < F; ++f) out[out_index(id, f, F, t_eff, tmajor)] = acc[f];
 }
 
 // ------------------------------------------------- B3: owner-computes slices
@@ -833,33 +773,6 @@ __global__ void __launch_bounds__(AGG_THREADS)
   }
 }
 
-// B4 keys: row m of level l -> l * T + id, or INT_MAX for an id outside
-// [0, T).
-__global__ void batched_keys_kernel(const int* __restrict__ ids, int L, int M,
-                                    int T, int* __restrict__ keys) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)L * M) return;
-  const int l = (int)(i / M);
-  const int id = ids[i];
-  keys[i] = (unsigned)id < (unsigned)T ? l * T + id : INT_MAX;
-}
-
-static int launch_sorted(const int* ids_s, const int64_t* perm,
-                         const float* ct, int M, int F, int t_eff, int tmajor,
-                         float* out, float* scratch, cudaStream_t s) {
-  const int n_chunks = (M + SEG - 1) / SEG;
-  float* part_first = scratch;
-  float* part_last = part_first + (size_t)n_chunks * F;
-  seg_sum_chunk_kernel<<<n_chunks, SEG, 0, s>>>(
-      ids_s, perm, ct, M, F, t_eff, tmajor, out, part_first, part_last);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 1) return (int)err;
-  seg_sum_carry_kernel<<<(n_chunks + CARRY_THREADS - 1) / CARRY_THREADS,
-                         CARRY_THREADS, 0, s>>>(
-      ids_s, M, F, t_eff, tmajor, n_chunks, part_first, part_last, out);
-  return (int)cudaGetLastError();
-}
-
 static bool bad_args(int M, int F, int t_eff, int tmajor) {
   return M < 0 || F < 1 || F > MAXF || t_eff < 1 || (tmajor != 0 && tmajor != 1);
 }
@@ -983,41 +896,44 @@ static int launch_tile_agg(const Id* ids, const float* ct, int M, int F,
   return (int)cudaGetLastError();
 }
 
+template <typename Id>
+static int launch_scatter(const Id* ids, const float* ct, int L, int M, int F,
+                          int T, int tmajor, float* out, cudaStream_t st) {
+  const uintptr_t a = (uintptr_t)ct | (uintptr_t)out;
+  const int vec = !tmajor ? 1 : F == 4 && a % 16 == 0 ? 4
+                          : F == 2 && a % 8 == 0 ? 2 : 1;
+  const long long blocks =
+      ((long long)L * M + SCATTER_THREADS - 1) / SCATTER_THREADS;
+  dtab_scatter_kernel<Id><<<(unsigned)blocks, SCATTER_THREADS, 0, st>>>(
+      ids, ct, L, M, F, T, tmajor, vec, out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
-// ids (M,) int32, ct (F, M) or (M, F) float32 as `tmajor` says, out
-// (F, t_eff) or (t_eff, F) float32 zeroed by the caller. Every entry point
-// launches on `stream` and returns cudaGetLastError() (0 on success).
-int spnerf_dtab_dense(const void* ids, const void* ct, int M, int F,
-                      int t_eff, int tmajor, void* out, void* stream) {
-  if (bad_args(M, F, t_eff, tmajor)) return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  int dev = 0, n_sm = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)F * t_eff * sizeof(float);
-  int blocks = (M + DENSE_ROWS_PER_BLOCK - 1) / DENSE_ROWS_PER_BLOCK;
-  if (smem <= (size_t)max_smem) {
-    err = cudaFuncSetAttribute(dtab_dense_smem_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    // every block zeroes and flushes the whole private table: at most as
-    // many blocks as fit on the card at once
-    const int per_sm = std::max(1, (int)((size_t)max_smem / smem));
-    blocks = std::max(1, std::min(blocks, n_sm * per_sm));
-    dtab_dense_smem_kernel<<<blocks, DENSE_THREADS, smem, s>>>(
-        (const int*)ids, (const float*)ct, M, F, t_eff, tmajor, (float*)out);
-  } else {
-    blocks = std::max(1, std::min(blocks * 4, n_sm * 16));
-    dtab_dense_global_kernel<<<blocks, DENSE_THREADS, 0, s>>>(
-        (const int*)ids, (const float*)ct, M, F, t_eff, tmajor, (float*)out);
-  }
-  return (int)cudaGetLastError();
+// ids (M,) int32 or int64 (ids64), ct (F, M) or (M, F) float32 as `tmajor`
+// says, out (F, t_eff) or (t_eff, F) float32. Every entry point launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+
+// B2 and B4: ids (L, M) and ct (L * M rows of F, in the layout `tmajor`
+// says), out (L * T rows of F), zeroed here, on the stream; row m of level l
+// adds to table row l * T + id, and an id outside [0, T) is dropped. B2 is
+// L = 1, T = t_eff.
+int spnerf_dtab_scatter(const void* ids, int ids64, const void* ct, int L,
+                        int M, int F, int T, int tmajor, void* out,
+                        void* stream) {
+  if (L < 1 || bad_args(M, F, T, tmajor) ||
+      (long long)L * M > INT_MAX - SCATTER_THREADS ||
+      (long long)L * T * F > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err =
+      cudaMemsetAsync(out, 0, (size_t)L * T * F * sizeof(float), st);
+  if (err != cudaSuccess || M == 0) return (int)err;
+  return ids64 ? launch_scatter((const long long*)ids, (const float*)ct, L, M,
+                                F, T, tmajor, (float*)out, st)
+               : launch_scatter((const int*)ids, (const float*)ct, L, M, F,
+                                T, tmajor, (float*)out, st);
 }
 
 // B3's plan on `device` (spnerf_torch/ops/dtab.py `owner_plan`): plan[0]
@@ -1073,34 +989,6 @@ int spnerf_dtab_tile_agg(const void* ids, int ids64, const void* ct, int M,
                                  F, t_eff, tmajor, (float*)out, st)
                : launch_tile_agg((const int*)ids, (const float*)ct, M, F,
                                  t_eff, tmajor, (float*)out, st);
-}
-
-// B4, before the sort: ids (L, M) int32 -> keys (L, M) int32.
-int spnerf_dtab_batched_keys(const void* ids, int L, int M, int T,
-                             void* keys, void* stream) {
-  if (L < 1 || M < 0 || T < 1 || (int64_t)L * T > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const int64_t n = (int64_t)L * M;
-  if (n == 0) return 0;
-  batched_keys_kernel<<<(unsigned)((n + FLAT_THREADS - 1) / FLAT_THREADS),
-                        FLAT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, L, M, T, (int*)keys);
-  return (int)cudaGetLastError();
-}
-
-// B4, after the sort: keys_s (L * M,) int32 sorted ascending, perm (L * M,)
-// int64, ct (L, M, F) float32, out (L, T, F) float32 zeroed by the caller,
-// scratch 2 * ceil(L * M / 256) * F floats.
-int spnerf_dtab_sorted_batched(const void* keys_s, const void* perm,
-                               const void* ct, int L, int M, int F, int T,
-                               void* out, void* scratch, void* stream) {
-  if (L < 1 || (int64_t)L * M >= INT_MAX || (int64_t)L * T > INT_MAX ||
-      bad_args(M, F, T, 1))
-    return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  return launch_sorted((const int*)keys_s, (const int64_t*)perm,
-                       (const float*)ct, L * M, F, L * T, 1, (float*)out,
-                       (float*)scratch, (cudaStream_t)stream);
 }
 
 const char* spnerf_dtab_error_string(int err) {

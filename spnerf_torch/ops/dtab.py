@@ -11,8 +11,9 @@ ct (F, M) -> (F, t_eff)) or t-major (`fmajor=False`, the (L, T, F) table's:
 ct (M, F) -> (t_eff, F)). Results are float32.
 
 * `dtab_dense` (B2, `csrc/dtab.cu`) replaces the Pallas kernel `dtab_pallas`
-  (`spnerf_tpu/ops/pallas/dtab.py`): a scatter-add with float atomics,
-  accumulated per block in shared memory when the table fits there.
+  (`spnerf_tpu/ops/pallas/dtab.py`): one pass over the rows, each warp's
+  equal ids merged by shuffles, float atomics into the table, which stays
+  in L2 (B4's kernel at one level).
 * `dtab_sorted` (B3) replaces the accumulating branch of
   `dtab_sorted_window` (same file), which accumulates per window of table
   rows: a stable partition of the rows by slice of table rows, then one
@@ -33,7 +34,9 @@ The batched form takes all L levels of an (L, T, F) table at once:
 ids (L, M), ct (L, M, F) -> (L, T, F), ids outside [0, T) dropped per level.
 
 * `dtab_batched` (B4) replaces `dtab_sorted_window_batched` (same file):
-  keys l * T + id, one stable sort of the L * M keys, B3's segmented sum.
+  one pass over the L * M rows level by level, row m of level l adding to
+  table row l * T + id, each warp's equal rows merged, one 16-byte float
+  atomic a row at F = 4. No sort.
 * `dtab_batched_plain` is its plain version, one `index_add_`.
 * `dtab_levels` routes it: the plain version on CPU tensors or with
   impl="plain", B4 otherwise.
@@ -54,7 +57,6 @@ LANES = 1024  # lane width of the TPU kernels' output tile: B = LANES // F
 MBLK = 1024  # index rows per grid step of the TPU kernels
 WIN = 16  # sorted-window width in A-rows
 MAX_F = 8  # csrc/dtab.cu MAXF
-SEG = 256  # csrc/dtab.cu SEG: B4's sorted rows per chunk
 INT32_LIMIT = 2 ** 31
 
 launches = {"dtab_dense": 0, "dtab_sorted": 0, "dtab_sorted_partials": 0,
@@ -113,21 +115,21 @@ def _shapes(ids, ct, t_eff, fmajor):
     return F, M
 
 
-def _check(ids, ct, t_eff, fmajor):
-    """B2's inputs: int32 ids, contiguous float32 ct."""
-    F, M = _shapes(ids, ct, t_eff, fmajor)
-    return (ids.to(torch.int32).contiguous(),
-            ct.to(torch.float32).contiguous(), F, M)
+def _ids(ids):
+    """int32 or int64 ids as they come (no copy when contiguous; other
+    integer types widened to int64) and the ids64 flag. Never narrowed: a
+    cast to int32 would wrap an id outside [0, 2^31) onto a real row."""
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.long()
+    return ids.contiguous(), int(ids.dtype == torch.int64)
 
 
 def _ids_ct(ids, ct, t_eff, fmajor):
-    """B3's and B3′'s inputs: int32 or int64 ids and a float32 ct as they
-    come (no copy when they are contiguous), F, M and the ids64 flag."""
+    """The per-level kernels' inputs: ids as `_ids` gives them, a float32 ct
+    as it comes (no copy when contiguous), F, M and the ids64 flag."""
     F, M = _shapes(ids, ct, t_eff, fmajor)
-    if ids.dtype not in (torch.int32, torch.int64):
-        ids = ids.long()
-    return (ids.contiguous(), ct.to(torch.float32).contiguous(), F, M,
-            int(ids.dtype == torch.int64))
+    ids, ids64 = _ids(ids)
+    return ids, ct.to(torch.float32).contiguous(), F, M, ids64
 
 
 _LIB = None
@@ -142,16 +144,14 @@ def _lib():
         lib = _build.load("dtab")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, args in (
-                ("spnerf_dtab_dense", [ptr] * 2 + [i32] * 4 + [ptr] * 2),
+                ("spnerf_dtab_scatter", [ptr, i32, ptr] + [i32] * 5
+                 + [ptr] * 2),
                 ("spnerf_dtab_owner_plan",
                  [i32] * 4 + [ctypes.POINTER(ctypes.c_longlong)]),
                 ("spnerf_dtab_owner", [ptr, i32, ptr] + [i32] * 4
                  + [ptr] * 2 + [ctypes.c_longlong, ptr]),
                 ("spnerf_dtab_tile_agg", [ptr, i32, ptr] + [i32] * 4
-                 + [ptr] * 2),
-                ("spnerf_dtab_batched_keys", [ptr] + [i32] * 3 + [ptr] * 2),
-                ("spnerf_dtab_sorted_batched",
-                 [ptr] * 3 + [i32] * 4 + [ptr] * 3)):
+                 + [ptr] * 2)):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i32
@@ -162,7 +162,10 @@ def _lib():
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on `device`, as
+    `torch.cuda.current_stream(device).cuda_stream` gives it, without
+    building a Stream object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _raise_on(lib, err, name):
@@ -171,26 +174,32 @@ def _raise_on(lib, err, name):
                            + lib.spnerf_dtab_error_string(err).decode())
 
 
-def _table(alloc, F, t_eff, fmajor, device):
-    """A float32 table gradient in the call's layout from `alloc`
-    (`torch.zeros` for B2, which adds into it; `torch.empty` for B3 and B3′,
-    which write or zero it themselves)."""
+def _table(F, t_eff, fmajor, device):
+    """An uninitialised float32 table gradient in the call's layout: every
+    kernel writes or zeroes it itself."""
     shape = (F, t_eff) if fmajor else (t_eff, F)
-    return alloc(shape, dtype=torch.float32, device=device)
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _scatter(name, ids, ids64, ct, L, M, F, T, fmajor, out):
+    """B2's and B4's C call, `spnerf_dtab_scatter`: a memset of `out`, then
+    one launch unless there are no rows (counted under `name`)."""
+    lib = _lib()
+    err = lib.spnerf_dtab_scatter(ids.data_ptr(), ids64, ct.data_ptr(), L, M,
+                                  F, T, int(not fmajor), out.data_ptr(),
+                                  _stream(ids.device))
+    _raise_on(lib, err, name)
+    if M:
+        launches[name] += 1
+    return out
 
 
 def dtab_dense(ids, ct, t_eff, fmajor=True):
-    """B2 on CUDA tensors. Float atomics: the last bits vary run to run."""
-    ids, ct, F, M = _check(ids, ct, t_eff, fmajor)
-    out = _table(torch.zeros, F, t_eff, fmajor, ids.device)
-    if M:
-        lib = _lib()
-        err = lib.spnerf_dtab_dense(ids.data_ptr(), ct.data_ptr(), M, F,
-                                    t_eff, int(not fmajor), out.data_ptr(),
-                                    _stream(ids.device))
-        _raise_on(lib, err, "dtab_dense")
-        launches["dtab_dense"] += 1
-    return out
+    """B2 on CUDA tensors: a memset and one pass of warp-merged float-atomic
+    adds. The last bits vary run to run."""
+    ids, ct, F, M, ids64 = _ids_ct(ids, ct, t_eff, fmajor)
+    out = _table(F, t_eff, fmajor, ids.device)
+    return _scatter("dtab_dense", ids, ids64, ct, 1, M, F, t_eff, fmajor, out)
 
 
 OwnerPlan = collections.namedtuple("OwnerPlan", "S wps n_slices scratch_words")
@@ -217,7 +226,7 @@ def dtab_sorted(ids, ct, t_eff, fmajor=True):
     index = ids.device.index
     plan = owner_plan(M, F, t_eff, torch.cuda.current_device()
                       if index is None else index)
-    out = _table(torch.empty, F, t_eff, fmajor, ids.device)
+    out = _table(F, t_eff, fmajor, ids.device)
     scratch = torch.empty(plan.scratch_words, dtype=torch.int32,
                           device=ids.device)
     lib = _lib()
@@ -236,7 +245,7 @@ def dtab_sorted_partials(ids, ct, t_eff, fmajor=True):
     memory, then float-atomic adds into the table, zeroed in the same C
     call. The last bits vary run to run."""
     ids, ct, F, M, ids64 = _ids_ct(ids, ct, t_eff, fmajor)
-    out = _table(torch.empty, F, t_eff, fmajor, ids.device)
+    out = _table(F, t_eff, fmajor, ids.device)
     lib = _lib()
     err = lib.spnerf_dtab_tile_agg(ids.data_ptr(), ids64, ct.data_ptr(), M,
                                    F, t_eff, int(not fmajor), out.data_ptr(),
@@ -288,9 +297,10 @@ def dtab_batched_plain(ids, ct, T):
 
 
 def dtab_batched(ids, ct, T):
-    """B4 on CUDA tensors: ids (L, M), ct (L, M, F) -> (L, T, F). The keys
-    kernel, one stable sort of the L * M keys, the segmented sum. The result
-    is the same bits from run to run."""
+    """B4 on CUDA tensors: ids (L, M), ct (L, M, F) -> (L, T, F), ids
+    outside [0, T) dropped in their own level. A memset and one pass of
+    warp-merged float-atomic adds, B2's kernel over all levels at once. The
+    last bits vary run to run."""
     if ids.dim() != 2 or ct.dim() != 3 or ct.shape[:2] != ids.shape:
         raise ValueError(f"ids {tuple(ids.shape)} and ct {tuple(ct.shape)} "
                          f"are not (L, M) and (L, M, F)")
@@ -306,25 +316,10 @@ def dtab_batched(ids, ct, T):
         raise ValueError("the dtab kernels take CUDA tensors")
     if ct.device != ids.device:
         raise ValueError(f"ct on {ct.device}, ids on {ids.device}")
-    ids = ids.to(torch.int32).contiguous()
-    ct = ct.to(torch.float32).contiguous()
-    out = torch.zeros((L, T, F), dtype=torch.float32, device=ids.device)
-    if M:
-        lib = _lib()
-        stream = _stream(ids.device)
-        keys = torch.empty((L, M), dtype=torch.int32, device=ids.device)
-        err = lib.spnerf_dtab_batched_keys(ids.data_ptr(), L, M, T,
-                                           keys.data_ptr(), stream)
-        _raise_on(lib, err, "dtab_batched (keys)")
-        keys_s, perm = torch.sort(keys.reshape(-1), stable=True)
-        scratch = torch.empty(2 * -(-(L * M) // SEG) * F,
-                              dtype=torch.float32, device=ids.device)
-        err = lib.spnerf_dtab_sorted_batched(
-            keys_s.data_ptr(), perm.data_ptr(), ct.data_ptr(), L, M, F, T,
-            out.data_ptr(), scratch.data_ptr(), stream)
-        _raise_on(lib, err, "dtab_batched")
-        launches["dtab_batched"] += 1
-    return out
+    ids, ids64 = _ids(ids)
+    out = torch.empty((L, T, F), dtype=torch.float32, device=ids.device)
+    return _scatter("dtab_batched", ids, ids64,
+                    ct.to(torch.float32).contiguous(), L, M, F, T, False, out)
 
 
 def dtab_levels(ids, ct, T, impl=None):

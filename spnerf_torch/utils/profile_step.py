@@ -32,8 +32,7 @@ import time
 import torch
 
 CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("port: dtab", ("dtab_dense", "seg_", "slice_", "tile_agg",
-                    "batched_keys")),
+    ("port: dtab", ("dtab_scatter", "slice_", "tile_agg")),
     ("port: field_eval", ("field_eval",)),
     ("sort", ("radix", "Sort", "sort")),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "Gemm")),

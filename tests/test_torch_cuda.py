@@ -8,8 +8,8 @@ no JAX, so it also runs where JAX is not installed:
 Tolerances: the field kernel, bf16, 2e-2 absolute (the kernel and the plain
 version sum in different orders, which can move an activation by one bf16
 ulp); the table-gradient kernels, float32, 1e-5 of the largest entry (sums of
-up to thousands of rows in another order), and B3 and B4 bitwise equal to
-themselves.
+up to thousands of rows in another order), B3 bitwise equal to itself and
+two calls of B4 (float atomics) within the same bound of each other.
 """
 
 import itertools
@@ -22,7 +22,8 @@ from spnerf_torch.config import ModelConfig, RenderConfig
 from spnerf_torch.models import load_model
 from spnerf_torch.ops import field_eval as fe
 from spnerf_torch.render import build_render_fn, chunk_size
-from spnerf_torch.utils.dtab_cases import (EDGE_CASES, dtab_plain_kept,
+from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
+                                           batched_edge_case, dtab_plain_kept,
                                            edge_case)
 from spnerf_torch.utils.synth import fake_batch
 
@@ -184,15 +185,17 @@ def test_dtab_kernels_match_plain_tmajor(device, kind, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(EDGE_CASES))
-@pytest.mark.parametrize("name", ["sorted", "partials"])
+@pytest.mark.parametrize("name", ["dense", "sorted", "partials"])
 def test_dtab_window_kernels_edge_cases(device, kind, name):
-    """B3 and B3′ on the edge cases, in both layouts, with int64 and int32
-    ids, against the plain version within 1e-5 of the largest entry; ids
-    outside [0, t_eff) dropped; B3 the same bits twice."""
+    """B2, B3 and B3′ on the edge cases, in both layouts, with int64 and
+    int32 ids, against the plain version within 1e-5 of the largest entry;
+    ids outside [0, t_eff) dropped (int64 ids at -2^40 not wrapped onto a
+    row); B3 the same bits twice."""
     from spnerf_torch.ops import dtab as dt
 
-    fn = dt.dtab_sorted if name == "sorted" else dt.dtab_sorted_partials
-    key = "dtab_sorted" if name == "sorted" else "dtab_sorted_partials"
+    key = {"dense": "dtab_dense", "sorted": "dtab_sorted",
+           "partials": "dtab_sorted_partials"}[name]
+    fn = getattr(dt, key)
     for fmajor, ids64 in itertools.product((True, False), (True, False)):
         ids, ct, t_eff = edge_case(kind, device, fmajor, ids64)
         before = dt.launches[key]
@@ -252,9 +255,10 @@ def batched_case(device, M=300_000, seed=0):
 
 @pytest.mark.cuda
 def test_dtab_batched_matches_plain_and_repeats(device):
-    """B4 against its plain version (1e-5 of the largest entry), the same
-    bits twice, out-of-range ids dropped in their own level, and the router
-    launching it once per call."""
+    """B4 against its plain version (1e-5 of the largest entry), two calls
+    within the same bound of each other (float atomics), out-of-range ids
+    dropped in their own level, and the router launching it once per
+    call."""
     from spnerf_torch.ops import dtab as dt
 
     ids, ct, T = batched_case(device)
@@ -267,12 +271,41 @@ def test_dtab_batched_matches_plain_and_repeats(device):
     assert out.shape == (5, T, 4)
     err = (out - ref).abs().max().item()
     assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), err
-    assert torch.equal(out, dt.dtab_batched(ids, ct, T))
+    again = dt.dtab_batched(ids, ct, T)
+    assert (again - out).abs().max() <= 1e-5 * max(ref.abs().max(), 1.0)
     # level 4 equals its in-range rows alone
     keep = (ids[4] >= 0) & (ids[4] < T)
     one = dt.dtab_plain(ids[4][keep], ct[4][keep], T, fmajor=False)
     assert (out[4] - one).abs().max() <= 1e-5 * max(one.abs().max(), 1.0)
     assert dt.dtab_levels(ids, ct, T, impl="plain").shape == out.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(BATCHED_CASES))
+def test_dtab_batched_edge_cases(device, kind):
+    """B4 on the batched edge cases with int64 and int32 ids: each level
+    against `dtab_batched_plain`'s within 1e-5 of the level's largest entry,
+    and each level against the per-level plain version of its in-range rows
+    alone, so an id outside [0, T) (-2^40, -1, T, T + 2^32) neither wraps
+    onto a row nor spills into the next level. One launch a call with rows,
+    none without."""
+    from spnerf_torch.ops import dtab as dt
+
+    for ids64 in (True, False):
+        ids, ct, T = batched_edge_case(kind, device, ids64)
+        before = dt.launches["dtab_batched"]
+        out = dt.dtab_batched(ids, ct, T)
+        torch.cuda.synchronize()
+        assert dt.launches["dtab_batched"] == before + (1 if ids.numel()
+                                                         else 0)
+        ref = dt.dtab_batched_plain(ids, ct, T)
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        for l in range(ids.shape[0]):
+            keep = (ids[l] >= 0) & (ids[l] < T)
+            alone = dt.dtab_plain(ids[l][keep], ct[l][keep], T, fmajor=False)
+            scale = 1e-5 * max(ref[l].abs().max().item(), 1.0)
+            assert (out[l] - ref[l]).abs().max().item() <= scale, (ids64, l)
+            assert (out[l] - alone).abs().max().item() <= scale, (ids64, l)
 
 
 def small_hash_trainer(device, flat_table=True):

@@ -333,3 +333,55 @@ def test_edge_cases_and_their_plain_version(kind):
             got = (out.t() if fmajor else out).numpy()
             assert np.abs(got - ref).max() <= 1e-5 * max(np.abs(ref).max(),
                                                           1.0)
+
+
+@pytest.mark.parametrize("kind", sorted(dtab_cases.BATCHED_CASES))
+def test_batched_edge_cases_and_their_plain_version(kind):
+    """The edge cases the card holds B4 to (`utils/dtab_cases.py`), built on
+    the CPU with int64 and int32 ids: their shapes, types and out-of-range
+    ids, and `dtab_batched_plain` against numpy's `add.at` over each level's
+    ids in [0, T) in float64, level by level, within 1e-5 of the level's
+    largest entry: nothing wraps onto a row or spills into the next level."""
+    L, T, F, M = dtab_cases.BATCHED_CASES[kind]
+    for ids64 in (True, False):
+        ids, ct, t = dtab_cases.batched_edge_case(kind, "cpu", ids64)
+        assert t == T and ids.shape == (L, M) and ct.shape == (L, M, F)
+        assert ids.dtype == (torch.int64 if ids64 else torch.int32)
+        assert ct.dtype == torch.float32 and ct.is_contiguous()
+        keep = ((ids >= 0) & (ids < T)).numpy()
+        if kind == "out_of_range":
+            assert keep[0].all() and keep[2].all() and not keep[1].all()
+            far = ids[1].numpy()[~keep[1]]
+            if ids64:
+                assert set(far) == {-(2 ** 40), -1, T, T + 2 ** 32}
+            else:
+                assert set(far) == {-(2 ** 31), -1, T, 2 ** 31 - 1}
+        else:
+            assert keep.all()
+        if kind == "one_id":
+            assert (ids[1] == ids[1, 0]).all()
+        out = tdtab.dtab_batched_plain(ids, ct, T)
+        assert out.shape == (L, T, F) and out.dtype == torch.float32
+        for l in range(L):
+            ref = np.zeros((T, F))
+            np.add.at(ref, ids[l].numpy()[keep[l]],
+                      ct[l].numpy()[keep[l]].astype(np.float64))
+            err = np.abs(out[l].numpy() - ref).max()
+            assert err <= 1e-5 * max(np.abs(ref).max(), 1.0), (l, err)
+
+
+def test_kernel_ids_are_never_narrowed():
+    """The kernels' id operand keeps int64 ids at their width (a cast to
+    int32 would send -2^40 to row 0 and 2^32 + 5 to row 5), keeps int32 as
+    it is and widens other integer types to int64, without a copy where the
+    ids are contiguous and int32 or int64."""
+    wide = torch.tensor([-(2 ** 40), 2 ** 32 + 5, 3])
+    ids, ids64 = tdtab._ids(wide)
+    assert ids64 == 1 and ids is wide
+    narrow = wide[2:].to(torch.int32)
+    ids, ids64 = tdtab._ids(narrow)
+    assert ids64 == 0 and ids is narrow
+    ids, ids64 = tdtab._ids(torch.tensor([1, 2], dtype=torch.int16))
+    assert ids64 == 1 and ids.dtype == torch.int64
+    ids, ids64 = tdtab._ids(torch.arange(6).reshape(2, 3).t())
+    assert ids.is_contiguous() and ids64 == 1
