@@ -6,9 +6,11 @@ an NVIDIA H100 and the CUDA toolkit)
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the path from spnerf_torch/csrc with nvcc;
-  3. hold the fused-field kernel against its plain PyTorch version at the
-     flagship width (8x512 Siren, bf16) on a ragged 131,195-point batch, for
-     all heads and for the solar pass's ("sun",);
+  3. hold the fused-field kernel (B1) against its plain PyTorch version at
+     the flagship width (8x512 Siren, bf16) on a ragged 131,195-point batch
+     for every head subset, on n = 1, 63, 65 and 187 (three tiles, the last
+     ragged), and at widths 96, 160 and 256 (semantic and beta heads) for
+     every head subset;
   4. render a synthetic 256x256 view (65,536 rays) through the eval renderer
      at the flagship configuration with random weights from seed 0: outputs
      finite and in range, every chunk's three field passes launched the
@@ -16,11 +18,19 @@ Phases, each fatal on failure:
      field, and the view is timed (median of 3 after a warm-up). The same
      subset rendered through the plain field in float32 is printed beside it
      as a control: the size of a change of the rounding policy, which the
-     render limits must sit below;
+     render limits must sit below. The subset rendered with
+     compute_dtype="float32" on the card launches no B1 (it goes through the
+     module in float32) and agrees with that plain float32 render within
+     1e-4;
   5. at the main path's shapes (chunk x n_samples points for the coarse and
      guided passes, chunk x the merged samples per ray for the solar pass),
      hold each launch against its plain version and time both (CUDA events,
-     and the kernel's device time from torch.profiler);
+     and the kernel's device time from torch.profiler), beside the same
+     launch's products alone as back-to-back bf16 `torch.matmul` calls
+     (`gemm_ms`, a yardstick the port never calls); the log line also gives
+     the weight bytes the launch reads from L2 as the design reckons them
+     (every tile streams every weight stage; a reckoning, not a
+     measurement);
   6. the table-gradient kernels B2 (dtab_dense) and B3 (dtab_sorted) on the
      inputs of the hash train step: one backward of the hash configuration
      (L8 F4 T=2^19, batch 1024, 64 + 64 + 128 samples) through the plain
@@ -76,6 +86,7 @@ The last line of standard output is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -212,10 +223,35 @@ def field_inputs(n, seed, device, num_sem_classes):
             torch.from_numpy(sems).to(device))
 
 
+def launch_shapes(rc, chunk, all_heads):
+    """{tag: (heads, points)} of a view's two B1 launch shapes: all heads on
+    chunk x n_samples points (the coarse and guided passes), ("sun",) on
+    chunk x the merged samples (the solar pass)."""
+    merged = rc.n_samples * (2 if rc.guidedsample else 1)
+    return {"all": (all_heads, chunk * rc.n_samples),
+            "sun": (("sun",), chunk * merged)}
+
+
+def gemm_fn(cfg, heads, n, device):
+    """A launch's products alone: one bf16 (n, K) x (K, N) `torch.matmul`
+    per layer the call runs, back to back (a yardstick, never the port's)."""
+    from spnerf_torch.models.spnerf import layer_specs
+    from spnerf_torch.ops.field_eval import layers_run
+
+    shapes = {nm: (sum(segs), out) for nm, segs, out, _ in layer_specs(cfg)}
+    ops = []
+    for nm in layers_run(cfg, heads):
+        k, m = shapes[nm]
+        ops.append((torch.randn(n, k, device=device, dtype=torch.bfloat16),
+                    torch.randn(k, m, device=device, dtype=torch.bfloat16)))
+    return lambda: [torch.matmul(a, b) for a, b in ops]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
+        from spnerf_torch.config import ModelConfig
         from spnerf_torch.models import load_model
         from spnerf_torch.ops import _build
         from spnerf_torch.ops import field_eval as fe
@@ -224,7 +260,7 @@ def main():
         from spnerf_torch.ops import dtab as dt
         from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
                                                    batched_edge_case,
-                                                   dtab_plain_kept, edge_case)
+                                                   edge_case)
         from spnerf_torch.utils.synth import (fake_batch, flagship_configs,
                                               train_setup)
     except ImportError as e:
@@ -257,24 +293,59 @@ def main():
     packed = fe.pack_params(model)
     xyz, sun, sems = field_inputs(N_CHECK, 1, device, mc.num_sem_classes)
     kernel_err = 0.0
+
+    def hold_field(pk, args, heads, tag):
+        """One B1 launch against PlainField; returns the max abs error."""
+        out = fe.FusedField(pk)(*args, heads=heads)
+        torch.cuda.synchronize()
+        ref = fe.PlainField(pk)(*args, heads=heads)
+        if set(out) != set(ref):
+            fail(f"{tag}: kernel outputs {sorted(out)} != plain {sorted(ref)}")
+        err = 0.0
+        for k in ref:
+            e = (out[k] - ref[k]).abs().max().item()
+            if not (e <= KERNEL_ATOL) or not torch.isfinite(out[k]).all():
+                fail(f"{tag} heads={heads} {k}: max abs err {e} > "
+                     f"{KERNEL_ATOL}")
+            err = max(err, e)
+        return err
+
+    subsets = [h for r in range(len(fe.ALL_HEADS) + 1)
+               for h in itertools.combinations(fe.ALL_HEADS, r)]
+    xyz, sun, sems = field_inputs(N_CHECK, 1, device, mc.num_sem_classes)
+    errs = [hold_field(packed, (xyz, sun, None, sems), h, f"n={N_CHECK}")
+            for h in subsets]
+    log(f"kernel vs plain, flagship, n={N_CHECK}, every head subset: max "
+        f"abs err {max(errs):.6f}")
+    kernel_err = max(kernel_err, max(errs))
     for heads in (fe.ALL_HEADS, ("sun",)):
         field = fe.FusedField(packed)
-        out = field(xyz, sun, None, sems, heads=heads)
-        torch.cuda.synchronize()
-        ref = fe.PlainField(packed)(xyz, sun, None, sems, heads=heads)
-        if set(out) != set(ref):
-            fail(f"kernel outputs {sorted(out)} != plain {sorted(ref)}")
-        errs = {k: (out[k] - ref[k]).abs().max().item() for k in ref}
-        log(f"kernel vs plain, heads={heads}, n={N_CHECK}: max abs err "
-            + json.dumps({k: round(v, 6) for k, v in errs.items()}))
-        for k, v in errs.items():
-            if not (v <= KERNEL_ATOL) or not torch.isfinite(out[k]).all():
-                fail(f"kernel {k}: max abs err {v} > {KERNEL_ATOL}")
-        kernel_err = max(kernel_err, max(errs.values()))
         ms = cuda_ms(lambda: field(xyz, sun, None, sems, heads=heads), 5)
-        log(f"  kernel at n={N_CHECK}: {ms:.3f} ms, "
+        log(f"  kernel at n={N_CHECK}, heads={heads}: {ms:.3f} ms, "
             f"{fe.flops_per_point(mc, heads) * N_CHECK / ms / 1e9:.1f} TFLOP/s")
-    del xyz, sun, sems, out, ref
+    del xyz, sun, sems
+    for n in (1, 63, 65, 187):
+        args = field_inputs(n, n, device, mc.num_sem_classes)
+        for heads in (fe.ALL_HEADS, ("sun",)):
+            kernel_err = max(kernel_err, hold_field(
+                packed, (args[0], args[1], None, args[2]), heads, f"n={n}"))
+    log(f"kernel vs plain, flagship, n = 1, 63, 65, 187: within "
+        f"{KERNEL_ATOL}")
+    widths = {}
+    for width in (96, 160, 256):
+        wc = ModelConfig(mapping=True, sem=True, beta=True, num_sem_classes=3,
+                         fc_units=width)
+        wp = fe.pack_params(load_model(
+            wc, "bfloat16", device=device,
+            generator=torch.Generator().manual_seed(width)))
+        xyz, sun, sems = field_inputs(1000, width, device, 3)
+        t_emb = torch.from_numpy(np.random.default_rng(width).normal(
+            size=(1000, wc.t_embedding_dims)).astype(np.float32)).to(device)
+        widths[width] = max(hold_field(wp, (xyz, sun, t_emb, sems), h,
+                                       f"width {width}") for h in subsets)
+    log(f"kernel vs plain, widths 96, 160, 256, every head subset, n=1000: "
+        f"max abs err {json.dumps(widths)}")
+    kernel_err = max([kernel_err, *widths.values()])
 
     # 4. the main path: one synthetic view through the eval renderer
     batch = fake_batch(np.random.default_rng(0), N_VIEW)
@@ -308,6 +379,20 @@ def main():
         err = (a - b).abs().flatten().float()
         return torch.quantile(err, 0.99).item(), err.max().item()
 
+    # C2: a float32 render on the card goes through the module, not B1
+    fe.FusedField.launches = 0
+    module32 = build_render_fn(model, replace(rc, compute_dtype="float32"))(
+        *sub)
+    torch.cuda.synchronize()
+    if fe.FusedField.launches:
+        fail(f"the float32 render launched B1 {fe.FusedField.launches} times")
+    f32_err = max((module32[k] - plain32[k]).abs().max().item()
+                  for k in plain32)
+    log(f"  float32 render on the card: no B1 launch, max abs err against "
+        f"the plain float32 render {f32_err:.3g}")
+    if not f32_err <= 1e-4:
+        fail(f"float32 render disagrees with the plain float32 render: "
+             f"{f32_err}")
     for k, v in plain.items():
         p99, mx = p99_max(view[k][:1024], v)
         c99, cmx = p99_max(view[k][:1024], plain32[k])
@@ -332,11 +417,10 @@ def main():
     # 5. each launch of the path at its shapes: the coarse and guided passes
     #    (all heads) on chunk x n_samples points, the solar pass ("sun",) on
     #    the merged samples, chunk x n_samples x (2 if guided)
-    merged = rc.n_samples * (2 if rc.guidedsample else 1)
     field, plain_field = fe.FusedField(packed), fe.PlainField(packed)
     rec = {}
-    for tag, heads, n_pts in (("all", fe.ALL_HEADS, chunk * rc.n_samples),
-                              ("sun", ("sun",), chunk * merged)):
+    for tag, (heads, n_pts) in launch_shapes(rc, chunk,
+                                             fe.ALL_HEADS).items():
         xyz, sun, sems = field_inputs(n_pts, 2, device, mc.num_sem_classes)
         out = field(xyz, sun, None, sems, heads=heads)
         ref = plain_field(xyz, sun, None, sems, heads=heads)
@@ -357,14 +441,23 @@ def main():
                   + packed.w_all.numel() * 2 + packed.b_all.numel() * 4)
         dev = device_ms(lambda: field(xyz, sun, None, sems, heads=heads), 1,
                         keys=("field_eval",))["kernel"]
+        gemm = gemm_fn(mc, heads, n_pts, device)
+        gemm_ms = cuda_ms(gemm, 5)
+        del gemm
+        # the design's reckoning, not a measurement: every tile streams
+        # every weight stage of the layers it runs
+        l2_reckoned = -(-n_pts // 64) * fe.stream_bytes(packed, heads)
         rec[tag] = dict(n=n_pts, ms=ms, plain_ms=plain_ms, device_ms=dev,
+                        gemm_ms=gemm_ms,
                         bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_BYTES)
                         * 1e3,
                         bound_by=("operations" if flops / PEAK_BF16
                                   >= nbytes / PEAK_BYTES else "bytes"))
         log(f"field_eval heads={tag}: {n_pts} points, kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), device {dev} ms, plain "
-            f"{plain_ms:.3f} ms, bound {rec[tag]['bound_ms']:.3f} ms")
+            f"{plain_ms:.3f} ms, bound {rec[tag]['bound_ms']:.3f} ms, "
+            f"matmuls alone {gemm_ms:.3f} ms; L2 weight bytes as the design "
+            f"reckons them (not measured) {l2_reckoned / 1e9:.2f} GB")
         del xyz, sun, sems
     per_view = {"all": 2 * n_chunks, "sun": n_chunks}
     kernel_view_ms = sum(per_view[t] * rec[t]["ms"] for t in rec)
@@ -392,6 +485,8 @@ def main():
         "device_ms_sun": rec["sun"]["device_ms"],
         "plain_ms_sun": rec["sun"]["plain_ms"],
         "bound_ms_sun": rec["sun"]["bound_ms"],
+        "gemm_ms": a["gemm_ms"],
+        "gemm_ms_sun": rec["sun"]["gemm_ms"],
         "launches_per_view": per_view,
         "ms_per_view": kernel_view_ms,
         "bound_ms_per_view": bound_view_ms,
@@ -459,11 +554,11 @@ def main():
         """Kernel `name` against the plain version on one call (B3 also
         against itself), then timed beside the plain version, `index_add_`
         into a zeroed table, `index_add_` with its zero fill (the function
-        the wrapper computes) and the bytes bound. Ids outside [0, t_eff)
-        go to an extra row of the plain version's table, which is cut."""
+        the wrapper computes) and the bytes bound. The plain version drops
+        ids outside [0, t_eff), as the kernels do."""
         fn = kernels[name]
         out = fn(ids, ct, t_eff, fmajor)
-        ref = dtab_plain_kept(ids, ct, t_eff, fmajor)
+        ref = dt.dtab_plain(ids, ct, t_eff, fmajor)
         err, rel = rel_check(out, ref, f"dtab_{name} {tag}")
         if name == "sorted" and not torch.equal(out, fn(ids, ct, t_eff,
                                                         fmajor)):

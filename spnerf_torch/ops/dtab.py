@@ -88,11 +88,16 @@ def route(t_eff, F, M, sw_acc=None):
 
 
 def dtab_plain(ids, ct, t_eff, fmajor=True):
-    """The plain version: `index_add_` into a zeroed table."""
+    """The plain version: `index_add_` into a zeroed table. Ids outside
+    [0, t_eff) are dropped, as the kernels and the JAX package's
+    `_matmul_dtab` drop them: they go to one extra row, which is cut."""
     F = ct.shape[0] if fmajor else ct.shape[1]
-    shape = (F, t_eff) if fmajor else (t_eff, F)
+    shape = (F, t_eff + 1) if fmajor else (t_eff + 1, F)
+    ids = ids.long()
+    kept = torch.where((ids >= 0) & (ids < t_eff), ids, t_eff)
     out = torch.zeros(shape, dtype=torch.float32, device=ct.device)
-    return out.index_add_(1 if fmajor else 0, ids.long(), ct.float())
+    out.index_add_(1 if fmajor else 0, kept, ct.float())
+    return out[:, :t_eff].contiguous() if fmajor else out[:t_eff]
 
 
 def _shapes(ids, ct, t_eff, fmajor):

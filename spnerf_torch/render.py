@@ -13,9 +13,13 @@ a depth-2 dispatch pipeline, a device mesh) is not ported: chunks here are
 launched in turn on the current CUDA stream.
 """
 
+import copy
+
 import torch
 
-from .ops.field_eval import FusedField, PlainField, pack_params, supports_config
+from .models.spnerf import as_dtype
+from .ops.field_eval import (FusedField, PlainField, pack_params,
+                             uses_fused_kernel)
 from .ops.render import check_supported, render_rays
 
 EVAL_DROP = ("weights", "transparency", "z_vals", "z_vals_unsort",
@@ -39,6 +43,19 @@ def lean_eval_outputs(out):
     return {k: v for k, v in out.items() if k not in drop}
 
 
+def module_at(model, compute_dtype):
+    """`model` when it computes in `compute_dtype`, else a copy of it (the
+    current weights) that does."""
+    cd = as_dtype(compute_dtype)
+    if model.compute_dtype == cd:
+        return model
+    model = copy.deepcopy(model)
+    for sub in model.modules():
+        if hasattr(sub, "compute_dtype"):
+            sub.compute_dtype = cd
+    return model
+
+
 MAX_POINTS = 1_500_000  # field points per chunk
 
 
@@ -54,9 +71,10 @@ def chunk_size(rc, chunk=40960):
 def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None):
     """Whole-image renderer over `model` (an `SPNeRF` on its device).
 
-    field: None evaluates the field through the fused kernel on CUDA (when
-    the configuration is covered) and through the module on the CPU;
-    "plain" uses the fused field's plain version on any device.
+    field: None evaluates the field through the fused kernel where
+    `uses_fused_kernel` says so (CUDA, a covered configuration, bfloat16)
+    and through the module at `rc.compute_dtype` elsewhere; "plain" uses
+    the fused field's plain version on any device.
 
     Returns render_image(rays, t, sems=None) -> dict of lean per-ray
     tensors on the model's device, one row per ray. rays: (N, 11) array or tensor; t: the
@@ -66,8 +84,8 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None):
     mc = model.cfg
     device = next(model.parameters()).device
     chunk = chunk_size(rc, chunk)
-    fused = field == "plain" or (device.type == "cuda"
-                                 and supports_config(mc))
+    fused = field == "plain" or uses_fused_kernel(device, mc,
+                                                  rc.compute_dtype)
 
     @torch.no_grad()
     def render_image(rays, t, sems=None):
@@ -76,7 +94,7 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None):
             cls = PlainField if field == "plain" else FusedField
             field_apply = cls(pack_params(model), rc.compute_dtype)
         else:
-            field_apply = model
+            field_apply = module_at(model, rc.compute_dtype)
         rays = torch.as_tensor(rays, dtype=torch.float32, device=device)
         n = rays.shape[0]
         n_chunks = -(-n // chunk)

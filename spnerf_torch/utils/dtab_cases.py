@@ -1,18 +1,16 @@
 """Edge cases of the table-gradient kernels (`spnerf_torch/ops/dtab.py`):
-the per-level B2, B3 and B3′, with the plain version they are held to, and
-the batched B4, held to `dtab_batched_plain`. `chip_smoke.py` and the card
-tests (`tests/test_torch_cuda.py`) both take them from here.
+the per-level B2, B3 and B3′, held to `dtab_plain`, and the batched B4, held
+to `dtab_batched_plain`. `chip_smoke.py` and the card tests
+(`tests/test_torch_cuda.py`) both take them from here.
 
     ids, ct, t_eff = edge_case("wide", device, fmajor=True, ids64=True)
-    ref = dtab_plain_kept(ids, ct, t_eff, fmajor=True)
+    ref = spnerf_torch.ops.dtab.dtab_plain(ids, ct, t_eff, fmajor=True)
     ids, ct, T = batched_edge_case("out_of_range", device, ids64=True)
     ref = spnerf_torch.ops.dtab.dtab_batched_plain(ids, ct, T)
 """
 
 import numpy as np
 import torch
-
-from ..ops.dtab import dtab_plain
 
 EDGE_CASES = {  # kind: (t_eff, F, M)
     "one_id": (2 ** 19, 4, 300_000),  # every row on one id
@@ -98,11 +96,3 @@ def batched_edge_case(kind, device, ids64, seed=0):
         ids[1] = T - 1 - 12_345
         ct[1] = g.integers(-3, 4, (M, F))
     return (_ids(ids, ids64, device), torch.from_numpy(ct).to(device), T)
-
-
-def dtab_plain_kept(ids, ct, t_eff, fmajor=True):
-    """The plain version (`dtab_plain`) with ids outside [0, t_eff) dropped,
-    as the kernels drop them: they go to an extra table row, which is cut."""
-    kept = torch.where((ids >= 0) & (ids < t_eff), ids, t_eff)
-    ref = dtab_plain(kept, ct, t_eff + 1, fmajor)
-    return ref[:, :t_eff] if fmajor else ref[:t_eff]

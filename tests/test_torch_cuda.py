@@ -20,11 +20,11 @@ import torch
 
 from spnerf_torch.config import ModelConfig, RenderConfig
 from spnerf_torch.models import load_model
+from spnerf_torch.models.spnerf import TransientEmbedding
 from spnerf_torch.ops import field_eval as fe
 from spnerf_torch.render import build_render_fn, chunk_size
 from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
-                                           batched_edge_case, dtab_plain_kept,
-                                           edge_case)
+                                           batched_edge_case, edge_case)
 from spnerf_torch.utils.synth import fake_batch
 
 ATOL = 2e-2
@@ -56,28 +56,72 @@ def packed_field(cfg, device):
     return model, fe.pack_params(model)
 
 
+def hold_kernel(p, args, heads):
+    """One launch against the plain version: the same outputs within ATOL,
+    and one launch counted."""
+    before = fe.FusedField.launches
+    out = fe.FusedField(p)(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert fe.FusedField.launches == before + 1
+    ref = fe.PlainField(p)(*args, heads=heads)
+    assert set(out) == set(ref), heads
+    for k in ref:
+        assert out[k].shape == ref[k].shape
+        assert torch.isfinite(out[k]).all(), (heads, k)
+        err = (out[k] - ref[k]).abs().max().item()
+        assert err <= ATOL, (heads, k, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw,n", [
     (dict(sem=True, num_sem_classes=3), 1000),
     (dict(beta=True), 777),
     (dict(sem=True, num_sem_classes=5, fc_units=256), 64),
+    (dict(sem=True, num_sem_classes=3, fc_units=96), 63),
+    (dict(sem=True, beta=True, num_sem_classes=3, fc_units=160), 65),
+    (dict(sem=True, num_sem_classes=20, fc_units=96), 1),
+    (dict(beta=True, fc_units=160), 3 * 64 + 5),
+    (dict(sem=True, beta=True, num_sem_classes=3, fc_units=640), 200),
+    (dict(fc_units=704), 130),
 ])
 def test_kernel_matches_plain_every_head_subset(device, kw, n):
+    """Every head subset at widths 96 to 256, with n of 1, 63, 64, 65, an
+    odd tile count (4 tiles, the last ragged) and more; 20 semantic classes
+    take a 64-wide head. At 640 the ring holds 3 stages, 2 with the beta
+    head; at 704 it holds 2."""
     cfg = ModelConfig(mapping=True, fc_units=kw.pop("fc_units", 128), **kw)
     _, p = packed_field(cfg, device)
     args = field_inputs(n, cfg, device)
     for r in range(len(fe.ALL_HEADS) + 1):
         for heads in itertools.combinations(fe.ALL_HEADS, r):
-            before = fe.FusedField.launches
-            out = fe.FusedField(p)(*args, heads=heads)
-            torch.cuda.synchronize()
-            assert fe.FusedField.launches == before + 1
-            ref = fe.PlainField(p)(*args, heads=heads)
-            assert set(out) == set(ref), heads
-            for k in ref:
-                assert out[k].shape == ref[k].shape
-                err = (out[k] - ref[k]).abs().max().item()
-                assert err <= ATOL, (heads, k, err)
+            hold_kernel(p, args, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 65, 3 * 64, 5 * 64 + 1, 4000, 300_001])
+def test_kernel_ragged_tile_counts(device, n):
+    """Tile counts of 1, 2, 3 and 6 (fewer tiles than CTAs), 63 and more
+    tiles than the grid has CTAs, each with a ragged last tile, against the
+    plain version."""
+    cfg = ModelConfig(mapping=True, sem=True, beta=True, num_sem_classes=3,
+                      fc_units=160)
+    _, p = packed_field(cfg, device)
+    args = field_inputs(n, cfg, device, seed=n)
+    hold_kernel(p, args, fe.ALL_HEADS)
+    hold_kernel(p, args, ("sun",))
+
+
+@pytest.mark.cuda
+def test_ring_stages_match_the_kernel(device):
+    """The wrapper's ring depth and width limit (`ring_stages`, which
+    `supports_config` reads) are the kernel's own."""
+    from spnerf_torch.ops import _build
+
+    lib = _build.load("field_eval")
+    for width, k0_pad, has_t in itertools.product(range(32, 1057, 32),
+                                                  (16, 64, 80, 128), (0, 1)):
+        assert (lib.spnerf_field_eval_stages(width, k0_pad, has_t)
+                == fe.ring_stages(width, k0_pad, has_t)), (width, k0_pad)
 
 
 @pytest.mark.cuda
@@ -104,6 +148,58 @@ def test_render_image_uses_kernel(device):
     assert fe.FusedField.launches == 3 * -(-3000 // chunk_size(rc, 1024))
     ref = build_render_fn(model, rc, chunk=1024, field="plain")(
         batch["rays"], 0, batch["sems"])
+    for k in ref:
+        err = (out[k] - ref[k]).abs()
+        assert torch.isfinite(out[k]).all(), k
+        assert torch.quantile(err.flatten().float(), 0.99) <= 2e-2, k
+
+
+@pytest.mark.cuda
+def test_float32_render_takes_the_module(device):
+    """A float32 render on CUDA launches no field kernel: it goes through
+    the module in float32 and agrees with the plain float32 render within
+    1e-4."""
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=128)
+    rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
+                      sem=True, compute_dtype="float32")
+    model, _ = packed_field(cfg, device)
+    batch = fake_batch(np.random.default_rng(0), 1500)
+    fe.FusedField.launches = 0
+    out = build_render_fn(model, rc, chunk=1024)(batch["rays"], 0,
+                                                 batch["sems"])
+    torch.cuda.synchronize()
+    assert fe.FusedField.launches == 0
+    ref = build_render_fn(model, rc, chunk=1024, field="plain")(
+        batch["rays"], 0, batch["sems"])
+    for k in ref:
+        assert torch.isfinite(out[k]).all(), k
+        assert (out[k] - ref[k]).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta", [False, True])
+def test_wide_render_takes_the_module(device, beta):
+    """A bf16 render of a field wider than the kernel takes (768) goes
+    through the module, launches no field kernel and agrees with the
+    render through the plain field."""
+    cfg = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
+                      fc_units=768)
+    assert not fe.supports_config(cfg)
+    rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
+                      sem=True, compute_dtype="bfloat16")
+    model, _ = packed_field(cfg, device)
+    t_embed = (TransientEmbedding(5, cfg.t_embedding_dims,
+                                  torch.Generator().manual_seed(1)).to(device)
+               if beta else None)
+    batch = fake_batch(np.random.default_rng(0), 1500)
+    fe.FusedField.launches = 0
+    out = build_render_fn(model, rc, t_embed, chunk=1024)(
+        batch["rays"], 2, batch["sems"])
+    torch.cuda.synchronize()
+    assert fe.FusedField.launches == 0
+    ref = build_render_fn(model, rc, t_embed, chunk=1024, field="plain")(
+        batch["rays"], 2, batch["sems"])
+    assert set(out) == set(ref)
     for k in ref:
         err = (out[k] - ref[k]).abs()
         assert torch.isfinite(out[k]).all(), k
@@ -202,7 +298,7 @@ def test_dtab_window_kernels_edge_cases(device, kind, name):
         out = fn(ids, ct, t_eff, fmajor=fmajor)
         torch.cuda.synchronize()
         assert dt.launches[key] == before + (1 if ids.numel() else 0)
-        ref = dtab_plain_kept(ids, ct, t_eff, fmajor=fmajor)
+        ref = dt.dtab_plain(ids, ct, t_eff, fmajor=fmajor)
         assert out.shape == ref.shape and torch.isfinite(out).all()
         err = (out - ref).abs().max().item()
         assert err <= 1e-5 * max(ref.abs().max().item(), 1.0), \

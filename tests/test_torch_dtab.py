@@ -310,7 +310,7 @@ def test_per_level_wrappers_refuse_bad_inputs(name, ids_dtype):
 def test_edge_cases_and_their_plain_version(kind):
     """The edge cases the card holds B3 and B3′ to (`utils/dtab_cases.py`),
     built on the CPU in both layouts with int64 and int32 ids: their shapes,
-    types and layouts, and `dtab_plain_kept` against numpy's `add.at` over
+    types and layouts, and `dtab_plain` against numpy's `add.at` over
     the ids in [0, t_eff) in float64, within 1e-5 of the largest entry."""
     t_eff, F, M = dtab_cases.EDGE_CASES[kind]
     for fmajor in (True, False):
@@ -324,7 +324,7 @@ def test_edge_cases_and_their_plain_version(kind):
                 assert (ids == ids[0]).all()
             if kind == "out_of_range":
                 assert (ids < 0).any() and (ids >= t_eff).any()
-            out = dtab_cases.dtab_plain_kept(ids, ct, t_eff, fmajor)
+            out = tdtab.dtab_plain(ids, ct, t_eff, fmajor)
             assert out.shape == ((F, t_eff) if fmajor else (t_eff, F))
             keep = ((ids >= 0) & (ids < t_eff)).numpy()
             rows = (ct.t() if fmajor else ct).numpy()[keep]
@@ -385,3 +385,32 @@ def test_kernel_ids_are_never_narrowed():
     assert ids64 == 1 and ids.dtype == torch.int64
     ids, ids64 = tdtab._ids(torch.arange(6).reshape(2, 3).t())
     assert ids.is_contiguous() and ids64 == 1
+
+
+@pytest.mark.parametrize("fmajor", [True, False])
+def test_plain_drops_out_of_range_ids_as_jax(fmajor, monkeypatch):
+    """The router on CPU tensors (the plain version) drops ids outside
+    [0, t_eff), int64 ones at -2^40 included, as the JAX package's
+    `_matmul_dtab` does on the CPU (float32 operands), within 1e-6; the JAX
+    side takes the ids clipped to int32, both still out of range."""
+    from spnerf_tpu.models.hashgrid import _matmul_dtab
+
+    monkeypatch.setenv("SPNERF_HASH_MATMUL_F32", "1")
+    t_eff, F = 8, 4
+    ids = np.array([0, 1, 8, -1, -(2 ** 40)])
+    ct = np.random.default_rng(0).normal(size=(len(ids), F)).astype(
+        np.float32)
+    ct_in = np.ascontiguousarray(ct.T) if fmajor else ct
+    ref = np.asarray(_matmul_dtab(
+        jnp.asarray(np.clip(ids, -(2 ** 31), 2 ** 31 - 1).astype(np.int32)),
+        jnp.asarray(ct_in), t_eff, F, fmajor=fmajor))
+    want = np.zeros((t_eff, F), np.float32)
+    want[0], want[1] = ct[0], ct[1]
+    np.testing.assert_allclose(ref.T if fmajor else ref, want, atol=1e-6)
+    for id_dtype in (torch.int64, torch.int32):
+        t_ids = torch.from_numpy(np.clip(ids, -(2 ** 31), 2 ** 31 - 1)
+                                 if id_dtype == torch.int32 else ids)
+        out = tdtab.dtab(t_ids.to(id_dtype), torch.from_numpy(ct_in), t_eff,
+                         F, fmajor=fmajor)
+        assert out.shape == ((F, t_eff) if fmajor else (t_eff, F))
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=0)
