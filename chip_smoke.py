@@ -79,6 +79,27 @@ Phases, each fatal on failure:
      times, the memset included; the step through the kernels agrees with
      the plain step; one step launches B4 3 times and no B2, B3 or B3′; then
      timed;
+ 12. a DFC2019 scene from disk (`spnerf_torch/utils/synth_scene.py`): a
+     synthetic AOI at the bundled AOI's size (4 images of 813x793 px, 3
+     train and 1 test, a 512x512 lidar ROI at 0.5 m in UTM 17N, DFC2019
+     class ids, MicMac depth of the train images) written to a temporary
+     directory and loaded twice with semantics and depth (fitting
+     scene.loc and casting every image, then from the ray cache);
+     `scene_to_device_arrays` -> `Trainer.to_device`; 3 flagship train
+     steps at batch 1024 with finite losses; `run_validation` on both
+     validation views (save_images=False: the card's machine has no
+     matplotlib, so the image grid prints its ImportError) with its B1
+     launches counted (3 a chunk) and a finite MAE asserted here; then
+     on the test view alone: the render timed (B1 launches counted; one
+     render under torch.profiler gives B1's device time, the view's whole
+     device time and that render's wall time), its first chunk and its
+     ragged last chunk held against the plain render (per-ray p99 and max,
+     as phase 4, with the plain float32 render as a control), the
+     DSM splat (`index_add_` on the card) held against the same splat on
+     the CPU (empty cells equal, values within 1e-4 m) and timed,
+     registration and MAE timed, and the known-surface check: the AOI's
+     own ray-surface points of the view through `latlonalt_from_depth`,
+     the DSM and the MAE against its lidar DSM, below 0.05 m;
   and print the `kernels` line. The env of phases 10 and 11 is set around
   its phase only and restored after.
 
@@ -157,6 +178,12 @@ def rel_check(out, ref, tag):
     return err, (err / scale if scale else 0.0)
 
 
+def p99_max(a, b):
+    """The 99th percentile and the largest of |a - b|."""
+    err = (a - b).abs().flatten().float()
+    return torch.quantile(err, 0.99).item(), err.max().item()
+
+
 # names of the port's table-gradient kernels (the zero fill of B2, B3′ and
 # B4, a memset in their C call, counts as their own)
 PORT_KERNEL_KEYS = ("dtab_scatter", "slice_", "tile_agg")
@@ -167,9 +194,10 @@ def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
     """Device time and device launches per call of `run` (which makes
     n_calls calls) under torch.profiler: {"kernel": ms of the kernels whose
     names hold one of `keys`, "launches": those kernels' launches, "names":
-    launches per call by kernel name}. Each pass opens with a fill of its own,
-    synchronised, because the first device activity of a pass now and then
-    goes unrecorded. A profiling pass that records no device activity (seen
+    launches per call by kernel name, "device": ms of all device activity,
+    "wall": host ms of the same profiled calls}. Each pass opens with a
+    fill of its own, synchronised, because the first device activity of a
+    pass now and then goes unrecorded. A profiling pass that records no device activity (seen
     now and then after several passes in one process) is run again, up to
     `attempts` times; then every value is None ("not measured")."""
     from torch.profiler import ProfilerActivity, profile
@@ -179,14 +207,17 @@ def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
                                  ProfilerActivity.CUDA]) as prof:
             torch.ones(1, device="cuda")
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
-        us, n, names = 0.0, 0, {}
+            wall = (time.perf_counter() - t0) * 1e3
+        us, us_all, n, names = 0.0, 0.0, 0, {}
         seen = False
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             seen = True
+            us_all += e.time_range.end - e.time_range.start
             if any(k in e.name for k in keys):
                 us += e.time_range.end - e.time_range.start
                 n += 1
@@ -194,8 +225,9 @@ def device_ms(run, n_calls, keys=PORT_KERNEL_KEYS, attempts=3):
                 names[name] = names.get(name, 0) + 1 / n_calls
         if seen:
             return {"kernel": us / 1e3 / n_calls, "launches": n / n_calls,
-                    "names": names}
-    return dict.fromkeys(("kernel", "launches", "names"))
+                    "names": names, "device": us_all / 1e3 / n_calls,
+                    "wall": wall / n_calls}
+    return dict.fromkeys(("kernel", "launches", "names", "device", "wall"))
 
 
 @contextlib.contextmanager
@@ -247,6 +279,221 @@ def gemm_fn(cfg, heads, n, device):
     return lambda: [torch.matmul(a, b) for a, b in ops]
 
 
+def validation_pass(device, card, width=813, height=793, roi_size=512):
+    """Phase 12: a synthetic DFC2019 AOI at the bundled AOI's size written to
+    disk, loaded, trained 3 flagship steps, validated; the parts of one
+    validation view timed and checked. Returns the record it prints."""
+    import argparse
+    import tempfile
+
+    from spnerf_torch.cli.train import run_validation
+    from spnerf_torch.data import load_scene
+    from spnerf_torch.evaluation.dsm import dsm_from_latlonalt, rasterize_dsm
+    from spnerf_torch.evaluation.mae import compute_mae_and_save_dsm_diff
+    from spnerf_torch.geo import latlon_to_utm
+    from spnerf_torch.io import read_geotiff
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.render import build_render_fn, chunk_size
+    from spnerf_torch.train.loop import Trainer, scene_to_device_arrays
+    from spnerf_torch.utils.logging import MetricLogger
+    from spnerf_torch.utils.synth import (FLAGSHIP_LR, flagship_configs,
+                                          flagship_loss_config)
+    from spnerf_torch.utils.synth_scene import (surface_points,
+                                                write_synthetic_aoi)
+
+    aoi_id = "JAX_269"
+    rec = {"card": card}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec[tag] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        aoi = timed("write_s", lambda: write_synthetic_aoi(
+            os.path.join(tmp, "DFC2019_269"), aoi_id=aoi_id, width=width,
+            height=height, roi_size=roi_size, n_train=3, seed=0))
+        dirs = (aoi["json_dir"], aoi["img_dir"], aoi["depth_dir"],
+                aoi["sem_dir"], aoi_id)
+        kw = dict(sem=True, num_sem_classes=3, load_depth=True,
+                  cache_dir=os.path.join(tmp, "cache"), verbose=False)
+        timed("load_uncached_s", lambda: load_scene(*dirs, **kw))
+        scene = timed("load_cached_s", lambda: load_scene(*dirs, **kw))
+        n_view = width * height
+        if len(scene) != 3 * n_view:
+            fail(f"scene has {len(scene)} rays, expected {3 * n_view}")
+        log(f"AOI {width}x{height} px, 3 train + 1 test images, ROI "
+            f"{roi_size} cells at 0.5 m: written in {rec['write_s']:.1f} s, "
+            f"loaded in {rec['load_uncached_s']:.1f} s (fitting scene.loc, "
+            f"casting every image) and {rec['load_cached_s']:.1f} s (cached rays); "
+            f"{len(scene)} rays, {int(scene.valid_depth.sum())} with depth, "
+            f"{int((scene.sems >= 0).sum())} with a semantic label")
+
+        mc, rc = flagship_configs()
+        trainer = Trainer(mc, rc, flagship_loss_config(), lr=FLAGSHIP_LR,
+                          steps_per_epoch=max(len(scene) // BATCH, 1),
+                          max_steps=30000, device=device)
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        arrays = scene_to_device_arrays(scene)
+        data = timed("to_device_s", lambda: trainer.to_device(arrays))
+        rec["scene_bytes"] = sum(v.nbytes for v in arrays.values())
+        steps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loss = trainer.train_step(state, data, BATCH)["loss"].item()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(loss):
+                fail(f"train step on the loaded scene: loss {loss}")
+        rec.update(step_ms_runs=steps, loss=loss)
+        log(f"to_device {rec['to_device_s']:.3f} s ({rec['scene_bytes']} "
+            f"bytes); 3 flagship steps at batch {BATCH}: {steps} ms, last "
+            f"loss {loss:.5f}")
+        del data
+
+        # the entry point: every validation view through B1, DSM, MAE
+        logs = os.path.join(tmp, "logs")
+        args = argparse.Namespace(aoi_id=aoi_id, gt_dir=aoi["gt_dir"],
+                                  logs_dir=logs, chunk=40960, sem=True,
+                                  num_sem_classes=3)
+        logger = MetricLogger(logs)
+        n_chunks = -(-n_view // chunk_size(rc))
+        fe.FusedField.launches = 0
+        mean = timed("validation_s", lambda: run_validation(
+            trainer, scene, state, args, 0, logger, False))
+        launches = fe.FusedField.launches
+        logger.close()
+        rec.update(val_launches=launches, val=mean)
+        log(f"run_validation: {len(scene.val_images)} views in "
+            f"{rec['validation_s']:.1f} s, B1 launches {launches}: "
+            f"{json.dumps(mean)}")
+        if launches != 3 * n_chunks * len(scene.val_images):
+            fail(f"validation launched B1 {launches} times, expected "
+                 f"{3 * n_chunks * len(scene.val_images)}")
+        if not np.isfinite(mean.get("mae", np.nan)):
+            fail(f"validation gave no finite MAE: {mean}")
+
+        # its parts, on the test view
+        view_rec = scene.val_images[-1]
+        sample = scene.load_val_image(view_rec, with_sem=True)
+        render = build_render_fn(state.model, rc, state.t_embed)
+        fe.FusedField.launches = 0
+        out = timed("view_s", lambda: render(sample["rays"], 0,
+                                             sample["sems"]))
+        rec["view_launches"] = fe.FusedField.launches
+        rec["rays_per_s"] = n_view / rec["view_s"]
+        for k, v in out.items():
+            if v.shape[0] != n_view or not torch.isfinite(v).all():
+                fail(f"view {k}: shape {tuple(v.shape)} or non-finite")
+        # B1's share, from one profiled render: of the view's device time,
+        # and of that render's wall time (the profiler's own cost included)
+        dev = device_ms(lambda: render(sample["rays"], 0, sample["sems"]), 1,
+                        keys=("field_eval",))
+        share = lambda a, b: a / b if a is not None and b else None
+        rec.update(b1_device_ms=dev["kernel"],
+                   b1_device_launches=dev["launches"],
+                   view_device_ms=dev["device"],
+                   view_profiled_ms=dev["wall"],
+                   b1_share_of_device=share(dev["kernel"], dev["device"]),
+                   b1_share_of_profiled_wall=share(dev["kernel"],
+                                                   dev["wall"]))
+        log(f"test view: {n_view} rays in {rec['view_s']:.3f} s "
+            f"({rec['rays_per_s']:.0f} rays/s), {n_chunks} chunks, B1 "
+            f"launches {rec['view_launches']}; one profiled render: B1 "
+            f"launches {dev['launches']}, B1 device {dev['kernel']} ms of "
+            f"{dev['device']} ms of device time "
+            f"({rec['b1_share_of_device']}) and of {dev['wall']} ms wall "
+            f"({rec['b1_share_of_profiled_wall']})")
+        if rec["view_launches"] != 3 * n_chunks:
+            fail(f"the view launched B1 {rec['view_launches']} times")
+
+        # B1 on this path's own inputs (the loaded scene's RPC rays, its
+        # sparse labels, the ragged last chunk) against the plain render,
+        # the plain float32 render beside it as a control
+        chunk = chunk_size(rc)
+        plain = build_render_fn(state.model, rc, state.t_embed,
+                                field="plain")
+        plain32 = build_render_fn(state.model,
+                                  replace(rc, compute_dtype="float32"),
+                                  state.t_embed, field="plain")
+        rec["view_vs_plain"] = {}
+        rec["view_ignored_labels"] = int((sample["sems"] < 0).sum())
+        log(f"  test view labels: {rec['view_ignored_labels']} of {n_view} "
+            f"ignored")
+        for tag, sl in (("first", slice(0, chunk)),
+                        ("last", slice((n_chunks - 1) * chunk, n_view))):
+            args_sl = (sample["rays"][sl], 0, sample["sems"][sl])
+            ref, ctl = plain(*args_sl), plain32(*args_sl)
+            errs = {}
+            for k, v in ref.items():
+                p99, mx = p99_max(out[k][sl], v)
+                c99, cmx = p99_max(out[k][sl], ctl[k])
+                errs[k] = {"p99": p99, "max": mx, "control_p99": c99,
+                           "control_max": cmx}
+                log(f"  test view, {tag} chunk ({len(args_sl[0])} rays), "
+                    f"{k}: kernel vs plain render, p99 {p99:.3g}, max "
+                    f"{mx:.3g}; control (vs plain float32) p99 {c99:.3g}, "
+                    f"max {cmx:.3g}")
+                if not (p99 <= RENDER_P99 and mx <= RENDER_MAX):
+                    fail(f"test view, {tag} chunk, {k}: kernel render "
+                         f"disagrees with the plain render")
+            rec["view_vs_plain"][tag] = errs
+            del ref, ctl
+
+        depth = out["depth_coarse"].float().cpu().numpy()
+        lats, lons, alts = scene.latlonalt_from_depth(sample["rays"], depth)
+        pred = os.path.join(tmp, "pred_dsm.tif")
+        _, (xoff, yoff, res, xs, ys) = dsm_from_latlonalt(
+            lats, lons, alts, dsm_path=pred, device=device)
+        easts, norths, _, _ = latlon_to_utm(lats, lons)
+        grid = dict(xoff=xoff, yoff=yoff, resolution=res, xsize=xs, ysize=ys)
+        splat = lambda dv: rasterize_dsm(easts, norths, alts, device=dv,
+                                         **grid)
+        card_dsm = splat(device).cpu().numpy()
+        cpu_dsm = splat("cpu").numpy()
+        if not np.array_equal(np.isnan(card_dsm), np.isnan(cpu_dsm)):
+            fail("the card's DSM splat has other empty cells than the CPU's")
+        splat_err = float(np.nanmax(np.abs(card_dsm - cpu_dsm)))
+        if not splat_err <= 1e-4:
+            fail(f"DSM splat, card vs CPU: max abs err {splat_err} m")
+        rec.update(splat_ms=cuda_ms(lambda: splat(device), 5),
+                   splat_max_abs_err_m=splat_err, dsm_cells=xs * ys,
+                   dsm_filled=int(np.isfinite(card_dsm).sum()))
+        t0 = time.perf_counter()
+        mae = compute_mae_and_save_dsm_diff(pred, view_rec.img_id, aoi_id,
+                                            aoi["gt_dir"], tmp, 0, save=False)
+        rec.update(mae_s=time.perf_counter() - t0, view_mae_m=mae)
+        log(f"DSM splat of {n_view} points into {xs}x{ys} cells: "
+            f"{rec['splat_ms']:.3f} ms (host float64 prep and copy "
+            f"included), card vs CPU max abs err {splat_err:.3g} m, empty "
+            f"cells equal; registration + MAE {rec['mae_s']:.3f} s, MAE "
+            f"{mae:.4f} m")
+
+        # the known surface: the AOI's own ray-surface points of the view
+        lidar, _ = read_geotiff(os.path.join(aoi["gt_dir"],
+                                             f"{aoi_id}_DSM.tif"))
+        t0 = time.perf_counter()
+        pts2d, pts3d, _ = surface_points(view_rec.meta, lidar, aoi["roi"])
+        rec["surface_s"] = time.perf_counter() - t0
+        rays = sample["rays"][pts2d[:, 1] * width + pts2d[:, 0]]
+        sdepth = np.linalg.norm(scene.norm.normalize_points(pts3d)
+                                - rays[:, :3], axis=1)
+        known = os.path.join(tmp, "known_dsm.tif")
+        dsm_from_latlonalt(*scene.latlonalt_from_depth(rays, sdepth),
+                           dsm_path=known, device=device)
+        rec["known_surface_mae_m"] = compute_mae_and_save_dsm_diff(
+            known, view_rec.img_id, aoi_id, aoi["gt_dir"], tmp, 0,
+            save=False)
+        log(f"known surface: {len(pts2d)} points of the test view "
+            f"({rec['surface_s']:.1f} s to intersect), DSM MAE against the "
+            f"AOI's lidar {rec['known_surface_mae_m']:.4f} m")
+        if not rec["known_surface_mae_m"] < 0.05:
+            fail(f"known-surface MAE {rec['known_surface_mae_m']} m")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -267,6 +514,7 @@ def main():
         fail(f"the spnerf_torch package is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in fp32
     device = torch.device("cuda", 0)
+    t_start = time.time()
 
     # 1. the card
     smi = subprocess.run(
@@ -277,6 +525,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    log(f"-- phase 2 at {time.time() - t_start:.1f} s")
     # 2. build the path's kernel sources, one nvcc each, in parallel
     t0 = time.time()
     texts = _build.build_all(["field_eval", "dtab"])
@@ -286,6 +535,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    log(f"-- phase 3 at {time.time() - t_start:.1f} s")
     # 3. the kernel against its plain version at flagship width
     mc, rc = flagship_configs()
     model = load_model(mc, rc.compute_dtype, device=device,
@@ -347,6 +597,7 @@ def main():
         f"max abs err {json.dumps(widths)}")
     kernel_err = max([kernel_err, *widths.values()])
 
+    log(f"-- phase 4 at {time.time() - t_start:.1f} s")
     # 4. the main path: one synthetic view through the eval renderer
     batch = fake_batch(np.random.default_rng(0), N_VIEW)
     rays = torch.from_numpy(batch["rays"]).to(device)
@@ -374,10 +625,6 @@ def main():
     plain = build_render_fn(model, rc, field="plain")(*sub)
     plain32 = build_render_fn(model, replace(rc, compute_dtype="float32"),
                               field="plain")(*sub)
-
-    def p99_max(a, b):
-        err = (a - b).abs().flatten().float()
-        return torch.quantile(err, 0.99).item(), err.max().item()
 
     # C2: a float32 render on the card goes through the module, not B1
     fe.FusedField.launches = 0
@@ -414,6 +661,7 @@ def main():
     log(json.dumps({"view_ms": view_ms, "rays_per_s": N_VIEW / view_ms * 1e3,
                     "view_ms_runs": times[1:], "card": card}))
 
+    log(f"-- phase 5 at {time.time() - t_start:.1f} s")
     # 5. each launch of the path at its shapes: the coarse and guided passes
     #    (all heads) on chunk x n_samples points, the solar pass ("sun",) on
     #    the merged samples, chunk x n_samples x (2 if guided)
@@ -495,6 +743,7 @@ def main():
     del render, view, plain, plain32, model, packed, field, plain_field
     torch.cuda.empty_cache()
 
+    log(f"-- phase 6 at {time.time() - t_start:.1f} s")
     # 6. the table-gradient kernels on the hash train step's own inputs
     htr, hdata = train_setup("hash", device=device)
     hstate = htr.init_state(torch.Generator().manual_seed(0))
@@ -694,6 +943,7 @@ def main():
     del calls, ids
     torch.cuda.empty_cache()
 
+    log(f"-- phase 7 at {time.time() - t_start:.1f} s")
     # 7. the hash train step: kernels vs plain, launches, time
     step_match("hash step", htr, hstate, hdata, loss_plain, grad_plain)
     del grad_plain
@@ -704,6 +954,7 @@ def main():
     del htr, hdata, hstate
     torch.cuda.empty_cache()
 
+    log(f"-- phase 8 at {time.time() - t_start:.1f} s")
     # 8. the flagship Siren train step
     s_tr, s_data = train_setup("siren", device=device)
     s_state = s_tr.init_state(torch.Generator().manual_seed(0))
@@ -712,6 +963,7 @@ def main():
     del s_tr, s_data, s_state
     torch.cuda.empty_cache()
 
+    log(f"-- phase 9 at {time.time() - t_start:.1f} s")
     # 9. the (L, T, F) table: t-major B2 and B3, the step
     ttr, tdata = train_setup("hash", device=device, flat_table=False)
     tstate = ttr.init_state(torch.Generator().manual_seed(0))
@@ -735,6 +987,7 @@ def main():
     del ttr, tdata, tstate
     torch.cuda.empty_cache()
 
+    log(f"-- phase 10 at {time.time() - t_start:.1f} s")
     # 10. SPNERF_HASH_SW_ACC=0 on the flat step: B3'
     with env_set("SPNERF_HASH_SW_ACC", "0"):
         htr, hdata = train_setup("hash", device=device)
@@ -762,6 +1015,7 @@ def main():
     del skew, ct6
     torch.cuda.empty_cache()
 
+    log(f"-- phase 11 at {time.time() - t_start:.1f} s")
     # 11. SPNERF_HASH_SW_BATCHED=1 on the (L, T, F) step: B4
     def hold_batched(ids, ct, T_, tag, timed=True):
         """B4 against dtab_batched_plain and against a second call of
@@ -850,6 +1104,17 @@ def main():
         log("(L, T, F) hash train step, SW_BATCHED=1: " + json.dumps(bat_rec))
         del ttr, tdata, tstate
     torch.cuda.empty_cache()
+
+    log(f"-- phase 12 at {time.time() - t_start:.1f} s")
+    # 12. a DFC2019 scene from disk: load, train, validate down to the MAE
+    t12 = time.time()
+    val_rec = validation_pass(device, card)
+    val_rec["phase_s"] = time.time() - t12
+    field_entry["launches_validation"] = val_rec["val_launches"]
+    log("validation pass: " + json.dumps(val_rec))
+    torch.cuda.empty_cache()
+
+    log(f"-- all phases in {time.time() - t_start:.1f} s")
 
     def entry(name, source_line, recs, launches, extra_recs, dev, **more):
         n = len(recs)

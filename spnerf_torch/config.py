@@ -3,9 +3,10 @@
 Plain frozen dataclasses holding the fields of the JAX package's
 `ModelConfig`, `RenderConfig` and `LossConfig` that the port reads, under the
 same names and defaults (`LossConfig.margin` and `stdscale` are read by the
-depth loaders of the data slice). The fields of the proposal sampler and the
-occupancy grid arrive with the slices that port them; the command line
-arrives with the CLI slice.
+depth loaders). The fields of the proposal sampler and the occupancy grid
+arrive with the slices that port them; the command line arrives with the
+CLI slice. `SEMANTIC_CONFIG` and `IGNORE_LABEL` are the JAX package's
+DFC2019 class tables.
 """
 
 from dataclasses import dataclass
@@ -79,3 +80,43 @@ class LossConfig:
     sem: bool = False
     ss_lambda: float = 4e-2
     first_beta_epoch: int = 2
+
+
+# DFC2019 class ids (2 ground, 5 trees, 6 buildings, 9 water, 17 bridges) and
+# the port's class indices, per number of semantic classes
+SEMANTIC_CONFIG = {
+    3: {
+        "color_mapping": {0: [0, 255, 0], 1: [255, 0, 0], 2: [0, 0, 255]},
+        "class_mapping": {0: 2, 1: 6, 2: 9},
+        "semantic_names": {0: "Ground", 1: "Buildings", 2: "Water"},
+        "label_mapping": {2: 0, 6: 1, 9: 2},
+    },
+    4: {
+        "color_mapping": {0: [0, 255, 0], 1: [0, 128, 0], 2: [255, 0, 0],
+                          3: [0, 0, 255]},
+        "class_mapping": {0: 2, 1: 5, 2: 6, 3: 9},
+        "semantic_names": {0: "Ground", 1: "Trees", 2: "Buildings",
+                           3: "Water"},
+        "label_mapping": {2: 0, 5: 1, 6: 2, 9: 3},
+    },
+    5: {
+        "color_mapping": {
+            0: [0, 255, 0],
+            1: [0, 128, 0],
+            2: [255, 0, 0],
+            3: [0, 0, 255],
+            4: [255, 255, 0],
+        },
+        "class_mapping": {0: 2, 1: 5, 2: 6, 3: 9, 4: 17},
+        "semantic_names": {
+            0: "Ground",
+            1: "Trees",
+            2: "Buildings",
+            3: "Water",
+            4: "Bridge/Elevated Road",
+        },
+        "label_mapping": {2: 0, 5: 1, 6: 2, 9: 3, 17: 4},
+    },
+}
+
+IGNORE_LABEL = -100

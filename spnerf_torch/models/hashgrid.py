@@ -301,7 +301,7 @@ def check_hash_config(cfg: ModelConfig):
     for an unknown impl."""
     if cfg.hash_frames != 1:
         raise NotImplementedError(
-            "hash_frames > 1 (multi-AOI frames) is not ported (ROADMAP A11)")
+            "hash_frames > 1 (multi-AOI frames) is not ported (ROADMAP A5)")
     flat_storage(cfg.hash_flat_table, cfg.hash_impl)
 
 

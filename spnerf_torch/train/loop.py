@@ -150,6 +150,20 @@ def make_optimizer(named_params, lr_schedule, n_levels=8, table_wd=0.0,
                      weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def scene_to_device_arrays(scene):
+    """The dict of host arrays a step reads, from a loaded scene
+    (`data.dataset.SatelliteScene`); `Trainer.to_device` places it."""
+    return {
+        "rays": scene.rays,
+        "rgbs": scene.rgbs,
+        "ids": scene.ids.astype(np.int32),
+        "depths": scene.depths,
+        "valid_depth": scene.valid_depth,
+        "depth_std": scene.depth_std,
+        "sems": scene.sems.astype(np.int32),
+    }
+
+
 @dataclass
 class TrainState:
     """What a step updates: the step count, the field, the transient
@@ -171,7 +185,7 @@ class Trainer:
                  table_level_lr_decay=1.0, weight_decay=0.0, grad_clip=0.0,
                  device=None):
         if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported (ROADMAP A12)")
+            raise NotImplementedError("a device mesh is not ported (ROADMAP A6)")
         check_supported(rc)
         self.device = resolve_device(device)
         self.mc, self.rc, self.lc = mc, rc, lc

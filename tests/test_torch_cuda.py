@@ -9,7 +9,11 @@ Tolerances: the field kernel, bf16, 2e-2 absolute (the kernel and the plain
 version sum in different orders, which can move an activation by one bf16
 ulp); the table-gradient kernels, float32, 1e-5 of the largest entry (sums of
 up to thousands of rows in another order), B3 bitwise equal to itself and
-two calls of B4 (float atomics) within the same bound of each other.
+two calls of B4 (float atomics) within the same bound of each other. The DSM
+splat (`index_add_` on the card) against the same splat on the CPU: empty
+cells equal, values within 1e-4 m (float atomics); `run_validation` on a
+small synthetic AOI renders through B1 and gives a finite MAE, and its test
+view through B1 agrees with the plain render (per-ray p99 within 2e-2).
 """
 
 import itertools
@@ -521,3 +525,68 @@ def test_hash_step_variants_run_through_kernels(device, monkeypatch, variant):
     assert (g_k - g_p).abs().max() <= 1e-4 * g_p.abs().max()
     ld = tr.train_steps(state, data, 2, batch_size=512)
     assert np.isfinite(ld["loss"].item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,sigma", [(0, np.inf), (1, np.inf), (1, 0.8)])
+def test_dsm_splat_on_card_matches_cpu(device, radius, sigma):
+    from spnerf_torch.evaluation.dsm import rasterize_dsm
+
+    g = np.random.default_rng(radius)
+    n, xoff, yoff = 200_000, 435520.0, 3354480.0
+    easts = xoff + g.uniform(-3, 203, n)
+    norths = yoff - g.uniform(-3, 153, n)
+    alts = g.uniform(-20, 30, n)
+    kw = dict(xoff=xoff, yoff=yoff, resolution=0.5, xsize=400, ysize=300,
+              radius=radius, sigma=sigma)
+    card = rasterize_dsm(easts, norths, alts, device=device, **kw)
+    assert card.device.type == torch.device(device).type
+    card = card.cpu().numpy()
+    ref = rasterize_dsm(easts, norths, alts, device="cpu", **kw).numpy()
+    np.testing.assert_array_equal(np.isnan(card), np.isnan(ref))
+    np.testing.assert_allclose(card, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_run_validation_renders_through_the_kernel(device, tmp_path):
+    import argparse
+
+    from spnerf_torch.cli.train import run_validation
+    from spnerf_torch.config import LossConfig
+    from spnerf_torch.data import load_scene
+    from spnerf_torch.train.loop import Trainer
+    from spnerf_torch.utils.logging import MetricLogger
+    from spnerf_torch.utils.synth_scene import write_synthetic_aoi
+
+    aoi = write_synthetic_aoi(str(tmp_path / "aoi"), width=48, height=44,
+                              roi_size=28, seed=6)
+    scene = load_scene(aoi["json_dir"], aoi["img_dir"], aoi["depth_dir"],
+                       aoi["sem_dir"], "JAX_269", sem=True,
+                       num_sem_classes=3, verbose=False)
+    mc = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=64)
+    rc = RenderConfig(n_samples=8, guidedsample=True, solar_correction=True,
+                      sem=True, compute_dtype="bfloat16")
+    tr = Trainer(mc, rc, LossConfig(), device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    args = argparse.Namespace(aoi_id="JAX_269", gt_dir=aoi["gt_dir"],
+                              logs_dir=str(tmp_path / "logs"), chunk=1024,
+                              sem=True, num_sem_classes=3)
+    fe.FusedField.launches = 0
+    mean = run_validation(tr, scene, state, args, 0,
+                          MetricLogger(args.logs_dir, tensorboard=False),
+                          False)
+    chunks = -(-48 * 44 // chunk_size(rc, 1024))
+    assert fe.FusedField.launches == 3 * chunks * len(scene.val_images)
+    assert np.isfinite(mean["mae"]) and np.isfinite(mean["psnr"])
+    # B1 on the loaded test view (RPC rays, sparse labels, a ragged last
+    # chunk of 64 rays) against the plain render
+    sample = scene.load_val_image(scene.val_images[-1], with_sem=True)
+    assert (sample["sems"] < 0).any()
+    view = (sample["rays"], 0, sample["sems"])
+    out = build_render_fn(state.model, rc, state.t_embed, chunk=1024)(*view)
+    ref = build_render_fn(state.model, rc, state.t_embed, chunk=1024,
+                          field="plain")(*view)
+    for k in ref:
+        err = (out[k] - ref[k]).abs()
+        assert torch.isfinite(out[k]).all(), k
+        assert torch.quantile(err.flatten().float(), 0.99) <= ATOL, k

@@ -152,7 +152,7 @@ def test_init_is_seeded_and_bounded():
 def test_hash_encoding_not_ported():
     """The hash family is ported with both table layouts; its multi-AOI
     frames are not, and raise."""
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         load_model(ModelConfig(encoding="hash", hash_log2T=10, hash_frames=2),
                    device="cpu")
     model = load_model(ModelConfig(encoding="hash", hash_log2T=10,
