@@ -82,9 +82,11 @@ Phases, each fatal on failure:
  12. a DFC2019 scene from disk (`spnerf_torch/utils/synth_scene.py`): a
      synthetic AOI at the bundled AOI's size (4 images of 813x793 px, 3
      train and 1 test, a 512x512 lidar ROI at 0.5 m in UTM 17N, DFC2019
-     class ids, MicMac depth of the train images) written to a temporary
-     directory and loaded twice with semantics and depth (fitting
-     scene.loc and casting every image, then from the ray cache);
+     class ids, MicMac depth of the train images) written to
+     <project>/dataset/DFC2019_269 in a temporary project directory and
+     loaded twice with semantics and depth (fitting scene.loc and casting
+     every image, then from the ray cache, which phase 13's flagship run
+     reads);
      `scene_to_device_arrays` -> `Trainer.to_device`; 3 flagship train
      steps at batch 1024 with finite losses; `run_validation` on both
      validation views (save_images=False: the card's machine has no
@@ -97,10 +99,33 @@ Phases, each fatal on failure:
      as phase 4, with the plain float32 render as a control), the
      DSM splat (`index_add_` on the card) held against the same splat on
      the CPU (empty cells equal, values within 1e-4 m) and timed,
-     registration and MAE timed, and the known-surface check: the AOI's
+     registration and MAE timed (then `compute_shift` on the same ROI
+     through its C++ and its numpy backend, timed and held equal), and
+     the known-surface check: the AOI's
      own ray-surface points of the view through `latlonalt_from_depth`,
      the DSM and the MAE against its lidar DSM, below 0.05 m;
-  and print the `kernels` line. The env of phases 10 and 11 is set around
+ 13. the training CLI on that project (`spnerf_torch.cli.train.main`, the
+     flagship flags at full width: 8x512 Siren, 64 samples, bf16, batch
+     1024, windows of 5): 10 steps, its final validation launching B1 666
+     times (2 views x 111 chunks x 3) and a checkpoint at step 10; the
+     same command with --max_train_steps 20 --auto_resume, whose restore
+     gives back the step-10 state bit for bit (parameters and Adam
+     moments, read through a wrapper of `CheckpointManager.restore`), 666
+     B1 launches and a checkpoint at 20; `tools render --step best`, whose
+     PSNR and SSIM equal the logged ones of that step within 1e-3 dB and
+     1e-4 (666 B1 launches); the hash family (`--encoding hash
+     --img_downscale 4`) for 10 steps, 3 B2 and 21 B3 launches a step, and
+     its checkpoint (the whole table and its Adam state) restored bit for
+     bit into the run's trainer and scene rebuilt from its flags, on which
+     every B2 and B3 call of one step is held against the plain version
+     (phase 6's tolerances) and the step's table gradient and loss against
+     the plain step's (phase 7's); `eval_torch.py --skip_lpips` on the flagship outputs (finite
+     means); LPIPS on the card against the CPU on random weights of the
+     .npz spec, within 1e-5. Each run's seconds, validation, save and
+     restore seconds, checkpoint bytes, steps a second and launches go on
+     one `{"cli": ...}` line;
+  and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
+  phase 13's runs with their errors there, `max_abs_err_cli`). The env of phases 10 and 11 is set around
   its phase only and restored after.
 
 The last line of standard output is {"ok": true, "device": {...}}.
@@ -112,6 +137,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -279,15 +305,22 @@ def gemm_fn(cfg, heads, n, device):
     return lambda: [torch.matmul(a, b) for a, b in ops]
 
 
-def validation_pass(device, card, width=813, height=793, roi_size=512):
-    """Phase 12: a synthetic DFC2019 AOI at the bundled AOI's size written to
-    disk, loaded, trained 3 flagship steps, validated; the parts of one
-    validation view timed and checked. Returns the record it prints."""
+AOI_ID = "JAX_269"
+FLAGSHIP_EXP = "flagship"  # phase 13's flagship run, whose ray cache phase 12 fills
+
+
+def validation_pass(device, card, project, width=813, height=793,
+                    roi_size=512):
+    """Phase 12: a synthetic DFC2019 AOI at the bundled AOI's size written
+    to <project>/dataset/DFC2019_269, loaded (the ray cache under
+    <project>/output/flagship/cache, phase 13's), trained 3 flagship steps,
+    validated; the parts of one validation view timed and checked. Returns
+    the record it prints."""
     import argparse
-    import tempfile
 
     from spnerf_torch.cli.train import run_validation
     from spnerf_torch.data import load_scene
+    from spnerf_torch.evaluation import registration
     from spnerf_torch.evaluation.dsm import dsm_from_latlonalt, rasterize_dsm
     from spnerf_torch.evaluation.mae import compute_mae_and_save_dsm_diff
     from spnerf_torch.geo import latlon_to_utm
@@ -301,7 +334,7 @@ def validation_pass(device, card, width=813, height=793, roi_size=512):
     from spnerf_torch.utils.synth_scene import (surface_points,
                                                 write_synthetic_aoi)
 
-    aoi_id = "JAX_269"
+    aoi_id = AOI_ID
     rec = {"card": card}
 
     def timed(tag, fn):
@@ -312,185 +345,438 @@ def validation_pass(device, card, width=813, height=793, roi_size=512):
         rec[tag] = time.perf_counter() - t0
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        aoi = timed("write_s", lambda: write_synthetic_aoi(
-            os.path.join(tmp, "DFC2019_269"), aoi_id=aoi_id, width=width,
-            height=height, roi_size=roi_size, n_train=3, seed=0))
-        dirs = (aoi["json_dir"], aoi["img_dir"], aoi["depth_dir"],
-                aoi["sem_dir"], aoi_id)
-        kw = dict(sem=True, num_sem_classes=3, load_depth=True,
-                  cache_dir=os.path.join(tmp, "cache"), verbose=False)
-        timed("load_uncached_s", lambda: load_scene(*dirs, **kw))
-        scene = timed("load_cached_s", lambda: load_scene(*dirs, **kw))
-        n_view = width * height
-        if len(scene) != 3 * n_view:
-            fail(f"scene has {len(scene)} rays, expected {3 * n_view}")
-        log(f"AOI {width}x{height} px, 3 train + 1 test images, ROI "
-            f"{roi_size} cells at 0.5 m: written in {rec['write_s']:.1f} s, "
-            f"loaded in {rec['load_uncached_s']:.1f} s (fitting scene.loc, "
-            f"casting every image) and {rec['load_cached_s']:.1f} s (cached rays); "
-            f"{len(scene)} rays, {int(scene.valid_depth.sum())} with depth, "
-            f"{int((scene.sems >= 0).sum())} with a semantic label")
+    tmp = os.path.join(project, "phase12")
+    os.makedirs(tmp, exist_ok=True)
+    aoi = timed("write_s", lambda: write_synthetic_aoi(
+        os.path.join(project, "dataset", "DFC2019_269"), aoi_id=aoi_id,
+        width=width, height=height, roi_size=roi_size, n_train=3,
+        seed=0))
+    dirs = (aoi["json_dir"], aoi["img_dir"], aoi["depth_dir"],
+            aoi["sem_dir"], aoi_id)
+    kw = dict(sem=True, num_sem_classes=3, load_depth=True,
+              cache_dir=os.path.join(project, "output", FLAGSHIP_EXP,
+                                     "cache"), verbose=False)
+    timed("load_uncached_s", lambda: load_scene(*dirs, **kw))
+    scene = timed("load_cached_s", lambda: load_scene(*dirs, **kw))
+    n_view = width * height
+    if len(scene) != 3 * n_view:
+        fail(f"scene has {len(scene)} rays, expected {3 * n_view}")
+    log(f"AOI {width}x{height} px, 3 train + 1 test images, ROI "
+        f"{roi_size} cells at 0.5 m: written in {rec['write_s']:.1f} s, "
+        f"loaded in {rec['load_uncached_s']:.1f} s (fitting scene.loc, "
+        f"casting every image) and {rec['load_cached_s']:.1f} s (cached rays); "
+        f"{len(scene)} rays, {int(scene.valid_depth.sum())} with depth, "
+        f"{int((scene.sems >= 0).sum())} with a semantic label")
 
-        mc, rc = flagship_configs()
-        trainer = Trainer(mc, rc, flagship_loss_config(), lr=FLAGSHIP_LR,
-                          steps_per_epoch=max(len(scene) // BATCH, 1),
-                          max_steps=30000, device=device)
-        state = trainer.init_state(torch.Generator().manual_seed(0))
-        arrays = scene_to_device_arrays(scene)
-        data = timed("to_device_s", lambda: trainer.to_device(arrays))
-        rec["scene_bytes"] = sum(v.nbytes for v in arrays.values())
-        steps = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            loss = trainer.train_step(state, data, BATCH)["loss"].item()
-            steps.append((time.perf_counter() - t0) * 1e3)
-            if not np.isfinite(loss):
-                fail(f"train step on the loaded scene: loss {loss}")
-        rec.update(step_ms_runs=steps, loss=loss)
-        log(f"to_device {rec['to_device_s']:.3f} s ({rec['scene_bytes']} "
-            f"bytes); 3 flagship steps at batch {BATCH}: {steps} ms, last "
-            f"loss {loss:.5f}")
-        del data
+    mc, rc = flagship_configs()
+    trainer = Trainer(mc, rc, flagship_loss_config(), lr=FLAGSHIP_LR,
+                      steps_per_epoch=max(len(scene) // BATCH, 1),
+                      max_steps=30000, device=device)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    arrays = scene_to_device_arrays(scene)
+    data = timed("to_device_s", lambda: trainer.to_device(arrays))
+    rec["scene_bytes"] = sum(v.nbytes for v in arrays.values())
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = trainer.train_step(state, data, BATCH)["loss"].item()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(loss):
+            fail(f"train step on the loaded scene: loss {loss}")
+    rec.update(step_ms_runs=steps, loss=loss)
+    log(f"to_device {rec['to_device_s']:.3f} s ({rec['scene_bytes']} "
+        f"bytes); 3 flagship steps at batch {BATCH}: {steps} ms, last "
+        f"loss {loss:.5f}")
+    del data
 
-        # the entry point: every validation view through B1, DSM, MAE
-        logs = os.path.join(tmp, "logs")
-        args = argparse.Namespace(aoi_id=aoi_id, gt_dir=aoi["gt_dir"],
-                                  logs_dir=logs, chunk=40960, sem=True,
-                                  num_sem_classes=3)
-        logger = MetricLogger(logs)
-        n_chunks = -(-n_view // chunk_size(rc))
-        fe.FusedField.launches = 0
-        mean = timed("validation_s", lambda: run_validation(
-            trainer, scene, state, args, 0, logger, False))
-        launches = fe.FusedField.launches
-        logger.close()
-        rec.update(val_launches=launches, val=mean)
-        log(f"run_validation: {len(scene.val_images)} views in "
-            f"{rec['validation_s']:.1f} s, B1 launches {launches}: "
-            f"{json.dumps(mean)}")
-        if launches != 3 * n_chunks * len(scene.val_images):
-            fail(f"validation launched B1 {launches} times, expected "
-                 f"{3 * n_chunks * len(scene.val_images)}")
-        if not np.isfinite(mean.get("mae", np.nan)):
-            fail(f"validation gave no finite MAE: {mean}")
+    # the entry point: every validation view through B1, DSM, MAE
+    logs = os.path.join(tmp, "logs")
+    args = argparse.Namespace(aoi_id=aoi_id, gt_dir=aoi["gt_dir"],
+                              logs_dir=logs, chunk=40960, sem=True,
+                              num_sem_classes=3)
+    logger = MetricLogger(logs)
+    n_chunks = -(-n_view // chunk_size(rc))
+    fe.FusedField.launches = 0
+    mean = timed("validation_s", lambda: run_validation(
+        trainer, scene, state, args, 0, logger, False))
+    launches = fe.FusedField.launches
+    logger.close()
+    rec.update(val_launches=launches, val=mean)
+    log(f"run_validation: {len(scene.val_images)} views in "
+        f"{rec['validation_s']:.1f} s, B1 launches {launches}: "
+        f"{json.dumps(mean)}")
+    if launches != 3 * n_chunks * len(scene.val_images):
+        fail(f"validation launched B1 {launches} times, expected "
+             f"{3 * n_chunks * len(scene.val_images)}")
+    if not np.isfinite(mean.get("mae", np.nan)):
+        fail(f"validation gave no finite MAE: {mean}")
 
-        # its parts, on the test view
-        view_rec = scene.val_images[-1]
-        sample = scene.load_val_image(view_rec, with_sem=True)
-        render = build_render_fn(state.model, rc, state.t_embed)
-        fe.FusedField.launches = 0
-        out = timed("view_s", lambda: render(sample["rays"], 0,
-                                             sample["sems"]))
-        rec["view_launches"] = fe.FusedField.launches
-        rec["rays_per_s"] = n_view / rec["view_s"]
-        for k, v in out.items():
-            if v.shape[0] != n_view or not torch.isfinite(v).all():
-                fail(f"view {k}: shape {tuple(v.shape)} or non-finite")
-        # B1's share, from one profiled render: of the view's device time,
-        # and of that render's wall time (the profiler's own cost included)
-        dev = device_ms(lambda: render(sample["rays"], 0, sample["sems"]), 1,
-                        keys=("field_eval",))
-        share = lambda a, b: a / b if a is not None and b else None
-        rec.update(b1_device_ms=dev["kernel"],
-                   b1_device_launches=dev["launches"],
-                   view_device_ms=dev["device"],
-                   view_profiled_ms=dev["wall"],
-                   b1_share_of_device=share(dev["kernel"], dev["device"]),
-                   b1_share_of_profiled_wall=share(dev["kernel"],
-                                                   dev["wall"]))
-        log(f"test view: {n_view} rays in {rec['view_s']:.3f} s "
-            f"({rec['rays_per_s']:.0f} rays/s), {n_chunks} chunks, B1 "
-            f"launches {rec['view_launches']}; one profiled render: B1 "
-            f"launches {dev['launches']}, B1 device {dev['kernel']} ms of "
-            f"{dev['device']} ms of device time "
-            f"({rec['b1_share_of_device']}) and of {dev['wall']} ms wall "
-            f"({rec['b1_share_of_profiled_wall']})")
-        if rec["view_launches"] != 3 * n_chunks:
-            fail(f"the view launched B1 {rec['view_launches']} times")
+    # its parts, on the test view
+    view_rec = scene.val_images[-1]
+    sample = scene.load_val_image(view_rec, with_sem=True)
+    render = build_render_fn(state.model, rc, state.t_embed)
+    fe.FusedField.launches = 0
+    out = timed("view_s", lambda: render(sample["rays"], 0,
+                                         sample["sems"]))
+    rec["view_launches"] = fe.FusedField.launches
+    rec["rays_per_s"] = n_view / rec["view_s"]
+    for k, v in out.items():
+        if v.shape[0] != n_view or not torch.isfinite(v).all():
+            fail(f"view {k}: shape {tuple(v.shape)} or non-finite")
+    # B1's share, from one profiled render: of the view's device time,
+    # and of that render's wall time (the profiler's own cost included)
+    dev = device_ms(lambda: render(sample["rays"], 0, sample["sems"]), 1,
+                    keys=("field_eval",))
+    share = lambda a, b: a / b if a is not None and b else None
+    rec.update(b1_device_ms=dev["kernel"],
+               b1_device_launches=dev["launches"],
+               view_device_ms=dev["device"],
+               view_profiled_ms=dev["wall"],
+               b1_share_of_device=share(dev["kernel"], dev["device"]),
+               b1_share_of_profiled_wall=share(dev["kernel"],
+                                               dev["wall"]))
+    log(f"test view: {n_view} rays in {rec['view_s']:.3f} s "
+        f"({rec['rays_per_s']:.0f} rays/s), {n_chunks} chunks, B1 "
+        f"launches {rec['view_launches']}; one profiled render: B1 "
+        f"launches {dev['launches']}, B1 device {dev['kernel']} ms of "
+        f"{dev['device']} ms of device time "
+        f"({rec['b1_share_of_device']}) and of {dev['wall']} ms wall "
+        f"({rec['b1_share_of_profiled_wall']})")
+    if rec["view_launches"] != 3 * n_chunks:
+        fail(f"the view launched B1 {rec['view_launches']} times")
 
-        # B1 on this path's own inputs (the loaded scene's RPC rays, its
-        # sparse labels, the ragged last chunk) against the plain render,
-        # the plain float32 render beside it as a control
-        chunk = chunk_size(rc)
-        plain = build_render_fn(state.model, rc, state.t_embed,
-                                field="plain")
-        plain32 = build_render_fn(state.model,
-                                  replace(rc, compute_dtype="float32"),
-                                  state.t_embed, field="plain")
-        rec["view_vs_plain"] = {}
-        rec["view_ignored_labels"] = int((sample["sems"] < 0).sum())
-        log(f"  test view labels: {rec['view_ignored_labels']} of {n_view} "
-            f"ignored")
-        for tag, sl in (("first", slice(0, chunk)),
-                        ("last", slice((n_chunks - 1) * chunk, n_view))):
-            args_sl = (sample["rays"][sl], 0, sample["sems"][sl])
-            ref, ctl = plain(*args_sl), plain32(*args_sl)
-            errs = {}
-            for k, v in ref.items():
-                p99, mx = p99_max(out[k][sl], v)
-                c99, cmx = p99_max(out[k][sl], ctl[k])
-                errs[k] = {"p99": p99, "max": mx, "control_p99": c99,
-                           "control_max": cmx}
-                log(f"  test view, {tag} chunk ({len(args_sl[0])} rays), "
-                    f"{k}: kernel vs plain render, p99 {p99:.3g}, max "
-                    f"{mx:.3g}; control (vs plain float32) p99 {c99:.3g}, "
-                    f"max {cmx:.3g}")
-                if not (p99 <= RENDER_P99 and mx <= RENDER_MAX):
-                    fail(f"test view, {tag} chunk, {k}: kernel render "
-                         f"disagrees with the plain render")
-            rec["view_vs_plain"][tag] = errs
-            del ref, ctl
+    # B1 on this path's own inputs (the loaded scene's RPC rays, its
+    # sparse labels, the ragged last chunk) against the plain render,
+    # the plain float32 render beside it as a control
+    chunk = chunk_size(rc)
+    plain = build_render_fn(state.model, rc, state.t_embed,
+                            field="plain")
+    plain32 = build_render_fn(state.model,
+                              replace(rc, compute_dtype="float32"),
+                              state.t_embed, field="plain")
+    rec["view_vs_plain"] = {}
+    rec["view_ignored_labels"] = int((sample["sems"] < 0).sum())
+    log(f"  test view labels: {rec['view_ignored_labels']} of {n_view} "
+        f"ignored")
+    for tag, sl in (("first", slice(0, chunk)),
+                    ("last", slice((n_chunks - 1) * chunk, n_view))):
+        args_sl = (sample["rays"][sl], 0, sample["sems"][sl])
+        ref, ctl = plain(*args_sl), plain32(*args_sl)
+        errs = {}
+        for k, v in ref.items():
+            p99, mx = p99_max(out[k][sl], v)
+            c99, cmx = p99_max(out[k][sl], ctl[k])
+            errs[k] = {"p99": p99, "max": mx, "control_p99": c99,
+                       "control_max": cmx}
+            log(f"  test view, {tag} chunk ({len(args_sl[0])} rays), "
+                f"{k}: kernel vs plain render, p99 {p99:.3g}, max "
+                f"{mx:.3g}; control (vs plain float32) p99 {c99:.3g}, "
+                f"max {cmx:.3g}")
+            if not (p99 <= RENDER_P99 and mx <= RENDER_MAX):
+                fail(f"test view, {tag} chunk, {k}: kernel render "
+                     f"disagrees with the plain render")
+        rec["view_vs_plain"][tag] = errs
+        del ref, ctl
 
-        depth = out["depth_coarse"].float().cpu().numpy()
-        lats, lons, alts = scene.latlonalt_from_depth(sample["rays"], depth)
-        pred = os.path.join(tmp, "pred_dsm.tif")
-        _, (xoff, yoff, res, xs, ys) = dsm_from_latlonalt(
-            lats, lons, alts, dsm_path=pred, device=device)
-        easts, norths, _, _ = latlon_to_utm(lats, lons)
-        grid = dict(xoff=xoff, yoff=yoff, resolution=res, xsize=xs, ysize=ys)
-        splat = lambda dv: rasterize_dsm(easts, norths, alts, device=dv,
-                                         **grid)
-        card_dsm = splat(device).cpu().numpy()
-        cpu_dsm = splat("cpu").numpy()
-        if not np.array_equal(np.isnan(card_dsm), np.isnan(cpu_dsm)):
-            fail("the card's DSM splat has other empty cells than the CPU's")
-        splat_err = float(np.nanmax(np.abs(card_dsm - cpu_dsm)))
-        if not splat_err <= 1e-4:
-            fail(f"DSM splat, card vs CPU: max abs err {splat_err} m")
-        rec.update(splat_ms=cuda_ms(lambda: splat(device), 5),
-                   splat_max_abs_err_m=splat_err, dsm_cells=xs * ys,
-                   dsm_filled=int(np.isfinite(card_dsm).sum()))
+    depth = out["depth_coarse"].float().cpu().numpy()
+    lats, lons, alts = scene.latlonalt_from_depth(sample["rays"], depth)
+    pred = os.path.join(tmp, "pred_dsm.tif")
+    _, (xoff, yoff, res, xs, ys) = dsm_from_latlonalt(
+        lats, lons, alts, dsm_path=pred, device=device)
+    easts, norths, _, _ = latlon_to_utm(lats, lons)
+    grid = dict(xoff=xoff, yoff=yoff, resolution=res, xsize=xs, ysize=ys)
+    splat = lambda dv: rasterize_dsm(easts, norths, alts, device=dv,
+                                     **grid)
+    card_dsm = splat(device).cpu().numpy()
+    cpu_dsm = splat("cpu").numpy()
+    if not np.array_equal(np.isnan(card_dsm), np.isnan(cpu_dsm)):
+        fail("the card's DSM splat has other empty cells than the CPU's")
+    splat_err = float(np.nanmax(np.abs(card_dsm - cpu_dsm)))
+    if not splat_err <= 1e-4:
+        fail(f"DSM splat, card vs CPU: max abs err {splat_err} m")
+    rec.update(splat_ms=cuda_ms(lambda: splat(device), 5),
+               splat_max_abs_err_m=splat_err, dsm_cells=xs * ys,
+               dsm_filled=int(np.isfinite(card_dsm).sum()))
+    # registration + MAE, with compute_shift's inputs kept to time both
+    # of its backends on them
+    shift_args = []
+    real_shift = registration.compute_shift
+    registration.compute_shift = (
+        lambda ref, sec, **kw: shift_args.append((ref, sec, kw))
+        or real_shift(ref, sec, **kw))
+    try:
         t0 = time.perf_counter()
         mae = compute_mae_and_save_dsm_diff(pred, view_rec.img_id, aoi_id,
-                                            aoi["gt_dir"], tmp, 0, save=False)
+                                            aoi["gt_dir"], tmp, 0,
+                                            save=False)
         rec.update(mae_s=time.perf_counter() - t0, view_mae_m=mae)
-        log(f"DSM splat of {n_view} points into {xs}x{ys} cells: "
-            f"{rec['splat_ms']:.3f} ms (host float64 prep and copy "
-            f"included), card vs CPU max abs err {splat_err:.3g} m, empty "
-            f"cells equal; registration + MAE {rec['mae_s']:.3f} s, MAE "
-            f"{mae:.4f} m")
-
-        # the known surface: the AOI's own ray-surface points of the view
-        lidar, _ = read_geotiff(os.path.join(aoi["gt_dir"],
-                                             f"{aoi_id}_DSM.tif"))
+    finally:
+        registration.compute_shift = real_shift
+    ref, sec, kw = shift_args[0]
+    rec["registration_backend"] = registration.backend()
+    shifts = {}
+    for native in (True, False, True, False):
+        tag = "native" if native else "numpy"
         t0 = time.perf_counter()
-        pts2d, pts3d, _ = surface_points(view_rec.meta, lidar, aoi["roi"])
-        rec["surface_s"] = time.perf_counter() - t0
-        rays = sample["rays"][pts2d[:, 1] * width + pts2d[:, 0]]
-        sdepth = np.linalg.norm(scene.norm.normalize_points(pts3d)
-                                - rays[:, :3], axis=1)
-        known = os.path.join(tmp, "known_dsm.tif")
-        dsm_from_latlonalt(*scene.latlonalt_from_depth(rays, sdepth),
-                           dsm_path=known, device=device)
-        rec["known_surface_mae_m"] = compute_mae_and_save_dsm_diff(
-            known, view_rec.img_id, aoi_id, aoi["gt_dir"], tmp, 0,
-            save=False)
-        log(f"known surface: {len(pts2d)} points of the test view "
-            f"({rec['surface_s']:.1f} s to intersect), DSM MAE against the "
-            f"AOI's lidar {rec['known_surface_mae_m']:.4f} m")
-        if not rec["known_surface_mae_m"] < 0.05:
-            fail(f"known-surface MAE {rec['known_surface_mae_m']} m")
+        shifts[tag] = real_shift(ref, sec, use_native=native, **kw)
+        rec.setdefault(f"shift_{tag}_s", []).append(
+            time.perf_counter() - t0)
+    if (shifts["native"][:2] != shifts["numpy"][:2] or not np.allclose(
+            shifts["native"][2:], shifts["numpy"][2:], rtol=0, atol=1e-9)):
+        fail(f"registration: native {shifts['native']} vs numpy "
+             f"{shifts['numpy']}")
+    log(f"DSM splat of {n_view} points into {xs}x{ys} cells: "
+        f"{rec['splat_ms']:.3f} ms (host float64 prep and copy "
+        f"included), card vs CPU max abs err {splat_err:.3g} m, empty "
+        f"cells equal; registration ({rec['registration_backend']}) + MAE "
+        f"{rec['mae_s']:.3f} s, MAE {mae:.4f} m; compute_shift on the "
+        f"{ref.shape} ROI: native {rec['shift_native_s']} s, numpy "
+        f"{rec['shift_numpy_s']} s, both {shifts['numpy'][:2]}")
+
+    # the known surface: the AOI's own ray-surface points of the view
+    lidar, _ = read_geotiff(os.path.join(aoi["gt_dir"],
+                                         f"{aoi_id}_DSM.tif"))
+    t0 = time.perf_counter()
+    pts2d, pts3d, _ = surface_points(view_rec.meta, lidar, aoi["roi"])
+    rec["surface_s"] = time.perf_counter() - t0
+    rays = sample["rays"][pts2d[:, 1] * width + pts2d[:, 0]]
+    sdepth = np.linalg.norm(scene.norm.normalize_points(pts3d)
+                            - rays[:, :3], axis=1)
+    known = os.path.join(tmp, "known_dsm.tif")
+    dsm_from_latlonalt(*scene.latlonalt_from_depth(rays, sdepth),
+                       dsm_path=known, device=device)
+    rec["known_surface_mae_m"] = compute_mae_and_save_dsm_diff(
+        known, view_rec.img_id, aoi_id, aoi["gt_dir"], tmp, 0,
+        save=False)
+    log(f"known surface: {len(pts2d)} points of the test view "
+        f"({rec['surface_s']:.1f} s to intersect), DSM MAE against the "
+        f"AOI's lidar {rec['known_surface_mae_m']:.4f} m")
+    if not rec["known_surface_mae_m"] < 0.05:
+        fail(f"known-surface MAE {rec['known_surface_mae_m']} m")
+    return rec
+
+
+# the flagship and hash command lines of phase 13 (8x512 Siren, 64 samples,
+# bf16 and batch 1024 are the parser's defaults); --chunk 40960 lets the
+# renderer take its largest chunk (5,859 rays: 111 chunks a view)
+CLI_FLAGS = ["--aoi_id", AOI_ID, "--model", "sp-nerf", "--mapping",
+             "--guidedsample", "--sem", "--num_sem_classes", "3",
+             "--sc_lambda", "0.1", "--depth", "--ds_lambda", "1.0",
+             "--ss_lambda", "1.0", "--chunk", "40960", "--log_every", "5",
+             "--no_timestamp_exp_name"]
+HASH_ARGS = ["--encoding", "hash", "--img_downscale", "4"]
+LPIPS_ATOL = 1e-5
+RENDER_PSNR_ATOL = 1e-3
+RENDER_SSIM_ATOL = 1e-4
+
+
+def cli_pass(device, card, project, hold_hash, n_view=813 * 793):
+    """Phase 13: the training CLI, resume, `tools render`, a hash run and
+    the offline evaluation, on phase 12's AOI under `project`.
+    hold_hash(trainer, state, data) holds B2 and B3 on the hash run's own
+    inputs and returns its record. Returns the record it prints."""
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.cli.evaluate import _load_rgb
+    from spnerf_torch.cli.evaluate import main as eval_main
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     render_config_from_args)
+    from spnerf_torch.evaluation import registration
+    from spnerf_torch.evaluation.lpips import LPIPS, weight_spec
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.render import chunk_size
+    from spnerf_torch.tools import main as tools_main
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.train.loop import scene_to_device_arrays
+
+    rec = {"card": card, "registration_backend": registration.backend()}
+    spans = {"validation_s": [], "save_s": [], "restore_s": []}
+    restored = []
+
+    def timed_span(key, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def snapshot(state):
+        """The state's parameters and Adam moments, cloned."""
+        out = {f"model.{k}": v.detach().clone()
+               for k, v in state.model.state_dict().items()}
+        for i, st in state.optimizer.state_dict()["state"].items():
+            out.update({f"opt.{i}.{k}": v.detach().clone()
+                        for k, v in st.items()})
+        return out
+
+    def equal(a, b, tag):
+        if set(a) != set(b):
+            fail(f"{tag}: other tensors {sorted(set(a) ^ set(b))}")
+        for k in a:
+            if not torch.equal(a[k].cpu(), b[k].cpu()):
+                fail(f"{tag}: {k} differs")
+
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+    validate = cli_train.run_validation
+
+    def restore_spy(self, target, step=None):
+        out = timed_span("restore_s", restore)(self, target, step)
+        if out is not None:
+            restored.append((out.step, snapshot(out)))
+        return out
+
+    CheckpointManager.save = timed_span("save_s", save)
+    CheckpointManager.restore = restore_spy
+    cli_train.run_validation = timed_span("validation_s", validate)
+
+    def run(tag, fn):
+        for k in dt.launches:
+            dt.launches[k] = 0
+        fe.FusedField.launches = 0
+        for v in spans.values():
+            v.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        r = {"s": time.perf_counter() - t0, "b1": fe.FusedField.launches,
+             "b2": dt.launches["dtab_dense"], "b3": dt.launches["dtab_sorted"],
+             **{k: list(v) for k, v in spans.items()}}
+        rec[tag] = r
+        log(f"{tag}: {json.dumps(r)}")
+        return out
+
+    def train_rows(exp):
+        path = os.path.join(project, "output", exp, "logs", "metrics.jsonl")
+        with open(path) as f:
+            return [json.loads(ln) for ln in f]
+
+    def ckpt_bytes(exp, step):
+        return os.path.getsize(os.path.join(
+            project, "output", exp, "ckpts", str(step), "state.pt"))
+
+    base = CLI_FLAGS + ["--project_dir", project, "--device", str(device)]
+    flagship = base + ["--exp_name", FLAGSHIP_EXP]
+    try:
+        # 1. the flagship run, 10 steps
+        state10 = run("flagship_run", lambda: cli_train.main(
+            flagship + ["--max_train_steps", "10"]))
+        args = finalize_args(build_train_parser().parse_args(
+            flagship + ["--max_train_steps", "10"]), make_dirs=False)
+        rc = render_config_from_args(args)
+        expect_b1 = 3 * -(-n_view // chunk_size(rc, args.chunk)) * 2
+        r = rec["flagship_run"]
+        if r["b1"] != expect_b1:
+            fail(f"the flagship run's validation launched B1 {r['b1']} "
+                 f"times, expected {expect_b1}")
+        mgr = CheckpointManager(args.ckpts_dir)
+        if mgr.all_steps() != [10]:
+            fail(f"flagship checkpoints {mgr.all_steps()}, expected [10]")
+        saved10 = snapshot(state10)
+        rows = train_rows(FLAGSHIP_EXP)
+        r["steps_per_s"] = [x["rays_per_sec"] / args.batch_size
+                            for x in rows if x["split"] == "train"]
+        r["ckpt_bytes"] = ckpt_bytes(FLAGSHIP_EXP, 10)
+        del state10
+
+        # 2. resume to 20
+        restored.clear()
+        state20 = run("flagship_resume", lambda: cli_train.main(
+            flagship + ["--max_train_steps", "20", "--auto_resume"]))
+        if [st for st, _ in restored] != [10]:
+            fail(f"the resumed run restored steps {[st for st, _ in restored]}")
+        equal(saved10, restored[0][1], "restored state vs saved state")
+        r = rec["flagship_resume"]
+        if r["b1"] != expect_b1 or state20.step != 20:
+            fail(f"resume: B1 {r['b1']}, step {state20.step}")
+        if mgr.all_steps() != [10, 20]:
+            fail(f"flagship checkpoints {mgr.all_steps()}, expected [10, 20]")
+        r["restored_step"] = restored[0][0]
+        r["restored_tensors_equal"] = len(saved10)
+        del state20, saved10
+        restored.clear()
+
+        # 3. render the best checkpoint
+        best = mgr.best_step()
+        out = run("render_best", lambda: tools_main([
+            "render", "--run_dir", args.output_dir, "--step", "best",
+            "--device", str(device), "--out_dir",
+            os.path.join(project, "render_best")]))
+        logged = [x for x in train_rows(FLAGSHIP_EXP)
+                  if x["split"] == "val" and x["step"] == best][-1]
+        r = rec["render_best"]
+        r.update(step=out["step"], psnr=out["psnr"], ssim=out["ssim"],
+                 logged_psnr=logged["psnr"], logged_ssim=logged["ssim"])
+        if (out["step"] != best
+                or not abs(out["psnr"] - logged["psnr"]) <= RENDER_PSNR_ATOL
+                or not abs(out["ssim"] - logged["ssim"]) <= RENDER_SSIM_ATOL
+                or r["b1"] != expect_b1):
+            fail(f"render --step best: {json.dumps(r)}")
+
+        # 4. the hash family, 10 steps at img_downscale 4
+        hash_argv = base + HASH_ARGS + ["--exp_name", "hash",
+                                        "--max_train_steps", "10"]
+        hstate = run("hash_run", lambda: cli_train.main(hash_argv))
+        r = rec["hash_run"]
+        if (r["b2"], r["b3"]) != (3 * 10, 21 * 10):
+            fail(f"the hash run launched B2 {r['b2']} and B3 {r['b3']} "
+                 "times, expected 30 and 210")
+        # the run's trainer and scene, rebuilt from its flags; the
+        # checkpoint restored into it, then B2 and B3 held on this path's
+        # own inputs (the loaded scene's rays, the restored state)
+        hargs = finalize_args(build_train_parser().parse_args(hash_argv),
+                              make_dirs=False)
+        htr, hscene, _ = cli_train.build_trainer_and_scene(hargs, device)
+        fresh = htr.init_state(torch.Generator().manual_seed(1))
+        if CheckpointManager(hargs.ckpts_dir).restore(fresh) is None:
+            fail("the hash run's checkpoint does not restore")
+        equal(snapshot(hstate), restored[-1][1], "hash checkpoint")
+        r["restore_s"] = list(spans["restore_s"])
+        r["ckpt_bytes"] = ckpt_bytes("hash", 10)
+        r["steps_per_s"] = [x["rays_per_sec"] / hargs.batch_size
+                            for x in train_rows("hash")
+                            if x["split"] == "train"]
+        del hstate
+        r["held"] = hold_hash(htr, fresh, htr.to_device(
+            scene_to_device_arrays(hscene)))
+        del fresh, htr, hscene
+        restored.clear()
+        torch.cuda.empty_cache()
+
+        # 5. the offline evaluation of the flagship run's outputs
+        means = run("eval", lambda: eval_main([
+            "--project_dir", project, "--exp_name", FLAGSHIP_EXP,
+            "--dataset_dir", os.path.join(project, "dataset", "DFC2019_269"),
+            "--epoch_number", "0", "--skip_lpips", "--device", str(device)]))
+        if not all(np.isfinite(means[k]) for k in ("psnr", "ssim", "mae")):
+            fail(f"eval_torch --skip_lpips: {means}")
+        rec["eval"]["means"] = {k: v if np.isfinite(v) else None
+                                for k, v in means.items()}
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+        cli_train.run_validation = validate
+
+    # LPIPS on the card against the CPU, random weights of the spec, on the
+    # saved test view and its ground truth
+    g = np.random.default_rng(0)
+    weights = {k: (np.abs(g.normal(size=sh)) if k.startswith("lin")
+                   else g.normal(size=sh) * 0.05).astype(np.float32)
+               for k, sh in weight_spec().items()}
+    pred = _load_rgb(os.path.join(project, "output", FLAGSHIP_EXP, "logs",
+                                  "val", "rgb", f"{AOI_ID}_003_RGB_epoch0.tif"))
+    gt = _load_rgb(os.path.join(project, "dataset", "DFC2019_269", "RGB",
+                                AOI_ID, f"{AOI_ID}_003_RGB.tif"))
+    t0 = time.perf_counter()
+    on_card = float(LPIPS(weights, device)(pred, gt))
+    rec["lpips_card_s"] = time.perf_counter() - t0
+    on_cpu = float(LPIPS(weights, "cpu")(pred, gt))
+    rec.update(lpips_card=on_card, lpips_cpu=on_cpu,
+               lpips_abs_err=abs(on_card - on_cpu))
+    if not abs(on_card - on_cpu) <= LPIPS_ATOL:
+        fail(f"LPIPS card {on_card} vs CPU {on_cpu}")
     return rec
 
 
@@ -850,9 +1136,10 @@ def main():
             f"max err / largest entry: {json.dumps(rels)}")
         return rels
 
-    def hold_calls(calls, sw_acc, names):
+    def hold_calls(calls, sw_acc, names, timed=True):
         """Every recorded per-level call on the kernel its route names, held
-        and timed; {route: [records]} and the profiler's device times."""
+        and (if timed) timed; {route: [records]} and the profiler's device
+        times (None untimed)."""
         per = {n: [] for n in names}
         by = {n: [] for n in names}
         for ids, ct, t_eff, fmajor in calls:
@@ -861,8 +1148,11 @@ def main():
                 continue
             layout = "f-major" if fmajor else "t-major"
             per[name].append(hold(name, ids, ct, t_eff, fmajor,
-                                  f"{layout} t_eff={t_eff} M={ids.shape[0]}"))
+                                  f"{layout} t_eff={t_eff} M={ids.shape[0]}",
+                                  timed=timed))
             by[name].append((ids, ct, t_eff, fmajor))
+        if not timed:
+            return per, None
         dev = {n: device_ms(lambda: [kernels[n](*c) for c in by[n]],
                             len(by[n]), keys=PORT_KERNEL_KEYS
                             + (MEMSET_KEYS if n != "sorted" else ()))
@@ -1105,14 +1395,47 @@ def main():
         del ttr, tdata, tstate
     torch.cuda.empty_cache()
 
+    def hold_cli_hash(tr, state, data):
+        """Phase 13's hash run: every B2 and B3 call of one step on its own
+        inputs against the plain version, at phase 6's tolerances, then the
+        step's table gradient and loss through the kernels against the
+        plain version's."""
+        if tr.mc.hash_features != n_feat:
+            fail(f"the CLI's hash field has {tr.mc.hash_features} features, "
+                 f"phase 6's {n_feat}")
+        calls, loss_plain, grad_plain = record_plain(tr, state, data)
+        if len(calls) != 3 * tr.mc.hash_levels:
+            fail(f"the CLI's hash step: {len(calls)} table gradients")
+        per_cli, _ = hold_calls(calls, True, ("dense", "sorted"), timed=False)
+        del calls
+        if (len(per_cli["dense"]), len(per_cli["sorted"])) != (3, 21):
+            fail(f"the CLI's hash step routes "
+                 f"{ {k: len(v) for k, v in per_cli.items()} }")
+        out = {f"{n}_{k}": max(r[k] for r in recs)
+               for n, recs in per_cli.items() for k in ("err", "rel")}
+        out.update(step_match("the CLI's hash step", tr, state, data,
+                              loss_plain, grad_plain))
+        log(f"the CLI's hash run, B2 and B3 on its own inputs: "
+            f"{json.dumps(out)}")
+        return out
+
     log(f"-- phase 12 at {time.time() - t_start:.1f} s")
     # 12. a DFC2019 scene from disk: load, train, validate down to the MAE
-    t12 = time.time()
-    val_rec = validation_pass(device, card)
-    val_rec["phase_s"] = time.time() - t12
-    field_entry["launches_validation"] = val_rec["val_launches"]
-    log("validation pass: " + json.dumps(val_rec))
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as project:
+        t12 = time.time()
+        val_rec = validation_pass(device, card, project)
+        val_rec["phase_s"] = time.time() - t12
+        field_entry["launches_validation"] = val_rec["val_launches"]
+        log("validation pass: " + json.dumps(val_rec))
+        torch.cuda.empty_cache()
+
+        log(f"-- phase 13 at {time.time() - t_start:.1f} s")
+        # 13. the training CLI, resume, tools render, a hash run, eval
+        t13 = time.time()
+        cli_rec = cli_pass(device, card, project, hold_cli_hash)
+        cli_rec["phase_s"] = time.time() - t13
+        torch.cuda.empty_cache()
+    field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 
@@ -1175,6 +1498,14 @@ def main():
     batched = entry("dtab_batched", f"{src}:584", per11,
                     launches11["dtab_batched"], [extra11], dev11,
                     edge_rel_err=edge11)
+    held = cli_rec["hash_run"]["held"]
+    dense.update(launches_cli=cli_rec["hash_run"]["b2"],
+                 max_abs_err_cli=held["dense_err"],
+                 max_rel_err_cli=held["dense_rel"])
+    sorted_.update(launches_cli=cli_rec["hash_run"]["b3"],
+                   max_abs_err_cli=held["sorted_err"],
+                   max_rel_err_cli=held["sorted_rel"])
+    print(json.dumps({"cli": cli_rec}), flush=True)
     print(json.dumps({
         "kernels": [field_entry, dense, sorted_, partials, batched],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,

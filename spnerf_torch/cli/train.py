@@ -1,6 +1,18 @@
-"""Validation during training: the single-AOI half of the JAX package's
-`cli/train.py` (`predefined_val_ts`, `_val_metrics`, `_val_labels`,
-`run_validation`).
+"""Training entry point: the PyTorch version of the JAX package's
+`cli/train.py`, command-line compatible with `python main.py ...`.
+
+A run lays out output/<exp>/{ckpts, logs, cache}: logs/opts.json records
+the flags, train/test.txt are copied beside it, logs/metrics.jsonl (and
+TensorBoard where it imports) takes the scalars, logs/{val,train}/... the
+validation images on save epochs, and ckpts/<step>/ the checkpoints
+(`train/checkpoints.py`), ranked by val_psnr. `main` keeps the JAX run's
+schedule: training windows of `min(log_every, max_train_steps)` steps (the
+hash family's windows shortened by the JAX package's sparse-op budget, so
+both packages log and validate at the same steps), validation at
+`check_val_every_n_epoch` with images every `save_every_n_epochs`, a save
+after each validation, and a final validation and save. `--auto_resume`
+and `--ckpt_path` resume; `--watchdog` supervises the run in a child
+process.
 
 `run_validation` renders every validation view through the eval renderer
 (`render.build_render_fn`: B1 on CUDA in bf16), computes PSNR and SSIM on
@@ -10,25 +22,105 @@ the lidar truth and logs the altitude MAE. As in the JAX package and the
 reference, a failure of the MAE or of the image grid is printed and the
 run goes on.
 
-Not ported yet (ROADMAP A4, A5): the parser, `build_trainer_and_scene`,
-`main`, the watchdog, and multi-AOI scenes.
+Entry points run on the card (`--device`, default cuda:<gpu_id>) and
+raise without CUDA unless given `--device cpu`. Not ported yet (ROADMAP
+A5, A6): multi-AOI scenes and a device mesh; `finalize_args` refuses their
+flags.
 """
 
 import os
+import shutil
+import sys
+import time
 
 import numpy as np
 import torch
 
+from ..config import (build_train_parser, finalize_args,
+                      loss_config_from_args, model_config_from_args,
+                      render_config_from_args)
+from ..data import load_scene
+from ..device import resolve_device
 from ..evaluation.dsm import dsm_from_latlonalt
 from ..evaluation.mae import compute_mae_and_save_dsm_diff
 from ..evaluation.metrics import miou, overall_accuracy, psnr, ssim
 from ..evaluation.outputs import save_nerf_output_to_images
 from ..render import build_render_fn
+from ..train.checkpoints import CheckpointManager
+from ..train.loop import Trainer, scene_to_device_arrays
+from ..utils.logging import MetricLogger
 
 
 def predefined_val_ts(img_id):
     """Transient-embedding index used at test time (reference eval.py:23-24)."""
     return 0
+
+
+def _aoi_dirs(args, aoi):
+    """Dataset directories of the run's single AOI: its own, or those under
+    an explicit --dataset_dir holding an {aoi} placeholder. (Multi-AOI
+    scenes, which name other AOIs' directories, are ROADMAP A5.)"""
+    if not (args.dataset_dir and "{aoi}" in args.dataset_dir):
+        return {"json_dir": args.json_dir, "img_dir": args.img_dir,
+                "depth_dir": args.depth_dir, "sem_dir": args.sem_dir,
+                "gt_dir": args.gt_dir}
+    base = args.dataset_dir.format(aoi=aoi)
+    return {
+        "json_dir": os.path.join(base, "JSON"),
+        "img_dir": os.path.join(base, "RGB", aoi),
+        "depth_dir": os.path.join(base, "Depth"),
+        "sem_dir": os.path.join(base, "Semantic"),
+        "gt_dir": os.path.join(base, "Truth"),
+    }
+
+
+def build_trainer_and_scene(args, device):
+    """(trainer on `device`, the loaded scene, steps per epoch) for the
+    flags `args` (after `finalize_args`, or a run's opts.json)."""
+    if "," in args.aoi_id:
+        raise NotImplementedError(
+            "multi-AOI scenes are not ported (ROADMAP A5)")
+    dirs = _aoi_dirs(args, args.aoi_id)
+    scene = load_scene(
+        dirs["json_dir"], dirs["img_dir"], dirs["depth_dir"], dirs["sem_dir"],
+        args.aoi_id, img_downscale=args.img_downscale,
+        stdscale=args.stdscale, margin=args.margin, sem=args.sem,
+        num_sem_classes=args.num_sem_classes, dense_ss=args.dense_ss,
+        sem_downscale=args.sem_downscale,
+        load_depth=args.depth or args.model == "sp-nerf",
+        cache_dir=args.cache_dir,
+    )
+    steps_per_epoch = max(len(scene) // args.batch_size, 1)
+    trainer = Trainer(
+        model_config_from_args(args),
+        render_config_from_args(args),
+        loss_config_from_args(args),
+        lr=args.lr,
+        lr_gamma=getattr(args, "lr_gamma", 0.9),
+        steps_per_epoch=steps_per_epoch,
+        max_steps=args.max_train_steps,
+        ds_drop=args.ds_drop,
+        ss_drop=args.ss_drop,
+        noise_std=args.noise_std,
+        # an embedding lookup past the vocab raises in torch (jnp.take
+        # clamps it onto the last row): size the vocab to the scene
+        t_vocab=max(args.t_embbeding_vocab, _scene_t_vocab(scene)),
+        table_wd=getattr(args, "hash_table_wd", 0.0),
+        table_level_lr_decay=getattr(args, "hash_level_lr_decay", 1.0),
+        weight_decay=getattr(args, "weight_decay", 0.0),
+        grad_clip=getattr(args, "grad_clip", 0.0),
+        device=device,
+    )
+    return trainer, scene, steps_per_epoch
+
+
+def _scene_t_vocab(scene):
+    """Smallest transient-embedding vocab covering every train ray id and
+    validation record of the scene."""
+    need = int(np.max(scene.ids)) + 1
+    for rec in scene.val_images:
+        need = max(need, int(rec.t) + 1)
+    return need
 
 
 def _val_metrics(mean):
@@ -164,3 +256,227 @@ def run_validation(trainer, scene, state, args, epoch, logger, save_images):
     if mean:
         logger.log(int(state.step), mean, split="val")
     return mean
+
+
+def _watchdog_supervise(args, argv):
+    """--watchdog N: run the training CLI in a child process and relaunch
+    it with --auto_resume whenever metrics.jsonl stops advancing for N
+    seconds (3N before the child's first line) or the child exits nonzero.
+    Returns 0 once a child completes."""
+    import subprocess
+
+    # pin the RESOLVED exp name: a timestamped one would give every child
+    # a fresh directory, defeating both resume and progress monitoring
+    base = []
+    it = iter(list(argv))
+    for a in it:
+        if a == "--exp_name":
+            next(it, None)
+            continue
+        if a.startswith("--exp_name="):
+            continue
+        base.append(a)
+    cmd = ([sys.executable, "-m", "spnerf_torch.cli.train"] + base
+           + ["--exp_name", args.exp_name, "--no_timestamp_exp_name"])
+    if "--auto_resume" not in cmd:
+        cmd.append("--auto_resume")
+    env = dict(os.environ, SPNERF_WATCHDOG_CHILD="1")
+    # the package must import whatever the directory main was started from
+    repo_root = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    metrics_path = os.path.join(args.logs_dir, "metrics.jsonl")
+    poll_s = max(min(args.watchdog / 10.0, 5.0), 0.05)
+
+    for attempt in range(args.watchdog_max_restarts + 1):
+        if attempt:
+            print(f"[watchdog] relaunch {attempt}/{args.watchdog_max_restarts}",
+                  flush=True)
+        child = subprocess.Popen(cmd, env=env)
+        last_progress = time.time()
+        try:
+            last_mtime = os.path.getmtime(metrics_path)
+        except OSError:
+            last_mtime = None
+        progressed = False
+        killed = False
+        while True:
+            rc = child.poll()
+            if rc is not None:
+                break
+            try:
+                mtime = os.path.getmtime(metrics_path)
+            except OSError:
+                mtime = None
+            if mtime is not None and mtime != last_mtime:
+                last_mtime = mtime
+                last_progress = time.time()
+                progressed = True
+            # start-up (imports, data load, restore, first window) writes
+            # no metrics: it gets three times as long
+            limit = args.watchdog if progressed else 3 * args.watchdog
+            if time.time() - last_progress > limit:
+                print(f"[watchdog] no progress for {limit}s; "
+                      f"killing pid {child.pid}", flush=True)
+                child.kill()
+                child.wait()
+                killed = True
+                break
+            time.sleep(poll_s)
+        if not killed and rc == 0:
+            return 0
+        if not killed:
+            print(f"[watchdog] child exited rc={rc}; relaunching", flush=True)
+    raise SystemExit(
+        f"watchdog: giving up after {args.watchdog_max_restarts} relaunches")
+
+
+def _window_len(args):
+    """Steps per training window: min(log_every, max_train_steps), and for
+    the hash family the JAX package's cap of 2,400 sparse ops (gathers and
+    scatters) a window. The cap is a limit of the TPU's runtime, kept so
+    that both packages log and validate at the same steps."""
+    window_len = max(1, min(getattr(args, "log_every", 100),
+                            args.max_train_steps))
+    if args.encoding == "hash":
+        # the coarse pass, the guided and the solar passes each encode; 8
+        # more sparse ops a step outside the encoding (the batch gathers
+        # and the transient-embedding gather). The fine pass and the
+        # occupancy grid, which add to it in the JAX package, are refused
+        # by `check_ported`.
+        n_enc_passes = 1 + int(args.guidedsample) + int(args.sc_lambda > 0)
+        sparse_per_step = n_enc_passes * (2 * args.hash_levels + 2) + 8
+        window_len = min(window_len, max(1, 2400 // sparse_per_step))
+    return window_len
+
+
+def main(argv=None):
+    args = build_train_parser().parse_args(argv)
+    # the card unless --device says otherwise; raises without CUDA
+    device = resolve_device(args.device, args.gpu_id)
+    finalize_args(args)
+
+    if (args.watchdog > 0
+            and os.environ.get("SPNERF_WATCHDOG_CHILD") != "1"):
+        return _watchdog_supervise(
+            args, argv if argv is not None else sys.argv[1:])
+
+    for split_file in ("train.txt", "test.txt"):
+        src = os.path.join(args.json_dir, split_file)
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(args.logs_dir, split_file))
+    if device.type == "cuda" and device.index is not None:
+        # the kernels launch on the current card's stream
+        torch.cuda.set_device(device)
+    print(f"device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    trainer, scene, steps_per_epoch = build_trainer_and_scene(args, device)
+    print(f"scene: {len(scene)} rays, {steps_per_epoch} steps/epoch")
+
+    state = trainer.init_state(torch.Generator().manual_seed(args.seed))
+    ckpt = CheckpointManager(args.ckpts_dir)
+    if args.ckpt_path:
+        if CheckpointManager(args.ckpt_path).restore(state) is not None:
+            print(f"resumed from {args.ckpt_path} at step {state.step}")
+    elif args.auto_resume:
+        if ckpt.restore(state) is not None:
+            print(f"auto-resumed {args.exp_name} at step {state.step}")
+        else:
+            print(f"auto-resume: no checkpoint under {args.ckpts_dir}, "
+                  "starting fresh")
+
+    data = trainer.to_device(scene_to_device_arrays(scene))
+    window_len = _window_len(args)
+    logger = MetricLogger(args.logs_dir)
+
+    start_step = state.step
+    if start_step >= args.max_train_steps:
+        # a finished run re-invoked: no re-validation, no second save
+        print(f"already trained to step {start_step} >= "
+              f"{args.max_train_steps}; nothing to do")
+        logger.close()
+        return state
+    last_epoch_validated = -1
+    last_saved_step = -1
+    t0 = time.time()
+    step = start_step
+    profiler = None
+    while step < args.max_train_steps:
+        # record the second window (the first pays the warm-up)
+        profiling = (args.profile and profiler is None
+                     and step >= start_step + window_len)
+        if profiling:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+            profiler = profile(activities=activities)
+            profiler.__enter__()
+        done = min(window_len, args.max_train_steps - step)
+        # the step's draws are seeded by (seed + 1, step), as the JAX
+        # package's run key is PRNGKey(seed + 1)
+        loss_dict = trainer.train_steps(state, data, done,
+                                        batch_size=args.batch_size,
+                                        seed=args.seed + 1)
+        step += done
+        ld = {k: float(v) for k, v in loss_dict.items()}  # the window's sync
+        if profiling:
+            profiler.__exit__(None, None, None)
+            prof_dir = os.path.join(args.logs_dir, "profile")
+            os.makedirs(prof_dir, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+        dt = time.time() - t0
+        rays_s = done * args.batch_size / max(dt, 1e-9)
+        logger.log(step, {**ld, "rays_per_sec": rays_s})
+        print(f"step {step}: loss {ld['loss']:.5f} "
+              f"psnr {ld['psnr']:.2f} | {rays_s:,.0f} rays/s")
+
+        # test hook: the first process to get here simulates a hang (the
+        # failure the watchdog exists for); relaunches go on normally
+        hang_marker = os.environ.get("SPNERF_TEST_HANG_ONCE")
+        if hang_marker and not os.path.exists(hang_marker):
+            with open(hang_marker, "w"):
+                pass
+            print("[test-hook] simulating hang", flush=True)
+            while True:
+                time.sleep(3600)
+
+        # validation when an eligible epoch boundary was crossed in this
+        # window (boundaries align to the window start within window_len)
+        epoch = step // steps_per_epoch
+        if (epoch > 0 and epoch != last_epoch_validated
+                and epoch % args.check_val_every_n_epoch == 0
+                and step % steps_per_epoch < window_len):
+            last_epoch_validated = epoch
+            save_images = epoch % args.save_every_n_epochs == 0
+            mean = run_validation(trainer, scene, state, args, epoch, logger,
+                                  save_images)
+            ckpt.save(step, state, metrics=_val_metrics(mean))
+            last_saved_step = step
+        t0 = time.time()
+
+    # the final validation and save, unless the last window saved at
+    # max_train_steps already (a second save of the step would raise)
+    if last_saved_step != args.max_train_steps:
+        mean = run_validation(trainer, scene, state, args,
+                              args.max_train_steps // steps_per_epoch, logger,
+                              True)
+        ckpt.save(args.max_train_steps, state, metrics=_val_metrics(mean))
+    logger.close()
+    best = ckpt.best_step()
+    latest = ckpt.latest_step()
+    if latest is not None:
+        print(f"latest checkpoint: step {latest} ({ckpt.step_path(latest)})")
+    if best is not None:
+        print(f"best checkpoint (val_psnr): step {best} "
+              f"({ckpt.step_path(best)}) — render it offline with "
+              f"`python -m spnerf_torch.tools render --run_dir "
+              f"{os.path.dirname(args.ckpts_dir)} --step best`")
+    print("training complete")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,15 @@ at index `num_sem_classes`. The hash table, `HashGridEncoding_0/table` in
 flax and `encoding.table` in the port, has the same layout in both, the
 (L, T * F) flat feature-major row or the (L, T, F) table, and is copied
 unchanged either way.
+
+`load_jax_train_state` carries a whole JAX `TrainState` across: the
+weights, the optimizer's state and the step, so that a JAX run saved at
+step k and the port restored at step k continue the same trajectory. The
+optax state holds one `ScaleByAdamState` (count, mu, nu over the params
+tree), alone under `optax.adam` or inside the chain of the optimizer
+options; `torch.optim.Adam` keeps mu and nu as `exp_avg` and `exp_avg_sq`
+with the count as each parameter's `step`, `AdamChain` as `mu` and `nu`
+with one `count`.
 """
 
 import re
@@ -64,3 +73,58 @@ def flax_field_params(state_dict):
             _, i, leaf = key.split(".")
             params.setdefault(f"TorchDense_{i}", {})[leaf] = arr
     return params
+
+
+def _adam_state(opt_state):
+    """The ScaleByAdamState (count, mu, nu) inside an optax state."""
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if all(hasattr(node, k) for k in ("count", "mu", "nu")):
+            return node
+        if isinstance(node, (tuple, list)):
+            stack.extend(node)
+    raise ValueError("the optax state holds no ScaleByAdamState")
+
+
+def _by_port_name(tree):
+    """flax params-shaped tree {"coarse": field, ["t": transient]} ->
+    {name in the port's optimizer order: tensor}."""
+    unported = set(tree) - {"coarse", "t"}
+    if unported:
+        raise NotImplementedError(
+            f"parameters {sorted(unported)} are not ported (ROADMAP A5)")
+    named = dict(field_state_dict(tree["coarse"]))
+    if "t" in tree:
+        named.update({f"t_embed.{k}": v for k, v in
+                      transient_state_dict(tree["t"]).items()})
+    return named
+
+
+def load_jax_train_state(state, params, opt_state, step):
+    """Carry a JAX `TrainState` (its params, opt_state and step, as numpy
+    trees) into the port's `TrainState` `state`, in place: the field and
+    transient weights, the optimizer's moments and count, and the step."""
+    state.model.load_state_dict(field_state_dict(params["coarse"]))
+    names = [n for n, _ in state.model.named_parameters()]
+    if state.t_embed is not None:
+        state.t_embed.load_state_dict(transient_state_dict(params["t"]))
+        names += [f"t_embed.{n}" for n, _ in state.t_embed.named_parameters()]
+    adam = _adam_state(opt_state)
+    mu, nu = _by_port_name(adam.mu), _by_port_name(adam.nu)
+    if set(mu) != set(names):
+        raise KeyError(f"optimizer state {sorted(mu)} against parameters "
+                       f"{sorted(names)}")
+    count = int(np.asarray(adam.count))
+    sd = state.optimizer.state_dict()
+    if isinstance(state.optimizer, torch.optim.Adam):
+        sd["state"] = {i: {"step": torch.tensor(float(count)),
+                           "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                       for i, n in enumerate(names)}
+    else:
+        sd["state"] = {i: {"mu": mu[n], "nu": nu[n]}
+                       for i, n in enumerate(names)}
+        sd["count"] = count
+    state.optimizer.load_state_dict(sd)
+    state.step = int(np.asarray(step))
+    return state

@@ -51,9 +51,17 @@ def remap_semantics_to_original(sem_pred, num_sem_classes):
 
 def save_sem_image(sem_pred, output_path, num_sem_classes):
     """Colored semantic PNG with a class legend (+ _no_legend variant), like
-    reference modules/utils.py:413-463."""
-    import matplotlib
-
+    reference modules/utils.py:413-463. Where matplotlib does not import,
+    one line names the two PNGs, which are not written (the JAX package
+    raises; the semantic GeoTIFF beside them carries the prediction)."""
+    paths = (output_path, os.path.splitext(output_path)[0] + "_no_legend"
+             + os.path.splitext(output_path)[1])
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"matplotlib is not installed: {' and '.join(paths)} not "
+              "written")
+        return
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -62,11 +70,7 @@ def save_sem_image(sem_pred, output_path, num_sem_classes):
     vis = convert_semantic_to_color(sem_pred.astype(np.uint8), num_sem_classes)
 
     os.makedirs(os.path.dirname(output_path), exist_ok=True)
-    for with_legend, path in (
-        (True, output_path),
-        (False, os.path.splitext(output_path)[0] + "_no_legend"
-         + os.path.splitext(output_path)[1]),
-    ):
+    for with_legend, path in zip((True, False), paths):
         plt.figure(figsize=(12, 12))
         plt.imshow(vis, interpolation="nearest")
         plt.axis("off")

@@ -99,6 +99,16 @@ class AdamChain(torch.optim.Optimizer):
                         f"{tuple(p.shape)} (the JAX package fails the same "
                         f"way on the (L, T, F) table)")
 
+    def state_dict(self):
+        """The moments by parameter, the groups, and the update count."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+        self.count = count
+
     @torch.no_grad()
     def step(self):
         params = [p for g in self.param_groups for p in g["params"]]

@@ -14,6 +14,8 @@ splat (`index_add_` on the card) against the same splat on the CPU: empty
 cells equal, values within 1e-4 m (float atomics); `run_validation` on a
 small synthetic AOI renders through B1 and gives a finite MAE, and its test
 view through B1 agrees with the plain render (per-ray p99 within 2e-2).
+The training CLI's `main` on a small AOI validates through B1, and its
+checkpoint restores on the card bit for bit.
 """
 
 import itertools
@@ -590,3 +592,50 @@ def test_run_validation_renders_through_the_kernel(device, tmp_path):
         err = (out[k] - ref[k]).abs()
         assert torch.isfinite(out[k]).all(), k
         assert torch.quantile(err.flatten().float(), 0.99) <= ATOL, k
+
+
+@pytest.mark.cuda
+def test_training_cli_on_the_card(device, tmp_path):
+    """`main` on a small AOI: its final validation renders through B1, and
+    the saved checkpoint restores on the card to the state `main` ended
+    with, bit for bit."""
+    from spnerf_torch.cli.train import main
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     loss_config_from_args,
+                                     model_config_from_args,
+                                     render_config_from_args)
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.train.loop import Trainer
+    from spnerf_torch.utils.synth_scene import write_synthetic_aoi
+
+    write_synthetic_aoi(str(tmp_path / "dataset" / "DFC2019_269"), width=48,
+                        height=44, roi_size=28, seed=6)
+    argv = ["--aoi_id", "JAX_269", "--model", "sp-nerf", "--exp_name", "c",
+            "--no_timestamp_exp_name", "--project_dir", str(tmp_path),
+            "--mapping", "--guidedsample", "--sem", "--num_sem_classes", "3",
+            "--sc_lambda", "0.1", "--depth", "--ds_lambda", "1.0",
+            "--ss_lambda", "1.0", "--fc_units", "64", "--n_samples", "8",
+            "--chunk", "1024", "--batch_size", "256", "--log_every", "2",
+            "--max_train_steps", "4", "--device", str(device)]
+    fe.FusedField.launches = 0
+    state = main(argv)
+    args = finalize_args(build_train_parser().parse_args(argv),
+                         make_dirs=False)
+    rc = render_config_from_args(args)
+    chunks = -(-48 * 44 // chunk_size(rc, 1024))
+    assert fe.FusedField.launches == 3 * chunks * 2  # two validation views
+    tr = Trainer(model_config_from_args(args), rc,
+                 loss_config_from_args(args), device=device)
+    fresh = tr.init_state(torch.Generator().manual_seed(1))
+    mgr = CheckpointManager(tmp_path / "output" / "c" / "ckpts")
+    assert mgr.all_steps() == [4]
+    assert mgr.restore(fresh) is fresh and fresh.step == state.step == 4
+    saved = state.optimizer.state_dict()["state"]
+    restored = fresh.optimizer.state_dict()["state"]
+    for (k, a), b in zip(state.model.state_dict().items(),
+                         fresh.model.state_dict().values()):
+        assert b.device.type == "cuda" and torch.equal(a, b), k
+    for i in saved:
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert restored[i][k].device.type == "cuda"
+            assert torch.equal(saved[i][k], restored[i][k]), (i, k)

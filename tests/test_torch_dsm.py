@@ -1,10 +1,11 @@
 """The port's DSM chain against the JAX package's, on the CPU: the splat
 (`rasterize_dsm`, `dsm_from_latlonalt`), the ROI crop, the NCC registration
-(the JAX package's numpy path) and the MAE.
+(the numpy path against the JAX package's; the C++ path, `native/dsmr.cpp`,
+against the numpy path and the JAX package's C++ path) and the MAE.
 
 Tolerances: which DSM cells are empty (NaN) must match exactly; cell values
 within 1e-5 m (float32 sums); registration shifts exactly and the offset
-within 1e-9 m; MAE within 1e-6 m; written GeoTIFFs have equal profiles and
+within 1e-9 m (the C++ path sums in another order); MAE within 1e-6 m; written GeoTIFFs have equal profiles and
 values within 1e-5 m (1e-6 m for the MAE chain's own outputs).
 
 The known-surface check: the synthetic AOI's ray-surface points of its test
@@ -134,20 +135,55 @@ def test_registration_matches_jax_numpy_path(shape, shift):
     dx0, dy0 = shift
     moved = registration._shifted_view(base, -dx0, -dy0) + 1.25
     moved[::13, ::7] = np.nan
-    ours = registration.compute_shift(base, moved)
+    ours = registration.compute_shift(base, moved, use_native=False)
     ref = jreg.compute_shift(base, moved, use_native=False)
     assert ours[:3] == ref[:3] == (dx0, dy0, 1.0)
     np.testing.assert_allclose(ours[3], ref[3], rtol=0, atol=1e-9)
     np.testing.assert_allclose(ours[3], -1.25, atol=0.05)
     np.testing.assert_array_equal(
-        registration.apply_shift(moved, *ours),
+        registration.apply_shift(moved, *ours, use_native=False),
         jreg.apply_shift(moved, *ref, use_native=False))
-    scaled = registration.compute_shift(base, moved, scaling=True)
+    scaled = registration.compute_shift(base, moved, scaling=True,
+                                        use_native=False)
     jscaled = jreg.compute_shift(base, moved, scaling=True, use_native=False)
     np.testing.assert_allclose(scaled, jscaled, rtol=1e-12)
     np.testing.assert_array_equal(registration.downsample2x(moved),
                                   jreg.downsample2x(moved))
     assert registration.ncc(base, moved, 1, 2) == jreg.ncc(base, moved, 1, 2)
+
+
+@pytest.mark.parametrize("shape,shift", [((140, 150), (3, -2)),
+                                         ((230, 210), (-4, 5)),
+                                         ((60, 70), (1, 1))])
+def test_native_registration_matches_numpy_and_jax_native(shape, shift):
+    assert registration.load_native() is not None
+    assert jreg._load_native()
+    g = np.random.default_rng(shape[1])
+    base = g.normal(size=shape) * 4 + 20
+    base = base + 10 * np.cos(np.arange(shape[0]) / 7)[:, None]
+    dx0, dy0 = shift
+    moved = registration._shifted_view(base, -dx0, -dy0) - 0.75
+    moved[::11, ::5] = np.nan
+    for scaling in (False, True):
+        ours = registration.compute_shift(base, moved, scaling=scaling)
+        numpy_path = registration.compute_shift(base, moved, scaling=scaling,
+                                                use_native=False)
+        jax_native = jreg.compute_shift(base, moved, scaling=scaling)
+        assert ours[:2] == numpy_path[:2] == jax_native[:2] == (dx0, dy0)
+        np.testing.assert_allclose(ours[2:], numpy_path[2:], rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(ours[2:], jax_native[2:], rtol=0,
+                                   atol=1e-9)
+    out = registration.apply_shift(moved, *ours)
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(
+        registration.apply_shift(moved, *ours, use_native=False)))
+    np.testing.assert_allclose(
+        out, registration.apply_shift(moved, *ours, use_native=False),
+        rtol=0, atol=1e-9)
+    np.testing.assert_allclose(out, jreg.apply_shift(moved, *ours), rtol=0,
+                               atol=1e-9)
+    with pytest.raises(ValueError, match="shapes"):
+        registration.compute_shift(base, moved[:-1])
 
 
 def make_mae_case(root, g, size=96, res=0.5, xoff=435500.0, yoff=3354400.0):

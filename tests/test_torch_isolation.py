@@ -13,7 +13,8 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "spnerf_tpu")
 
 def port_sources():
     files = sorted((ROOT / "spnerf_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "main_torch.py",
+              ROOT / "eval_torch.py"]
     return files
 
 
@@ -76,3 +77,29 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
     tr = Trainer(hash_cfg, RenderConfig(), LossConfig(), device="cpu")
     state = tr.init_state(torch.Generator().manual_seed(0))
     assert next(state.model.parameters()).device.type == "cpu"
+
+
+def test_cli_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The training and evaluation CLIs, `tools render` and LPIPS run on the
+    card unless asked for the CPU: without CUDA they raise before they
+    write anything."""
+    from spnerf_torch.cli import evaluate, train
+    from spnerf_torch.evaluation.lpips import lpips
+    from spnerf_torch.tools import main as tools_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    proj = tmp_path / "proj"
+    calls = [
+        lambda: train.main(["--aoi_id", "JAX_269", "--project_dir",
+                            str(proj)]),
+        lambda: train.main(["--aoi_id", "JAX_269", "--project_dir",
+                            str(proj), "--device", "cuda:0"]),
+        lambda: evaluate.main(["--project_dir", str(proj), "--exp_name",
+                               "e", "--dataset_dir", str(proj)]),
+        lambda: tools_main(["render", "--run_dir", str(proj)]),
+        lambda: lpips(None, None, weights_path=str(proj)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not proj.exists()

@@ -4,6 +4,9 @@ within 1e-6 (the DSM is splatted on the CPU in both) with equal profiles, and
 the semantic PNGs equal pixel for pixel; the functions it calls
 (`visualize_depth`, `convert_semantic_to_color`, `remap_semantics_to_original`,
 `save_sem_image`) and `MetricLogger` give what the JAX package's give.
+Where matplotlib does not import, `save_nerf_output_to_images` writes every
+GeoTIFF all the same and names the two semantic PNGs it skipped (the JAX
+package raises).
 """
 
 import json
@@ -92,6 +95,26 @@ def test_save_nerf_output_to_images_matches_jax(tmp_path, view, kind):
         np.testing.assert_array_equal(np.isnan(x), np.isnan(y), err_msg=f)
         np.testing.assert_allclose(x, y, rtol=0, atol=1e-6, err_msg=f)
         assert px["transform"] == py["transform"] and px["epsg"] == py["epsg"]
+
+
+def test_outputs_without_matplotlib(tmp_path, view, monkeypatch, capsys):
+    import sys
+
+    scene, _, sample = view
+    res = results_for(sample, "lean")
+    ours = str(tmp_path / "with")
+    outputs.save_nerf_output_to_images(scene, sample, res, ours, 3, 3,
+                                       device="cpu")
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    bare = str(tmp_path / "without")
+    outputs.save_nerf_output_to_images(scene, sample, res, bare, 3, 3,
+                                       device="cpu")
+    assert "matplotlib is not installed" in capsys.readouterr().out
+    tifs = [f for f in tree(ours) if f.endswith(".tif")]
+    assert tifs == tree(bare)
+    for f in tifs:
+        np.testing.assert_array_equal(read_geotiff(os.path.join(ours, f))[0],
+                                      read_geotiff(os.path.join(bare, f))[0])
 
 
 def test_image_helpers_match_jax(tmp_path):
