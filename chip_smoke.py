@@ -124,9 +124,39 @@ Phases, each fatal on failure:
      .npz spec, within 1e-5. Each run's seconds, validation, save and
      restore seconds, checkpoint bytes, steps a second and launches go on
      one `{"cli": ...}` line;
+ 14. the other render paths through the CLI on that project, the rays
+     cached by phases 12 and 13: (a) the occupancy-grid flagship
+     (`--n_samples 32 --occgrid`, 10 steps), its final validation through
+     B1 with the trained grid (3 launches a chunk of 11,718 rays, 56
+     chunks a view, 336 for the two views), B1 held on the grid-placed test
+     view's first and ragged last chunk against the plain render (per-ray
+     p99 within RENDER_P99; the max within RENDER_MAX on the depth, and on
+     the other outputs within that of the plain float32 render, the
+     control, which exceeds RENDER_MAX on this trained field's grid-placed
+     samples) and each of
+     the first chunk's launches on its own inputs within KERNEL_ATOL, one
+     grid refresh on the card against the CPU (same parameters and
+     jitter, within KERNEL_ATOL); (b) a multi-AOI hash
+     run (`--aoi_id JAX_269,JAX_269 --img_downscale 4`, 10 steps: 3 B2 at
+     t_eff 16,384 and 21 B3 at 131,072 and 524,288 a step), every B2 and B3
+     call of one step of the restored run held on its frame-XORed ids
+     (phase 6's tolerances), the step against the plain step (phase 7's),
+     the per-AOI validation MAEs, and B1 on the second frame's test view's
+     first chunk (origins near x = 3) against the plain render
+     (RENDER_P99/RENDER_MAX) and per launch (KERNEL_ATOL) with the
+     flagship's random weights; (c) the fine pass (`--n_importance 64
+     --img_downscale 4`, 5 steps) and (d) the proposal sampler
+     (`--proposal`, no depth or guided flags, `--img_downscale 4`, 5 steps:
+     8 B2 calls a step on the proposal's table, F = 2), whose validations
+     render through the modules (no B1 launch), with every proposal-table
+     B2 call of one step held against the plain version. Each run's
+     seconds, launches and validation metrics go on one `{"paths": ...}`
+     line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
-  phase 13's runs with their errors there, `max_abs_err_cli`). The env of phases 10 and 11 is set around
-  its phase only and restored after.
+  phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
+  under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
+  `launches_proposal` and their `max_abs_err_*`). The env of phases 10 and
+  11 is set around its phase only and restored after.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -780,6 +810,282 @@ def cli_pass(device, card, project, hold_hash, n_view=813 * 793):
     return rec
 
 
+# phase 14's runs: the occupancy-grid flagship (the JAX package's fast
+# preset, at 10 steps), a multi-AOI hash run, a fine-pass and a proposal
+# flagship run, each as the training CLI takes it
+OCC_ARGS = ["--n_samples", "32", "--occgrid"]
+MULTI_ARGS = ["--encoding", "hash", "--img_downscale", "4", "--aoi_id",
+              f"{AOI_ID},{AOI_ID}"]
+FINE_ARGS = ["--n_importance", "64", "--img_downscale", "4"]
+# the proposal sampler without depth supervision and guided sampling
+PROPOSAL_DROP = ("--guidedsample", "--depth")
+PROPOSAL_ARGS = ["--proposal", "--img_downscale", "4"]
+
+
+def paths_pass(device, card, project, hold_hash, hold_proposal,
+               n_view=813 * 793):
+    """Phase 14: the other render paths through the training CLI on phase
+    12's AOI under `project` (the rays cached by phases 12 and 13):
+    (a) the occupancy-grid flagship, its validation through B1 with the
+    trained grid, B1 held on the grid-placed test view's first and last
+    chunk and one grid refresh card vs CPU; (b) a multi-AOI hash run, every
+    B2 and B3 call of one step held on its frame-XORed ids, per-AOI MAEs,
+    B1 on the second frame's points; (c) the fine pass and (d) the proposal
+    sampler, whose validations take the module (no B1 launch), with every
+    proposal-table B2 call of one step held. hold_hash(trainer, state,
+    data) and hold_proposal(trainer, state, data) hold the table-gradient
+    calls. Returns the record it prints."""
+    import copy
+
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     render_config_from_args)
+    from spnerf_torch.models import load_model
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.ops.occgrid import update_grid
+    from spnerf_torch.render import build_render_fn, chunk_size
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.train.loop import scene_to_device_arrays
+    from spnerf_torch.utils.synth import flagship_configs
+
+    rec = {"card": card}
+    base = CLI_FLAGS + ["--project_dir", project, "--device", str(device)]
+
+    def argv(exp, extra, drop=()):
+        return ([a for a in base if a not in drop] + extra
+                + ["--exp_name", exp])
+
+    def link_cache(exp, src):
+        """The run's ray cache is `src`'s (same images, same scale)."""
+        os.makedirs(os.path.join(project, "output", exp), exist_ok=True)
+        os.symlink(os.path.join(project, "output", src, "cache"),
+                   os.path.join(project, "output", exp, "cache"))
+
+    def run(tag, args):
+        """main(args), its seconds and the kernels' launches (counts set
+        to 0 just before and read just after)."""
+        for k in dt.launches:
+            dt.launches[k] = 0
+        fe.FusedField.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = cli_train.main(args)
+        torch.cuda.synchronize()
+        r = {"s": time.perf_counter() - t0, "b1": fe.FusedField.launches,
+             "b2": dt.launches["dtab_dense"], "b3": dt.launches["dtab_sorted"]}
+        rows = os.path.join(project, "output", args[args.index("--exp_name")
+                                                    + 1], "logs",
+                            "metrics.jsonl")
+        with open(rows) as f:
+            r["val"] = {x["split"]: {k: x[k] for k in ("psnr", "ssim", "mae")}
+                        for x in map(json.loads, f)
+                        if x["split"].startswith(("train_", "val"))}
+        rec[tag] = r
+        log(f"{tag}: {json.dumps(r)}")
+        return state, finalize_args(build_train_parser().parse_args(args),
+                                    make_dirs=False)
+
+    def hold_launches(tag, model, rc, t_embed, rays, sems, **kw):
+        """B1 against its plain version on the field inputs of every launch
+        of a render of `rays`, within KERNEL_ATOL; their max abs errors."""
+        seen = []
+        real = fe.FusedField.__call__
+
+        def recording(self, xyz, sun_d, t_emb=None, sem_labels=None,
+                      heads=None):
+            seen.append((self.packed, xyz, sun_d, t_emb, sem_labels, heads))
+            return real(self, xyz, sun_d, t_emb, sem_labels, heads=heads)
+
+        fe.FusedField.__call__ = recording
+        try:
+            build_render_fn(model, rc, t_embed)(rays, 0, sems, **kw)
+        finally:
+            fe.FusedField.__call__ = real
+        if not seen:
+            fail(f"{tag}: the render launched no B1")
+        errs = []
+        for packed, xyz, sun, t_emb, sem, heads in seen:
+            out = fe.FusedField(packed)(xyz, sun, t_emb, sem, heads=heads)
+            ref = fe.PlainField(packed)(xyz, sun, t_emb, sem, heads=heads)
+            errs.append(max((out[k] - ref[k]).abs().max().item()
+                            for k in ref))
+            if not errs[-1] <= KERNEL_ATOL:
+                fail(f"{tag}: B1 launch on {xyz.shape[0]} points, heads "
+                     f"{heads}: max abs err {errs[-1]} > {KERNEL_ATOL}")
+        log(f"{tag}: {len(errs)} B1 launches on their own inputs, max abs "
+            f"err {errs} (KERNEL_ATOL {KERNEL_ATOL})")
+        return errs
+
+    def hold_views(tag, model, rc, t_embed, rays, sems, slices,
+                   below_control=False, **kw):
+        """B1's render of `rays` against the plain render on each slice:
+        per-ray p99 of every output within RENDER_P99, the max within
+        RENDER_MAX; with below_control, the max of every output but the
+        depth within that of the plain float32 render (the control) where
+        it exceeds RENDER_MAX. Then each launch of the first slice's render
+        on its own inputs (`hold_launches`)."""
+        fe.FusedField.launches = 0
+        out = build_render_fn(model, rc, t_embed)(rays, 0, sems, **kw)
+        torch.cuda.synchronize()
+        launches = fe.FusedField.launches
+        plain = build_render_fn(model, rc, t_embed, field="plain")
+        plain32 = build_render_fn(model, replace(rc, compute_dtype="float32"),
+                                  t_embed, field="plain")
+        errs = {}
+        for name, sl in slices.items():
+            ref, ctl = plain(rays[sl], 0, sems[sl], **kw), plain32(
+                rays[sl], 0, sems[sl], **kw)
+            for k, v in ref.items():
+                p99, mx = p99_max(out[k][sl], v)
+                c99, cmx = p99_max(ctl[k], v)
+                bound = (max(RENDER_MAX, cmx) if below_control
+                         and not k.startswith("depth") else RENDER_MAX)
+                errs[f"{name}.{k}"] = {"p99": p99, "max": mx,
+                                       "control_p99": c99, "control_max": cmx,
+                                       "max_bound": bound}
+                log(f"  {tag}, {name} chunk, {k}: B1 vs plain render p99 "
+                    f"{p99:.3g}, max {mx:.3g} (bound {bound:.3g}); control "
+                    f"(plain float32 vs plain) p99 {c99:.3g}, max {cmx:.3g}")
+                if not (p99 <= RENDER_P99 and mx <= bound) or not \
+                        torch.isfinite(out[k]).all():
+                    fail(f"{tag}, {name} chunk, {k}: B1 render vs plain "
+                         f"p99 {p99}, max {mx}")
+            del ref, ctl
+        first = next(iter(slices.values()))
+        launch_errs = hold_launches(tag, model, rc, t_embed, rays[first],
+                                    sems[first], **kw)
+        worst = max(e["max"] for e in errs.values())
+        log(f"{tag}: B1 launches {launches}, B1 render vs plain on "
+            f"{sorted(slices)}: max {worst:.3g}, p99 "
+            f"{max(e['p99'] for e in errs.values()):.3g}")
+        return {"launches": launches, "max_abs_err": worst,
+                "launch_max_abs_err": max(launch_errs), "errs": errs}
+
+    # (a) the occupancy-grid flagship, 10 steps, its validation through B1
+    link_cache("occgrid", FLAGSHIP_EXP)
+    state, args = run("occgrid", argv("occgrid", OCC_ARGS
+                                      + ["--max_train_steps", "10"]))
+    rc = render_config_from_args(args)
+    chunk = chunk_size(rc, args.chunk)
+    n_chunks = -(-n_view // chunk)
+    expect = 3 * n_chunks * 2
+    r = rec["occgrid"]
+    r.update(chunk=chunk, chunks_per_view=n_chunks, expect_b1=expect)
+    if r["b1"] != expect or r["b2"] or r["b3"]:
+        fail(f"the occgrid run launched B1 {r['b1']} times (expected "
+             f"{expect}), B2 {r['b2']}, B3 {r['b3']}")
+    if not (state.occ != 1.0).any():
+        fail("the occgrid run left its grid all ones")
+    tr, scene, _ = cli_train.build_trainer_and_scene(args, device)
+    view = scene.val_images[-1]
+    sample = scene.load_val_image(view, with_sem=True)
+    rays = torch.from_numpy(sample["rays"]).to(device)
+    sems = torch.from_numpy(sample["sems"]).to(device)
+    r["view"] = hold_views(
+        "occgrid test view", state.model, rc, state.t_embed, rays, sems,
+        {"first": slice(0, chunk),
+         "last": slice((n_chunks - 1) * chunk, n_view)},
+        below_control=True, occ=state.occ)
+    if r["view"]["launches"] != 3 * n_chunks:
+        fail(f"the occgrid view launched B1 {r['view']['launches']} times")
+    # one grid refresh on the card against the CPU: the same parameters,
+    # slab and jitter
+    u = torch.rand((tr.occ_rows, 3), generator=torch.Generator().manual_seed(
+        14)).to(device)
+    cpu_model = copy.deepcopy(state.model).cpu()
+    on_card = update_grid(state.occ.clone(), tr.sigma_fn(state.model), u, 10,
+                          rc.occ_res, tr.occ_rows, tr.occ_decay)
+    on_cpu = update_grid(state.occ.cpu().clone(), tr.sigma_fn(cpu_model),
+                         u.cpu(), 10, rc.occ_res, tr.occ_rows, tr.occ_decay)
+    grid_err = (on_card.cpu() - on_cpu).abs().max().item()
+    r.update(grid_rows=tr.occ_rows, grid_refresh_max_abs_err=grid_err,
+             grid_changed=int((on_card != state.occ).sum()))
+    log(f"one grid refresh ({tr.occ_rows} cells, slab 10) card vs CPU: max "
+        f"abs err {grid_err:.3g}, {r['grid_changed']} cells changed")
+    if not grid_err <= KERNEL_ATOL or r["grid_changed"] == 0:
+        fail(f"grid refresh card vs CPU: max abs err {grid_err}")
+    del state, tr, scene, cpu_model, on_card, on_cpu, rays, sems
+    torch.cuda.empty_cache()
+
+    # (b) multi-AOI hash, 10 steps: 3 B2 and 21 B3 a step
+    link_cache("multi", "hash")
+    state, args = run("multi", argv("multi", MULTI_ARGS
+                                    + ["--max_train_steps", "10"]))
+    r = rec["multi"]
+    if (r["b2"], r["b3"], r["b1"]) != (30, 210, 0):
+        fail(f"the multi-AOI run launched B2 {r['b2']}, B3 {r['b3']}, B1 "
+             f"{r['b1']}; expected 30, 210, 0")
+    maes = {k: v["mae"] for k, v in r["val"].items() if k != "val"}
+    if len(maes) != 4 or not all(np.isfinite(list(maes.values()))):
+        fail(f"multi-AOI per-AOI MAEs {maes}")
+    log(f"multi-AOI validation, per view and frame: MAE {json.dumps(maes)}")
+    tr, scene, _ = cli_train.build_trainer_and_scene(args, device)
+    fresh = tr.init_state(torch.Generator().manual_seed(1))
+    if CheckpointManager(args.ckpts_dir).restore(fresh) is None:
+        fail("the multi-AOI run's checkpoint does not restore")
+    if fresh.model.encoding.frames != 2:
+        fail("the multi-AOI hash field has one frame")
+    r["held"] = hold_hash(tr, fresh, tr.to_device(
+        scene_to_device_arrays(scene)))
+    want = {"dense": [16384], "sorted": [131072, 524288]}
+    if r["held"]["t_eff"] != want:
+        fail(f"multi-AOI table gradients at t_eff {r['held']['t_eff']}, "
+             f"expected {want}")
+    # B1 on the second frame's points: its test view's first chunk, the
+    # flagship's random weights
+    mc, frc = flagship_configs()
+    fmodel = load_model(mc, frc.compute_dtype, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    s2 = scene.scenes[1].load_val_image(scene.scenes[1].val_images[-1],
+                                        with_sem=True)
+    rays = torch.from_numpy(s2["rays"]).to(device)
+    x0 = rays[:, 0].mean().item()
+    fchunk = chunk_size(frc)
+    r["second_frame"] = hold_views(
+        "second frame's test view, first chunk", fmodel, frc, None,
+        rays[:fchunk], torch.from_numpy(s2["sems"][:fchunk]).to(device),
+        {"first": slice(0, fchunk)})
+    r["second_frame"]["mean_origin_x"] = x0
+    if r["second_frame"]["launches"] != 3 or not 2.0 < x0 < 4.0:
+        fail(f"second frame: B1 launches {r['second_frame']['launches']}, "
+             f"mean origin x {x0}")
+    del state, tr, scene, fresh, fmodel, rays
+    torch.cuda.empty_cache()
+
+    # (c) the fine pass, 5 steps: the validation takes the module
+    link_cache("fine", "hash")
+    state, args = run("fine", argv("fine", FINE_ARGS
+                                   + ["--max_train_steps", "5"]))
+    r = rec["fine"]
+    if r["b1"] or r["b2"] or r["b3"] or state.fine is None:
+        fail(f"the fine-pass run launched B1 {r['b1']}, B2 {r['b2']}, B3 "
+             f"{r['b3']}; expected none")
+    if not all(np.isfinite(v["mae"]) for v in r["val"].values()):
+        fail(f"fine-pass validation: {r['val']}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (d) the proposal sampler, 5 steps: 8 proposal-table B2 calls a step
+    link_cache("proposal", "hash")
+    state, args = run("proposal", argv("proposal", PROPOSAL_ARGS
+                                       + ["--max_train_steps", "5"],
+                                       drop=PROPOSAL_DROP))
+    r = rec["proposal"]
+    if (r["b1"], r["b2"], r["b3"]) != (0, 40, 0):
+        fail(f"the proposal run launched B1 {r['b1']}, B2 {r['b2']}, B3 "
+             f"{r['b3']}; expected 0, 40, 0")
+    tr, scene, _ = cli_train.build_trainer_and_scene(args, device)
+    fresh = tr.init_state(torch.Generator().manual_seed(1))
+    if CheckpointManager(args.ckpts_dir).restore(fresh) is None:
+        fail("the proposal run's checkpoint does not restore")
+    r["held"] = hold_proposal(tr, fresh, tr.to_device(
+        scene_to_device_arrays(scene)))
+    del state, tr, scene, fresh
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1413,9 +1719,54 @@ def main():
                  f"{ {k: len(v) for k, v in per_cli.items()} }")
         out = {f"{n}_{k}": max(r[k] for r in recs)
                for n, recs in per_cli.items() for k in ("err", "rel")}
+        out["t_eff"] = {n: sorted({r["t_eff"] for r in recs})
+                        for n, recs in per_cli.items()}
         out.update(step_match("the CLI's hash step", tr, state, data,
                               loss_plain, grad_plain))
         log(f"the CLI's hash run, B2 and B3 on its own inputs: "
+            f"{json.dumps(out)}")
+        return out
+
+    def hold_proposal(tr, state, data):
+        """Phase 14's proposal run: every table-gradient call of one step
+        on the proposal field's table (F = 2), recorded through the plain
+        version, routed to B2 and held against the plain version at phase
+        6's tolerance."""
+        calls = []
+        real = hg.dtab
+
+        def recording(ids, ct, t_eff, F, impl=None, fmajor=True, sw_acc=None):
+            calls.append((ids, ct.contiguous(), t_eff, fmajor))
+            return real(ids, ct, t_eff, F, impl=impl, fmajor=fmajor,
+                        sw_acc=sw_acc)
+
+        enc = state.proposal.encoding
+        hg.dtab = recording
+        enc.dtab_impl = "plain"
+        try:
+            state.optimizer.zero_grad(set_to_none=True)
+            g = tr.step_generator(0, seed=1)
+            batch = tr.sample_batch(data, BATCH, g)
+            loss, _ = tr.loss_fn(state, batch, 0, generator=g)
+            loss.backward()
+        finally:
+            hg.dtab = real
+            enc.dtab_impl = None
+        routes = [dt.route(t_eff, enc.n_features, ids.shape[0])
+                  for ids, _, t_eff, _ in calls]
+        if len(calls) != enc.n_levels or set(routes) != {"dense"}:
+            fail(f"the proposal step's table gradients: {len(calls)} calls, "
+                 f"routes {routes}")
+        recs = [hold("dense", ids, ct, t_eff, fmajor,
+                     f"proposal F={ct.shape[0]} t_eff={t_eff} "
+                     f"M={ids.shape[0]}", timed=False)
+                for ids, ct, t_eff, fmajor in calls]
+        del calls
+        out = {"calls": len(recs), "dense_err": max(r["err"] for r in recs),
+               "dense_rel": max(r["rel"] for r in recs),
+               "t_eff": sorted({r["t_eff"] for r in recs}),
+               "M": sorted({r["M"] for r in recs})}
+        log(f"the proposal run, B2 on its own table's inputs: "
             f"{json.dumps(out)}")
         return out
 
@@ -1435,7 +1786,24 @@ def main():
         cli_rec = cli_pass(device, card, project, hold_cli_hash)
         cli_rec["phase_s"] = time.time() - t13
         torch.cuda.empty_cache()
+
+        log(f"-- phase 14 at {time.time() - t_start:.1f} s")
+        # 14. the occupancy grid, multi-AOI frames, the fine pass and the
+        #     proposal sampler through the CLI
+        t14 = time.time()
+        paths_rec = paths_pass(device, card, project, hold_cli_hash,
+                               hold_proposal)
+        paths_rec["phase_s"] = time.time() - t14
+        torch.cuda.empty_cache()
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
+    occ, multi = paths_rec["occgrid"], paths_rec["multi"]
+    field_entry.update(
+        launches_occgrid=occ["b1"],
+        max_abs_err_occgrid=occ["view"]["max_abs_err"],
+        launches_second_frame=multi["second_frame"]["launches"],
+        max_abs_err_second_frame=multi["second_frame"]["max_abs_err"],
+        launches_fine=paths_rec["fine"]["b1"],
+        launches_proposal=paths_rec["proposal"]["b1"])
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 
@@ -1505,7 +1873,18 @@ def main():
     sorted_.update(launches_cli=cli_rec["hash_run"]["b3"],
                    max_abs_err_cli=held["sorted_err"],
                    max_rel_err_cli=held["sorted_rel"])
+    mheld, pheld = multi["held"], paths_rec["proposal"]["held"]
+    dense.update(launches_multi=multi["b2"],
+                 max_abs_err_multi=mheld["dense_err"],
+                 max_rel_err_multi=mheld["dense_rel"],
+                 launches_proposal=paths_rec["proposal"]["b2"],
+                 max_abs_err_proposal=pheld["dense_err"],
+                 max_rel_err_proposal=pheld["dense_rel"])
+    sorted_.update(launches_multi=multi["b3"],
+                   max_abs_err_multi=mheld["sorted_err"],
+                   max_rel_err_multi=mheld["sorted_rel"])
     print(json.dumps({"cli": cli_rec}), flush=True)
+    print(json.dumps({"paths": paths_rec}), flush=True)
     print(json.dumps({
         "kernels": [field_entry, dense, sorted_, partials, batched],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,

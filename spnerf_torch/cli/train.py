@@ -22,10 +22,15 @@ the lidar truth and logs the altitude MAE. As in the JAX package and the
 reference, a failure of the MAE or of the image grid is printed and the
 run goes on.
 
+A comma-separated --aoi_id trains one field on several AOIs side by side
+(`data/multi.py`): each AOI's dataset under <project>/dataset/DFC2019_<n>
+(or an explicit --dataset_dir with an {aoi} placeholder), each validated
+and scored in its own frame. With --occgrid, validation places its samples
+by the trained grid.
+
 Entry points run on the card (`--device`, default cuda:<gpu_id>) and
 raise without CUDA unless given `--device cpu`. Not ported yet (ROADMAP
-A5, A6): multi-AOI scenes and a device mesh; `finalize_args` refuses their
-flags.
+A6): a device mesh; `finalize_args` refuses --data_axis > 1.
 """
 
 import os
@@ -39,7 +44,7 @@ import torch
 from ..config import (build_train_parser, finalize_args,
                       loss_config_from_args, model_config_from_args,
                       render_config_from_args)
-from ..data import load_scene
+from ..data import load_scene, load_scenes
 from ..device import resolve_device
 from ..evaluation.dsm import dsm_from_latlonalt
 from ..evaluation.mae import compute_mae_and_save_dsm_diff
@@ -57,14 +62,19 @@ def predefined_val_ts(img_id):
 
 
 def _aoi_dirs(args, aoi):
-    """Dataset directories of the run's single AOI: its own, or those under
-    an explicit --dataset_dir holding an {aoi} placeholder. (Multi-AOI
-    scenes, which name other AOIs' directories, are ROADMAP A5.)"""
-    if not (args.dataset_dir and "{aoi}" in args.dataset_dir):
+    """Dataset directories of one AOI: the run's own for a single-AOI run;
+    for a multi-AOI run <project>/dataset/DFC2019_<n> by the DFC2019
+    naming; or those under an explicit --dataset_dir holding an {aoi}
+    placeholder."""
+    if args.dataset_dir and "{aoi}" in args.dataset_dir:
+        base = args.dataset_dir.format(aoi=aoi)
+    elif "," not in args.aoi_id:
         return {"json_dir": args.json_dir, "img_dir": args.img_dir,
                 "depth_dir": args.depth_dir, "sem_dir": args.sem_dir,
                 "gt_dir": args.gt_dir}
-    base = args.dataset_dir.format(aoi=aoi)
+    else:
+        base = os.path.join(args.project_dir, "dataset",
+                            f"DFC2019_{aoi.split('_')[-1]}")
     return {
         "json_dir": os.path.join(base, "JSON"),
         "img_dir": os.path.join(base, "RGB", aoi),
@@ -76,20 +86,23 @@ def _aoi_dirs(args, aoi):
 
 def build_trainer_and_scene(args, device):
     """(trainer on `device`, the loaded scene, steps per epoch) for the
-    flags `args` (after `finalize_args`, or a run's opts.json)."""
-    if "," in args.aoi_id:
-        raise NotImplementedError(
-            "multi-AOI scenes are not ported (ROADMAP A5)")
-    dirs = _aoi_dirs(args, args.aoi_id)
-    scene = load_scene(
-        dirs["json_dir"], dirs["img_dir"], dirs["depth_dir"], dirs["sem_dir"],
-        args.aoi_id, img_downscale=args.img_downscale,
-        stdscale=args.stdscale, margin=args.margin, sem=args.sem,
-        num_sem_classes=args.num_sem_classes, dense_ss=args.dense_ss,
-        sem_downscale=args.sem_downscale,
+    flags `args` (after `finalize_args`, or a run's opts.json). A
+    comma-separated --aoi_id loads a `MultiScene`."""
+    kwargs = dict(
+        img_downscale=args.img_downscale, stdscale=args.stdscale,
+        margin=args.margin, sem=args.sem, num_sem_classes=args.num_sem_classes,
+        dense_ss=args.dense_ss, sem_downscale=args.sem_downscale,
         load_depth=args.depth or args.model == "sp-nerf",
         cache_dir=args.cache_dir,
     )
+    aois = [a.strip() for a in args.aoi_id.split(",") if a.strip()]
+    if len(aois) > 1:
+        scene = load_scenes(aois, lambda a: _aoi_dirs(args, a), **kwargs)
+    else:
+        dirs = _aoi_dirs(args, args.aoi_id)
+        scene = load_scene(dirs["json_dir"], dirs["img_dir"],
+                           dirs["depth_dir"], dirs["sem_dir"], args.aoi_id,
+                           **kwargs)
     steps_per_epoch = max(len(scene) // args.batch_size, 1)
     trainer = Trainer(
         model_config_from_args(args),
@@ -109,16 +122,26 @@ def build_trainer_and_scene(args, device):
         table_level_lr_decay=getattr(args, "hash_level_lr_decay", 1.0),
         weight_decay=getattr(args, "weight_decay", 0.0),
         grad_clip=getattr(args, "grad_clip", 0.0),
+        occ_rows=getattr(args, "occ_rows", 4096),
+        occ_decay=getattr(args, "occ_decay", 0.8),
         device=device,
     )
     return trainer, scene, steps_per_epoch
 
 
+def _validation_items(scene, aoi_id):
+    """(aoi_id, scene, record) of every validation image of a
+    `SatelliteScene` or a `MultiScene`."""
+    if hasattr(scene, "validation_items"):
+        return list(scene.validation_items())
+    return [(aoi_id, scene, rec) for rec in scene.val_images]
+
+
 def _scene_t_vocab(scene):
     """Smallest transient-embedding vocab covering every train ray id and
-    validation record of the scene."""
+    validation record of the scene (of every AOI of a multi-AOI one)."""
     need = int(np.max(scene.ids)) + 1
-    for rec in scene.val_images:
+    for _, _, rec in _validation_items(scene, None):
         need = max(need, int(rec.t) + 1)
     return need
 
@@ -147,26 +170,30 @@ def _val_labels(items):
 
 
 def run_validation(trainer, scene, state, args, epoch, logger, save_images):
-    """Render every validation image of `scene` (a `SatelliteScene`); log
-    PSNR/SSIM/MAE (reference validation_step, main.py:188-299) and return
-    their means over the test views.
+    """Render every validation image of `scene` (a `SatelliteScene` or a
+    `MultiScene`); log PSNR/SSIM/MAE (reference validation_step,
+    main.py:188-299) and return their means over the test views. Each AOI's
+    DSM is scored against its own truth, in its own frame.
 
     args: a namespace with aoi_id, gt_dir, logs_dir, chunk, sem and
-    num_sem_classes (the training CLI's names). The field renders from
-    `state` on the trainer's device."""
-    if "," in args.aoi_id:
-        raise NotImplementedError(
-            "multi-AOI validation is not ported (ROADMAP A5)")
+    num_sem_classes (the training CLI's names; a multi-AOI run also
+    project_dir and dataset_dir). The field renders from `state` on the
+    trainer's device, with its occupancy grid where it has one."""
     device = trainer.device
     render = build_render_fn(state.model, trainer.rc, state.t_embed,
-                             chunk=args.chunk)
+                             chunk=args.chunk, fine=state.fine,
+                             proposal=state.proposal)
     all_scalars = []
-    items = [(args.aoi_id, scene, rec) for rec in scene.val_images]
+    items = _validation_items(scene, args.aoi_id)
     labels = _val_labels(items)
     for i, (aoi_id, sub_scene, rec) in enumerate(items):
+        gt_dir = (_aoi_dirs(args, aoi_id)["gt_dir"]
+                  if "," in args.aoi_id else args.gt_dir)
         sample = sub_scene.load_val_image(rec, with_sem=args.sem)
         t = predefined_val_ts(rec.img_id)
-        out = render(sample["rays"], t, sample.get("sems"))
+        # with the occupancy grid, validation places its samples by the
+        # trained grid, as the run was trained
+        out = render(sample["rays"], t, sample.get("sems"), occ=state.occ)
         typ = "fine" if "rgb_fine" in out else "coarse"
         h, w = sample["h"], sample["w"]
         img_t = out[f"rgb_{typ}"].float().reshape(h, w, 3)
@@ -190,7 +217,7 @@ def run_validation(trainer, scene, state, args, epoch, logger, save_images):
             dsm_from_latlonalt(lats, lons, alts, dsm_path=tmp_dsm,
                                device=device)
             mae_v = compute_mae_and_save_dsm_diff(
-                tmp_dsm, rec.img_id, aoi_id, args.gt_dir,
+                tmp_dsm, rec.img_id, aoi_id, gt_dir,
                 os.path.join(out_dir, "dsm"), epoch, save=False,
             )
             os.remove(tmp_dsm)
@@ -339,13 +366,16 @@ def _window_len(args):
     window_len = max(1, min(getattr(args, "log_every", 100),
                             args.max_train_steps))
     if args.encoding == "hash":
-        # the coarse pass, the guided and the solar passes each encode; 8
-        # more sparse ops a step outside the encoding (the batch gathers
-        # and the transient-embedding gather). The fine pass and the
-        # occupancy grid, which add to it in the JAX package, are refused
-        # by `check_ported`.
-        n_enc_passes = 1 + int(args.guidedsample) + int(args.sc_lambda > 0)
-        sparse_per_step = n_enc_passes * (2 * args.hash_levels + 2) + 8
+        # the coarse pass, the guided and the solar passes each encode, and
+        # the fine pass twice (view and solar); 8 more sparse ops a step
+        # outside the encoding (the batch gathers and the
+        # transient-embedding gather); the occupancy grid adds its lookup
+        # and the grid refresh's encoding
+        n_enc_passes = (1 + int(args.guidedsample) + int(args.sc_lambda > 0)
+                        + 2 * int(args.n_importance > 0))
+        sparse_per_step = (n_enc_passes * (2 * args.hash_levels + 2) + 8
+                           + (1 + args.hash_levels)
+                           * int(getattr(args, "occgrid", False)))
         window_len = min(window_len, max(1, 2400 // sparse_per_step))
     return window_len
 

@@ -7,7 +7,8 @@ class tables.
 the card (the JAX package picks its backend by `JAX_PLATFORMS`).
 `finalize_args` derives the same directory layout and `opts.json`; it
 raises NotImplementedError for the flags whose paths the port does not
-have yet, naming their ROADMAP item. The frozen dataclasses hold the fields
+have yet (a device mesh, ROADMAP A6) and for the XLA-only
+`--xla_opts`. The frozen dataclasses hold the fields
 of the JAX package's `ModelConfig`, `RenderConfig` and `LossConfig` that the
 port reads, under the same names and defaults (`LossConfig.margin` and
 `stdscale` are read by the depth loaders); the `*_config_from_args`
@@ -45,7 +46,7 @@ class ModelConfig:
     hash_features: int = 4
     hash_log2T: int = 19
     hash_hidden: int = 64  # width of the hash trunk and head MLPs
-    hash_frames: int = 1  # multi-AOI frames; only 1 is ported
+    hash_frames: int = 1  # disjoint multi-AOI frames (data/multi.py)
     # levels whose dense grid fits the table index it directly
     hash_direct_coarse: bool = True
     # "auto" | "xla" | "sorted_vjp" | "matmul_vjp" | "fused_vjp": the JAX
@@ -72,8 +73,15 @@ class RenderConfig:
     sem: bool = False
     perturb: float = 1.0
     compute_dtype: str = "float32"  # "bfloat16" for the flagship
-    proposal: bool = False
+    proposal: bool = False  # density-only proposal sampler
+    n_proposal: int = 64  # proposal samples per ray
+    # occupancy-grid guided coarse sampling (--occgrid, ops/occgrid.py);
+    # mutually exclusive with proposal
     occ_grid: bool = False
+    occ_res: int = 64  # grid resolution per axis (res^3 cells per frame)
+    occ_bins: int = 128  # per-ray depth bins weighted by the grid
+    occ_floor: float = 0.01  # uniform exploration floor per bin
+    occ_frames: int = 1  # multi-AOI: one res^3 block per translated frame
 
 
 @dataclass(frozen=True)
@@ -91,6 +99,7 @@ class LossConfig:
     sem: bool = False
     ss_lambda: float = 4e-2
     first_beta_epoch: int = 2
+    prop_lambda: float = 1.0  # proposal interlevel loss weight
 
 
 # DFC2019 class ids (2 ground, 5 trees, 6 buildings, 9 water, 17 bridges) and
@@ -254,13 +263,14 @@ def build_train_parser():
                    help="store hash tables as (T, F) instead of flat (T*F,) "
                         "rows (checkpoints trained before flat tables)")
     p.add_argument("--proposal", action="store_true",
-                   help="density-only proposal sampler (not ported: "
-                        "ROADMAP A5)")
+                   help="density-only proposal network places the main "
+                        "field's samples (ops/proposal.py)")
     p.add_argument("--n_proposal", type=int, default=64)
     p.add_argument("--prop_lambda", type=float, default=1.0)
     p.add_argument("--occgrid", action="store_true",
-                   help="occupancy-grid guided coarse sampling (not "
-                        "ported: ROADMAP A5)")
+                   help="occupancy-grid guided coarse sampling "
+                        "(ops/occgrid.py). Mutually exclusive with "
+                        "--proposal")
     p.add_argument("--occ_res", type=int, default=64,
                    help="occupancy grid resolution per axis (res^3 cells)")
     p.add_argument("--occ_bins", type=int, default=128,
@@ -296,17 +306,9 @@ def build_train_parser():
 
 def check_ported(args):
     """Raise NotImplementedError for a flag whose path the port lacks."""
-    roadmap = [
-        (getattr(args, "proposal", False), "--proposal", "A5"),
-        (getattr(args, "occgrid", False), "--occgrid", "A5"),
-        (getattr(args, "n_importance", 0) > 0, "--n_importance > 0", "A5"),
-        ("," in str(args.aoi_id), "a comma-separated --aoi_id", "A5"),
-        (getattr(args, "data_axis", 0) > 1, "--data_axis > 1", "A6"),
-    ]
-    for bad, what, item in roadmap:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to spnerf_torch (ROADMAP {item})")
+    if getattr(args, "data_axis", 0) > 1:
+        raise NotImplementedError(
+            "--data_axis > 1 is not ported to spnerf_torch (ROADMAP A6)")
     if getattr(args, "xla_opts", ""):
         raise NotImplementedError(
             "--xla_opts sets XLA compiler options; it is XLA-only and has no "
@@ -390,7 +392,13 @@ def render_config_from_args(args) -> RenderConfig:
         sem=args.sem,
         compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
         proposal=getattr(args, "proposal", False),
+        n_proposal=getattr(args, "n_proposal", 64),
         occ_grid=getattr(args, "occgrid", False),
+        occ_res=getattr(args, "occ_res", 64),
+        occ_bins=getattr(args, "occ_bins", 128),
+        occ_floor=getattr(args, "occ_floor", 0.01),
+        # one grid block per translated AOI frame (as hash_frames)
+        occ_frames=_aoi_frames(args),
     )
 
 
@@ -407,6 +415,7 @@ def loss_config_from_args(args) -> LossConfig:
         sem=args.sem,
         ss_lambda=args.ss_lambda,
         first_beta_epoch=args.first_beta_epoch,
+        prop_lambda=getattr(args, "prop_lambda", 1.0),
     )
 
 

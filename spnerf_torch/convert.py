@@ -10,10 +10,14 @@ and biases are copied as they are. The semantic table keeps its zero pad row
 at index `num_sem_classes`. The hash table, `HashGridEncoding_0/table` in
 flax and `encoding.table` in the port, has the same layout in both, the
 (L, T * F) flat feature-major row or the (L, T, F) table, and is copied
-unchanged either way.
+unchanged either way. The fine field (`params["fine"]`) is a second field
+of the same configuration; the proposal field (`params["proposal"]`,
+`HashGridEncoding_0` and `TorchDense_0..1`) maps onto `ProposalField`'s
+`encoding.table` and `dense.0..1` by the same rule.
 
 `load_jax_train_state` carries a whole JAX `TrainState` across: the
-weights, the optimizer's state and the step, so that a JAX run saved at
+weights of every module, the optimizer's state, the step and the occupancy
+grid, so that a JAX run saved at
 step k and the port restored at step k continue the same trajectory. The
 optax state holds one `ScaleByAdamState` (count, mu, nu over the params
 tree), alone under `optax.adam` or inside the chain of the optimizer
@@ -60,8 +64,8 @@ def transient_state_dict(params_t):
 
 
 def flax_field_params(state_dict):
-    """`SPNeRF` or `HashSPNeRF` state dict (or a dict of gradients under the
-    same names) -> flax field params (numpy arrays)."""
+    """`SPNeRF`, `HashSPNeRF` or `ProposalField` state dict (or a dict of
+    gradients under the same names) -> flax field params (numpy arrays)."""
     params = {}
     for key, value in state_dict.items():
         arr = value.detach().cpu().float().numpy()
@@ -87,29 +91,45 @@ def _adam_state(opt_state):
     raise ValueError("the optax state holds no ScaleByAdamState")
 
 
+# flax params key -> the port's TrainState prefix and state-dict converter
+_MODULES = {"coarse": ("", field_state_dict),
+            "fine": ("fine.", field_state_dict),
+            "t": ("t_embed.", transient_state_dict),
+            "proposal": ("proposal.", field_state_dict)}
+
+
 def _by_port_name(tree):
-    """flax params-shaped tree {"coarse": field, ["t": transient]} ->
-    {name in the port's optimizer order: tensor}."""
-    unported = set(tree) - {"coarse", "t"}
-    if unported:
-        raise NotImplementedError(
-            f"parameters {sorted(unported)} are not ported (ROADMAP A5)")
-    named = dict(field_state_dict(tree["coarse"]))
-    if "t" in tree:
-        named.update({f"t_embed.{k}": v for k, v in
-                      transient_state_dict(tree["t"]).items()})
+    """flax params-shaped tree {"coarse": field, ["fine": field],
+    ["t": transient], ["proposal": proposal]} -> {the port's
+    `TrainState.named_parameters` name: tensor}."""
+    unknown = set(tree) - set(_MODULES)
+    if unknown:
+        raise KeyError(f"unexpected parameter trees {sorted(unknown)}")
+    named = {}
+    for key, sub in tree.items():
+        prefix, convert = _MODULES[key]
+        named.update({prefix + k: v for k, v in convert(sub).items()})
     return named
 
 
-def load_jax_train_state(state, params, opt_state, step):
-    """Carry a JAX `TrainState` (its params, opt_state and step, as numpy
-    trees) into the port's `TrainState` `state`, in place: the field and
-    transient weights, the optimizer's moments and count, and the step."""
-    state.model.load_state_dict(field_state_dict(params["coarse"]))
-    names = [n for n, _ in state.model.named_parameters()]
-    if state.t_embed is not None:
-        state.t_embed.load_state_dict(transient_state_dict(params["t"]))
-        names += [f"t_embed.{n}" for n, _ in state.t_embed.named_parameters()]
+def load_jax_train_state(state, params, opt_state, step, occ=None):
+    """Carry a JAX `TrainState` (its params, opt_state, step and occ, as
+    numpy trees) into the port's `TrainState` `state`, in place: the
+    weights of every module, the optimizer's moments and count, the step
+    and the occupancy grid."""
+    modules = dict(state.modules())
+    for key, (prefix, convert) in _MODULES.items():
+        if (key in params) != (prefix in modules):
+            raise KeyError(f"the JAX state and the port's disagree on "
+                           f"{key!r}")
+        if key in params:
+            modules[prefix].load_state_dict(convert(params[key]))
+    names = [n for n, _ in state.named_parameters()]
+    if (occ is None) != (state.occ is None):
+        raise KeyError("the JAX state and the port's disagree on the "
+                       "occupancy grid")
+    if occ is not None:
+        state.occ.copy_(torch.from_numpy(np.array(occ, np.float32)))
     adam = _adam_state(opt_state)
     mu, nu = _by_port_name(adam.mu), _by_port_name(adam.nu)
     if set(mu) != set(names):

@@ -1,6 +1,7 @@
 import torch
 
 from .hashgrid import HashGridEncoding, HashSPNeRF, init_hash_spnerf
+from .proposal import ProposalField
 from .spnerf import (
     SPNeRF,
     TransientEmbedding,
@@ -29,6 +30,7 @@ __all__ = [
     "SPNeRF",
     "HashSPNeRF",
     "HashGridEncoding",
+    "ProposalField",
     "TransientEmbedding",
     "init_spnerf",
     "init_hash_spnerf",

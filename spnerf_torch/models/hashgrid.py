@@ -11,6 +11,13 @@ table directly when (res_l + 1)^3 <= T, else by the spatial hash
 xor_a(x_a * p_a) mod T; their features are interpolated trilinearly and the
 levels concatenated.
 
+Multi-AOI frames (`frames` > 1, data/multi.py): a point's frame is
+round(x / FRAME_SPACING) clipped to [0, frames - 1], and the point is moved
+into its frame's box before the lookup. A direct level then holds one dense
+block per frame (direct when side^3 * frames <= T, index lin + frame *
+side^3); a hashed level XORs frame * _FRAME_PRIME into the hash, so each
+frame addresses its own pseudo-table at full resolution.
+
 The table has one of the JAX package's two layouts, chosen as it chooses
 them (`flat_storage`): the impl decides the parameter's shape, and so which
 checkpoints load, and nothing else; every impl computes the same function.
@@ -40,10 +47,13 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.dtab import dtab, dtab_levels, window_eligible
+from ..ops.occgrid import frame_decompose
 from .spnerf import TorchDense, as_dtype, embed_lookup, softplus, uniform_
 
 # the spatial hash's primes; products are taken modulo 2^32 as in uint32
 _PRIMES = (1, 2654435761, 805459861)
+# the multi-AOI frame index's prime, XORed into the hash
+_FRAME_PRIME = 3674653429
 _MASK32 = 0xFFFFFFFF
 
 # the 8 corner offsets of a unit cell, k minor
@@ -58,8 +68,10 @@ def level_resolutions(n_levels, base_resolution=16, max_resolution=2048):
     return np.floor(base_resolution * b ** np.arange(n_levels)).astype(np.int64)
 
 
-def _hash_corners(base, table_size):
-    """(N, 3) int64 cell base -> (N, 8) int64 hashed corner ids.
+def _hash_corners(base, table_size, frame=None):
+    """(N, 3) int64 cell base -> (N, 8) int64 hashed corner ids; frame:
+    optional (N,) int64 frame index, XORed into the hash times
+    _FRAME_PRIME.
 
     The uint32 hash in int64: every product and sum is masked to 32 bits, so
     the ids equal the uint32 arithmetic exactly. Per axis,
@@ -71,40 +83,49 @@ def _hash_corners(base, table_size):
             ^ ((hx[1] + ((j * _PRIMES[1]) & _MASK32)) & _MASK32) \
             ^ ((hx[2] + ((k * _PRIMES[2]) & _MASK32)) & _MASK32)
         cols.append(h)
-    return torch.stack(cols, dim=-1) % table_size
+    h = torch.stack(cols, dim=-1)
+    if frame is not None:
+        h = h ^ ((frame * _FRAME_PRIME) & _MASK32)[:, None]
+    return h % table_size
 
 
-def direct_table_size(res, table_size, direct_coarse=True):
-    """t_eff of a directly indexed level (a power of two holding its
-    (res + 1)^3 corners), or None when the level is hashed."""
+def direct_table_size(res, table_size, direct_coarse=True, frames=1):
+    """t_eff of a directly indexed level (a power of two holding the
+    (res + 1)^3 corners of each of `frames` frames), or None when the level
+    is hashed."""
     side = int(res) + 1
-    if direct_coarse and side ** 3 <= table_size:
-        return 1 << int(np.ceil(np.log2(side ** 3)))
+    if direct_coarse and side ** 3 * frames <= table_size:
+        return 1 << int(np.ceil(np.log2(side ** 3 * frames)))
     return None
 
 
-def level_ids(x01, res, table_size, direct_coarse=True):
+def level_ids(x01, res, table_size, direct_coarse=True, frame=None,
+              frames=1):
     """Corner ids, in-cell fractions and effective table size of one level.
 
-    x01: (N, 3) float32 in [0, 1]. The cell is clamped to res - 1, so a
-    point on a +1 face (x01 == 1.0, as solar-pass points leaving the box
-    are clipped to) interpolates onto the face corners with frac == 1.0
-    instead of addressing corner res + 1.
+    x01: (N, 3) float32 in [0, 1]; frame: (N,) int64 frame indices when
+    frames > 1, else None. The cell is clamped to res - 1, so a point on a
+    +1 face (x01 == 1.0, as solar-pass points leaving the box are clipped
+    to) interpolates onto the face corners with frac == 1.0 instead of
+    addressing corner res + 1.
     Returns idx (N, 8) int64, frac (N, 3) float32, t_eff."""
     res = int(res)
     xs = x01 * res
     x0 = torch.clamp_max(torch.floor(xs), float(res - 1))
     frac = xs - x0
     base = x0.long()
-    t_eff = direct_table_size(res, table_size, direct_coarse)
+    t_eff = direct_table_size(res, table_size, direct_coarse,
+                              frames if frame is not None else 1)
     if t_eff is not None:
         side = res + 1
         base_lin = (base[:, 0] * side + base[:, 1]) * side + base[:, 2]
+        if frame is not None:
+            base_lin = base_lin + frame * side ** 3
         offs = torch.as_tensor(
             (_CORNERS[:, 0] * side + _CORNERS[:, 1]) * side + _CORNERS[:, 2],
             device=x01.device)
         return base_lin[:, None] + offs[None], frac, t_eff
-    return _hash_corners(base, table_size), frac, table_size
+    return _hash_corners(base, table_size, frame), frac, table_size
 
 
 class HashTake(torch.autograd.Function):
@@ -229,9 +250,10 @@ class HashGridEncoding(nn.Module):
 
     def __init__(self, n_levels=16, n_features=2, log2_table_size=19,
                  base_resolution=16, max_resolution=2048, direct_coarse=True,
-                 flat_table=True, impl="auto", generator=None):
+                 flat_table=True, impl="auto", frames=1, generator=None):
         super().__init__()
         self.n_levels = n_levels
+        self.frames = int(frames)
         self.n_features = n_features
         self.table_size = 2 ** log2_table_size
         self.direct_coarse = direct_coarse
@@ -248,13 +270,18 @@ class HashGridEncoding(nn.Module):
     def level_table_sizes(self):
         """t_eff of every level."""
         T = self.table_size
-        return [direct_table_size(r, T, self.direct_coarse) or T
+        return [direct_table_size(r, T, self.direct_coarse, self.frames) or T
                 for r in self.resolutions]
 
     def forward(self, xyz):
         L, nf, T = self.n_levels, self.n_features, self.table_size
-        x01 = torch.clamp((xyz.float() + 1.0) * 0.5, 0.0, 1.0)
-        levels = [level_ids(x01, self.resolutions[l], T, self.direct_coarse)
+        xyz = xyz.float()
+        frame = None
+        if self.frames > 1:
+            frame, xyz = frame_decompose(xyz, self.frames)
+        x01 = torch.clamp((xyz + 1.0) * 0.5, 0.0, 1.0)
+        levels = [level_ids(x01, self.resolutions[l], T, self.direct_coarse,
+                            frame, self.frames)
                   for l in range(L)]
         if self.flat:
             feats = []
@@ -297,11 +324,9 @@ def hash_layer_specs(cfg: ModelConfig):
 
 
 def check_hash_config(cfg: ModelConfig):
-    """Raise NotImplementedError for hash options the port lacks, ValueError
-    for an unknown impl."""
-    if cfg.hash_frames != 1:
-        raise NotImplementedError(
-            "hash_frames > 1 (multi-AOI frames) is not ported (ROADMAP A5)")
+    """Raise ValueError for an unknown impl or a frame count below 1."""
+    if cfg.hash_frames < 1:
+        raise ValueError(f"hash_frames {cfg.hash_frames} < 1")
     flat_storage(cfg.hash_flat_table, cfg.hash_impl)
 
 
@@ -328,7 +353,7 @@ class HashSPNeRF(nn.Module):
             log2_table_size=cfg.hash_log2T,
             direct_coarse=cfg.hash_direct_coarse,
             flat_table=cfg.hash_flat_table, impl=cfg.hash_impl,
-            generator=generator)
+            frames=cfg.hash_frames, generator=generator)
         specs = hash_layer_specs(cfg)
         self.index = {name: i for i, (name, _, _) in enumerate(specs)}
         self.dense = nn.ModuleList(

@@ -1,15 +1,14 @@
-"""The ray renderer: coarse stratified pass, depth-guided resampling, and the
-solar-correction pass along the sun direction. PyTorch version of the JAX
-package's `ops/render.py`.
+"""The ray renderer: coarse samples (stratified, placed by the occupancy
+grid, or placed by the proposal field), depth-guided resampling, the
+solar-correction pass along the sun direction, and the hierarchical fine
+pass. PyTorch version of the JAX package's `ops/render.py`.
 
 The field is any callable `field_apply(xyz, sun_d, t_emb, sem_labels,
 heads=None) -> dict` over flat (N, ...) point batches: an `SPNeRF` module or
-a `FusedField`.
+a `FusedField`; `proposal_apply(xyz) -> sigma` is the proposal field's.
 
-Not ported yet (they raise NotImplementedError): the fine pass
-(`n_importance > 0`), the proposal sampler, the occupancy grid, and the
-JAX package's opt-in pass layouts SPNERF_BATCH_SC, SPNERF_BATCH_SOLAR and
-SPNERF_NO_MERGE.
+Not ported yet (they raise NotImplementedError): the JAX package's opt-in
+pass layouts SPNERF_BATCH_SC, SPNERF_BATCH_SOLAR and SPNERF_NO_MERGE.
 """
 
 import os
@@ -18,16 +17,14 @@ import torch
 
 from ..config import RenderConfig
 from .compositing import composite
-from .sampling import guided_samples, stratified_z_vals
+from .sampling import guided_samples, sample_pdf, stratified_z_vals
 
 _UNPORTED_ENV = ("SPNERF_BATCH_SC", "SPNERF_BATCH_SOLAR", "SPNERF_NO_MERGE")
 
 
-def check_supported(rc: RenderConfig):
-    """Raise NotImplementedError for render paths this port lacks."""
-    for flag in ("n_importance", "proposal", "occ_grid"):
-        if getattr(rc, flag):
-            raise NotImplementedError(f"render_rays: {flag} is not ported yet")
+def check_supported():
+    """Raise NotImplementedError for the JAX package's opt-in pass layouts
+    (environment switches), which this port lacks."""
     for name in _UNPORTED_ENV:
         if os.environ.get(name) == "1":
             raise NotImplementedError(f"render_rays: {name}=1 is not ported")
@@ -104,27 +101,40 @@ class _Draws:
 
 def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
                 train=False, valid_depth=None, target_depths=None,
-                target_std=None, noise_std=0.0, generator=None, draws=None):
+                target_std=None, noise_std=0.0, generator=None, draws=None,
+                fine_field_apply=None, proposal_apply=None, occ=None):
     """Render a batch of rays.
 
     rays: (R, 11) float32: origin 0:3, unit direction 3:6, near 6, far 7,
     sun direction 8:11. t_emb: (R, T) or None; sems: (R,) int or None.
     train: guided sampling also uses the target depths (valid_depth (R,),
-    target_depths (R, 2), target_std (R,)).
+    target_depths (R, 2), target_std (R,)). fine_field_apply: the fine
+    pass's field (default `field_apply`), used when rc.n_importance > 0;
+    proposal_apply: the proposal field, used when rc.proposal; occ: the
+    occupancy grid, used when rc.occ_grid.
 
-    Randomness, as the JAX renderer's keyed draws: the stratified jitter
-    "strat" (R, S) uniform; the guided pass's "u_pred" and "u_gt" (R, S)
-    uniform; the sigma noise "noise0" (R, S), "noise1" and "sc_noise"
-    (R, 2S) standard normal, scaled by noise_std (drawn only when
-    noise_std != 0). They come from `generator` (a torch.Generator on the
-    rays' device) or from `draws`, a dict of tensors by those names. With
-    neither the render is deterministic, as the JAX renderer with key=None.
+    Randomness, as the JAX renderer's keyed draws, uniform unless said:
+    "strat" (R, S) the stratified jitter, or the occupancy grid's
+    inverse-CDF draws, or (R, n_proposal) the proposal samples' jitter;
+    "prop_pdf" (R, S) the draws that place the main samples by the
+    proposal's weights; the guided pass's "u_pred" and "u_gt" (R, S);
+    "pdf" (R, n_importance) the fine samples' draws; and the standard
+    normal sigma noise "noise0" (R, S), "noise1" and "sc_noise" (R, 2S),
+    "noise_fine" and "sc_noise_fine" (R, S' + n_importance), scaled by
+    noise_std (drawn only when noise_std != 0). They come from `generator`
+    (a torch.Generator on the rays' device) or from `draws`, a dict of
+    tensors by those names. With neither the render is deterministic, as
+    the JAX renderer with key=None.
 
     Returns `_coarse`-suffixed per-ray and per-sample tensors, as the JAX
     renderer does: rgb_coarse (R,3), depth_coarse (R,), weights_coarse,
-    z_vals_coarse, z_vals_unsort_coarse, weights_sc_coarse, sun_sc_coarse...
+    z_vals_coarse, z_vals_unsort_coarse, weights_sc_coarse, sun_sc_coarse,
+    [z_prop_coarse, w_prop_coarse]; and the same `_fine`-suffixed with a
+    fine pass.
     """
-    check_supported(rc)
+    check_supported()
+    if fine_field_apply is None:
+        fine_field_apply = field_apply
     rnd = _Draws(rays.device, generator, draws)
     noisy = noise_std != 0.0
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
@@ -133,8 +143,35 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
     n_rays, n_samples = rays.shape[0], rc.n_samples
     det = rc.perturb == 0.0
 
-    u = rnd.uniform("strat", (n_rays, n_samples)) if rc.perturb > 0 else None
-    z_vals = stratified_z_vals(near, far, n_samples, rc.perturb, u=u)
+    prop_extras = {}
+    if rc.proposal and proposal_apply is not None:
+        # the density-only proposal pass places the main samples
+        from .proposal import density_weights, resample_from_weights
+
+        u = (rnd.uniform("strat", (n_rays, rc.n_proposal))
+             if rc.perturb > 0 else None)
+        z_prop = stratified_z_vals(near, far, rc.n_proposal, rc.perturb, u=u)
+        xyz_prop = rays_o[:, None, :] + rays_d[:, None, :] * z_prop[:, :, None]
+        sigmas_prop = proposal_apply(xyz_prop.reshape(-1, 3)).reshape(
+            z_prop.shape)
+        w_prop = density_weights(sigmas_prop, z_prop)
+        u = None if det else rnd.uniform("prop_pdf", (n_rays, n_samples))
+        z_vals = resample_from_weights(z_prop, w_prop, n_samples, det=det,
+                                       u=u)
+        prop_extras = {"z_prop": z_prop, "w_prop": w_prop}
+    elif rc.occ_grid and occ is not None:
+        # the coarse budget drawn from depth bins weighted by the grid
+        from .occgrid import occ_z_vals
+
+        u = None if det else rnd.uniform("strat", (n_rays, n_samples))
+        z_vals = occ_z_vals(occ, rays_o, rays_d, near, far, n_samples,
+                            rc.occ_res, n_bins=rc.occ_bins,
+                            floor=rc.occ_floor, det=det,
+                            frames=rc.occ_frames, u=u)
+    else:
+        u = (rnd.uniform("strat", (n_rays, n_samples))
+             if rc.perturb > 0 else None)
+        z_vals = stratified_z_vals(near, far, n_samples, rc.perturb, u=u)
     field1 = _eval_field(field_apply, rays_o, rays_d, z_vals, sun_d, t_emb,
                          sems)
     noise = rnd.normal("noise0", z_vals.shape) if noisy else None
@@ -173,4 +210,29 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
         result["transparency_sc"] = sc["transparency"]
         result["sun_sc"] = sc["sun"]
 
-    return {f"{k}_coarse": v for k, v in result.items()}
+    out = {f"{k}_coarse": v for k, v in result.items()}
+    out.update({f"{k}_coarse": v for k, v in prop_extras.items()})
+
+    if rc.n_importance > 0:
+        # the hierarchical fine pass: an inverse CDF of the coarse weights,
+        # merged with the coarse samples, through the fine field
+        z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        u = None if det else rnd.uniform("pdf", (n_rays, rc.n_importance))
+        z_extra = sample_pdf(z_mid, out["weights_coarse"][:, 1:-1],
+                             rc.n_importance, det=det, u=u).detach()
+        z_fine = torch.sort(torch.cat([z_vals, z_extra], dim=-1),
+                            dim=-1).values
+        noise = rnd.normal("noise_fine", z_fine.shape) if noisy else None
+        fine = _inference(fine_field_apply, rays_o, rays_d, z_fine, sun_d,
+                          t_emb, sems, noise_std=noise_std, noise=noise)
+        if rc.solar_correction:
+            noise = (rnd.normal("sc_noise_fine", z_fine.shape) if noisy
+                     else None)
+            sc = _inference(fine_field_apply, rays_o, sun_d, z_fine, sun_d,
+                            t_emb, sems, heads=("sun",), noise_std=noise_std,
+                            noise=noise)
+            fine["weights_sc"] = sc["weights"]
+            fine["transparency_sc"] = sc["transparency"]
+            fine["sun_sc"] = sc["sun"]
+        out.update({f"{k}_fine": v for k, v in fine.items()})
+    return out

@@ -5,7 +5,10 @@ Rays are rendered in chunks of at most `MAX_POINTS // samples_per_ray` rays
 (at least 1024), the last chunk padded by repeating the last ray. The field
 runs through the fused CUDA kernel whenever the configuration is covered and
 the model lies on a CUDA device, as the JAX package uses its fused kernel on
-every accelerator. Lean outputs composite the per-sample sun, albedo, sky
+every accelerator; a configuration with a fine pass or a proposal sampler
+renders through the modules, as the JAX package's does. With the occupancy
+grid the trained grid places the samples (a uniform grid where none is
+given). Lean outputs composite the per-sample sun, albedo, sky
 and beta on the device and drop the per-sample tensors.
 
 The JAX package's machinery for its remote TPU (chunks grouped per dispatch,
@@ -20,6 +23,7 @@ import torch
 from .models.spnerf import as_dtype
 from .ops.field_eval import (FusedField, PlainField, pack_params,
                              uses_fused_kernel)
+from .ops.occgrid import init_grid
 from .ops.render import check_supported, render_rays
 
 EVAL_DROP = ("weights", "transparency", "z_vals", "z_vals_unsort",
@@ -68,33 +72,45 @@ def chunk_size(rc, chunk=40960):
     return max(min(chunk, MAX_POINTS // max(samples_per_ray, 1)), 1024)
 
 
-def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None):
-    """Whole-image renderer over `model` (an `SPNeRF` on its device).
+def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
+                    fine=None, proposal=None):
+    """Whole-image renderer over `model` (an `SPNeRF` on its device), with
+    the fine field `fine` (rc.n_importance > 0) and the proposal field
+    `proposal` (rc.proposal).
 
     field: None evaluates the field through the fused kernel where
     `uses_fused_kernel` says so (CUDA, a covered configuration, bfloat16)
     and through the module at `rc.compute_dtype` elsewhere; "plain" uses
-    the fused field's plain version on any device.
+    the fused field's plain version on any device. A configuration with a
+    fine pass or a proposal sampler renders through the modules either way.
 
-    Returns render_image(rays, t, sems=None) -> dict of lean per-ray
-    tensors on the model's device, one row per ray. rays: (N, 11) array or tensor; t: the
-    image's transient index; sems: (N,) labels or None.
+    Returns render_image(rays, t, sems=None, occ=None) -> dict of lean
+    per-ray tensors on the model's device, one row per ray. rays: (N, 11)
+    array or tensor; t: the image's transient index; sems: (N,) labels or
+    None; occ: the occupancy grid (rc.occ_grid; None: a uniform grid).
     """
-    check_supported(rc)
+    check_supported()
     mc = model.cfg
     device = next(model.parameters()).device
     chunk = chunk_size(rc, chunk)
-    fused = field == "plain" or uses_fused_kernel(device, mc,
-                                                  rc.compute_dtype)
+    modules_only = rc.n_importance > 0 or rc.proposal
+    fused = not modules_only and (
+        field == "plain" or uses_fused_kernel(device, mc, rc.compute_dtype))
 
     @torch.no_grad()
-    def render_image(rays, t, sems=None):
+    def render_image(rays, t, sems=None, occ=None):
         # pack the current weights once per image
         if fused:
             cls = PlainField if field == "plain" else FusedField
             field_apply = cls(pack_params(model), rc.compute_dtype)
         else:
             field_apply = module_at(model, rc.compute_dtype)
+        fine_apply = (None if fine is None
+                      else module_at(fine, rc.compute_dtype))
+        if rc.occ_grid:
+            occ = (init_grid(rc.occ_res, rc.occ_frames, device) if occ is None
+                   else torch.as_tensor(occ, dtype=torch.float32,
+                                        device=device))
         rays = torch.as_tensor(rays, dtype=torch.float32, device=device)
         n = rays.shape[0]
         n_chunks = -(-n // chunk)
@@ -116,7 +132,9 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None):
             sl = slice(c * chunk, (c + 1) * chunk)
             outs.append(lean_eval_outputs(render_rays(
                 field_apply, rc, rays[sl], t_emb=t_emb,
-                sems=sems[sl] if mc.sem else None, train=False)))
+                sems=sems[sl] if mc.sem else None, train=False,
+                fine_field_apply=fine_apply, proposal_apply=proposal,
+                occ=occ)))
         return {k: torch.cat([o[k] for o in outs], dim=0)[:n] for k in outs[0]}
 
     return render_image

@@ -8,8 +8,9 @@ package's `tools.py`.
                   reads the run's opts.json, rebuilds the trainer and the
                   scene, restores --step best|latest|N and runs
                   `run_validation`, which renders through the fused field
-                  kernel (B1) on the card. `python eval_torch.py` can then
-                  score the outputs.
+                  kernel (B1) on the card, placing the samples by the
+                  checkpoint's occupancy grid where the run has one.
+                  `python eval_torch.py` can then score the outputs.
   summarize-runs  one table over training runs: the encoding, the last
                   step, the median logged rays/s and each view's newest
                   validation PSNR/SSIM/MAE (from logs/metrics.jsonl).

@@ -3,9 +3,12 @@
 storage replaced by `torch.save` and `torch.load(weights_only=True)`.
 
 One directory per step, `<ckpts>/<step>/`, as orbax lays them out, holding
-`state.pt` (the step, the field's and the transient embedding's state
-dicts, the optimizer's `state_dict` and its class) and, when metrics were
-given, `metrics.json`. A step is written into a temporary directory and
+`state.pt` (the step, the state dicts of the field, the transient
+embedding, the fine field and the proposal field, the occupancy grid, the
+optimizer's `state_dict` and its class) and, when metrics were given,
+`metrics.json`. A checkpoint written without the fine field, the proposal
+field and the grid (before they were ported) restores into a run without
+them. A step is written into a temporary directory and
 renamed into place, so a directory named by a step is always whole.
 Retention is keep-all; the best step is the one with the highest
 `val_psnr` (the latest of equals, as orbax sorts), among those that carry
@@ -24,6 +27,9 @@ import torch
 
 STATE = "state.pt"
 METRICS = "metrics.json"
+# the TrainState's modules and the flag that makes each
+MODULES = {"model": "the field", "t_embed": "--beta",
+           "fine": "--n_importance", "proposal": "--proposal"}
 
 
 class StepAlreadyExistsError(ValueError):
@@ -75,12 +81,13 @@ class CheckpointManager:
             raise StepAlreadyExistsError(f"checkpoint {path} already exists")
         blob = {
             "step": int(state.step),
-            "model": state.model.state_dict(),
-            "t_embed": (None if state.t_embed is None
-                        else state.t_embed.state_dict()),
             "optimizer": state.optimizer.state_dict(),
             "optimizer_class": type(state.optimizer).__name__,
+            "occ": state.occ,
         }
+        for key in MODULES:
+            module = getattr(state, key)
+            blob[key] = None if module is None else module.state_dict()
         tmp = tempfile.mkdtemp(prefix=f".{int(step)}.", dir=self.dir)
         try:
             torch.save(blob, os.path.join(tmp, STATE))
@@ -110,12 +117,20 @@ class CheckpointManager:
             if saved_cls != cls:
                 raise RuntimeError(f"the checkpoint's optimizer is {saved_cls}"
                                    f", the run's {cls}")
-            if (blob["t_embed"] is None) != (target_state.t_embed is None):
+            for key, flag in MODULES.items():
+                module = getattr(target_state, key)
+                if (blob.get(key) is None) != (module is None):
+                    raise RuntimeError(f"the checkpoint and the run disagree "
+                                       f"on the {key} module ({flag})")
+            if (blob.get("occ") is None) != (target_state.occ is None):
                 raise RuntimeError("the checkpoint and the run disagree on "
-                                   "the transient embedding (--beta)")
-            target_state.model.load_state_dict(blob["model"])
-            if target_state.t_embed is not None:
-                target_state.t_embed.load_state_dict(blob["t_embed"])
+                                   "the occupancy grid (--occgrid)")
+            for key in MODULES:
+                module = getattr(target_state, key)
+                if module is not None:
+                    module.load_state_dict(blob[key])
+            if target_state.occ is not None:
+                target_state.occ.copy_(blob["occ"])
             target_state.optimizer.load_state_dict(blob["optimizer"])
         except (RuntimeError, KeyError, ValueError) as exc:
             raise RuntimeError(

@@ -20,8 +20,13 @@ parameters, the optimizer's moments and the step count. `train_steps(n)`
 takes n steps in a plain loop where the JAX package scans them in one
 program.
 
-Not ported (they raise NotImplementedError): a device mesh, the occupancy
-grid, the proposal sampler and the fine pass (`n_importance > 0`).
+With `n_importance > 0` a second field of the same configuration renders
+the fine pass; with `proposal` a `ProposalField` places the main samples
+and the loss adds `prop_lambda` times the interlevel loss; with `occ_grid`
+the occupancy grid places the coarse samples and, after each optimizer
+step, one slab of it is refreshed from the new coarse parameters.
+
+Not ported (it raises NotImplementedError): a device mesh (ROADMAP A6).
 """
 
 from dataclasses import dataclass
@@ -34,6 +39,9 @@ from torch import nn
 from ..config import LossConfig, ModelConfig, RenderConfig
 from ..device import resolve_device
 from ..models import TransientEmbedding, load_model
+from ..models.proposal import ProposalField
+from ..ops.occgrid import init_grid, slab_rows, update_grid
+from ..ops.proposal import interlevel_loss
 from ..ops.render import check_supported, render_rays
 from . import losses
 
@@ -177,12 +185,31 @@ def scene_to_device_arrays(scene):
 @dataclass
 class TrainState:
     """What a step updates: the step count, the field, the transient
-    embedding (beta path) and the optimizer over both."""
+    embedding (beta path), the optimizer over every module, and the fine
+    field, the proposal field and the occupancy grid where configured."""
 
     step: int
     model: nn.Module
     t_embed: Optional[nn.Module]
     optimizer: torch.optim.Optimizer
+    fine: Optional[nn.Module] = None
+    proposal: Optional[nn.Module] = None
+    occ: Optional[torch.Tensor] = None
+
+    def modules(self):
+        """(prefix, module) of every trained module, in the optimizer's
+        order: the field, the fine field, the transient embedding, the
+        proposal field."""
+        return [(p, m) for p, m in (("", self.model), ("fine.", self.fine),
+                                    ("t_embed.", self.t_embed),
+                                    ("proposal.", self.proposal))
+                if m is not None]
+
+    def named_parameters(self):
+        """(name, parameter) of every trained module, in the optimizer's
+        order, the field's without a prefix."""
+        return [(p + name, param) for p, m in self.modules()
+                for name, param in m.named_parameters()]
 
 
 class Trainer:
@@ -193,10 +220,10 @@ class Trainer:
                  max_steps=30000, ds_drop=0.25, ss_drop=1.0, noise_std=0.0,
                  t_vocab=30, mesh=None, table_wd=0.0,
                  table_level_lr_decay=1.0, weight_decay=0.0, grad_clip=0.0,
-                 device=None):
+                 occ_rows=4096, occ_decay=0.8, device=None):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported (ROADMAP A6)")
-        check_supported(rc)
+        check_supported()
         self.device = resolve_device(device)
         self.mc, self.rc, self.lc = mc, rc, lc
         self.steps_per_epoch = int(steps_per_epoch)
@@ -211,26 +238,42 @@ class Trainer:
         self.opt_options = dict(table_wd=table_wd,
                                 table_level_lr_decay=table_level_lr_decay,
                                 weight_decay=weight_decay, grad_clip=grad_clip)
+        # the grid refreshes `occ_rows` cells a step, snapped down to a
+        # divisor of the cell count so that the slabs tile the grid
+        self.occ_rows = self.occ_decay = None
+        if rc.occ_grid:
+            self.occ_rows = slab_rows(rc.occ_res, occ_rows, rc.occ_frames)
+            self.occ_decay = float(occ_decay)
 
     # ------------------------------------------------------------------ init
     def init_state(self, generator=None) -> TrainState:
-        """A fresh state: the field and transient embedding drawn from
-        `generator` (a CPU torch.Generator), on the trainer's device."""
-        model = load_model(self.mc, self.rc.compute_dtype, device=self.device,
-                           generator=generator)
+        """A fresh state on the trainer's device: the field, the fine
+        field, the transient embedding and the proposal field drawn from
+        `generator` (a CPU torch.Generator) in that order, the JAX
+        package's, and an all-ones occupancy grid."""
+        new_field = lambda: load_model(self.mc, self.rc.compute_dtype,
+                                       device=self.device,
+                                       generator=generator)
+        model = new_field()
+        fine = new_field() if self.rc.n_importance > 0 else None
         t_embed = None
         if self.mc.beta:
             t_embed = TransientEmbedding(self.t_vocab, self.mc.t_embedding_dims,
                                          generator).to(self.device)
-        params = list(model.named_parameters())
-        if t_embed is not None:
-            params += [(f"t_embed.{name}", p)
-                       for name, p in t_embed.named_parameters()]
-        return TrainState(step=0, model=model, t_embed=t_embed,
-                          optimizer=make_optimizer(
-                              params, self.lr_schedule,
-                              n_levels=self.mc.hash_levels,
-                              **self.opt_options))
+        proposal = None
+        if self.rc.proposal:
+            proposal = ProposalField(generator=generator).to(self.device)
+        occ = None
+        if self.rc.occ_grid:
+            occ = init_grid(self.rc.occ_res, self.rc.occ_frames, self.device)
+        state = TrainState(step=0, model=model, t_embed=t_embed,
+                           optimizer=None, fine=fine, proposal=proposal,
+                           occ=occ)
+        state.optimizer = make_optimizer(state.named_parameters(),
+                                         self.lr_schedule,
+                                         n_levels=self.mc.hash_levels,
+                                         **self.opt_options)
+        return state
 
     def to_device(self, data):
         """Scene arrays (numpy or tensors) as tensors on the device."""
@@ -268,19 +311,50 @@ class Trainer:
         t_emb = None
         if state.t_embed is not None:
             t_emb = state.t_embed(batch["ids"])
+        anneal = self.anneal(step)
         results = render_rays(
-            self.field_apply(state.model, self.anneal(step)), self.rc,
+            self.field_apply(state.model, anneal), self.rc,
             batch["rays"], t_emb=t_emb,
             sems=batch["sems"] if self.mc.sem else None, train=True,
             valid_depth=batch["valid_depth"], target_depths=batch["depths"],
             target_std=batch["depth_std"], noise_std=noise_std,
-            generator=generator, draws=draws)
+            generator=generator, draws=draws,
+            fine_field_apply=(None if state.fine is None
+                              else self.field_apply(state.fine, anneal)),
+            proposal_apply=state.proposal, occ=state.occ)
         total, loss_dict = losses.total_loss(
             results, batch, self.lc, step, self.ds_drop_step,
             self.ss_drop_step, use_beta_loss=step >= self.beta_warmup_step)
-        mse = torch.mean((results["rgb_coarse"] - batch["rgbs"]) ** 2)
+        if "w_prop_coarse" in results:
+            prop = self.lc.prop_lambda * interlevel_loss(
+                results["z_prop_coarse"], results["w_prop_coarse"],
+                results["z_vals_coarse"], results["weights_coarse"])
+            total = total + prop
+            loss_dict["coarse_prop"] = prop
+        typ = "fine" if "rgb_fine" in results else "coarse"
+        mse = torch.mean((results[f"rgb_{typ}"] - batch["rgbs"]) ** 2)
         loss_dict["psnr"] = -10.0 * torch.log10(mse)
         return total, loss_dict
+
+    def sigma_fn(self, model, anneal=None):
+        """The field's density at (M, 3) points, as the grid refresh reads
+        it: no sun, no transient embedding, IGNORE labels, `anneal`."""
+        def fn(xyz):
+            m = xyz.shape[0]
+            sem = (torch.full((m,), -100, dtype=torch.long,
+                              device=xyz.device) if self.mc.sem else None)
+            kw = {} if anneal is None else {"anneal": anneal}
+            return model(xyz, torch.zeros_like(xyz), None, sem,
+                         sigma_only=True, **kw)["sigma"]
+        return fn
+
+    def refresh_grid(self, state, step, u):
+        """One slab of the occupancy grid refreshed in place from the
+        current coarse field, under step `step`'s anneal; u: (rows, 3)
+        uniform jitter."""
+        update_grid(state.occ, self.sigma_fn(state.model, self.anneal(step)),
+                    u, step, self.rc.occ_res, self.occ_rows, self.occ_decay,
+                    frames=self.rc.occ_frames)
 
     def step_generator(self, step, seed=0):
         """The generator of step `step` of a run seeded `seed`: its seed is
@@ -308,14 +382,19 @@ class Trainer:
         state.step += 1
 
     def train_step(self, state, data, batch_size=1024, seed=0):
-        """One step on a batch drawn from the device-resident scene `data`.
-        Updates `state` in place; returns the step's loss terms, "loss" and
-        "lr" (tensors on the device, except lr)."""
+        """One step on a batch drawn from the device-resident scene `data`,
+        then the grid refresh with the new parameters, its jitter from the
+        same generator. Updates `state` in place; returns the step's loss
+        terms, "loss" and "lr" (tensors on the device, except lr)."""
         step = state.step
         g = self.step_generator(step, seed)
         batch = self.sample_batch(data, batch_size, g)
         loss, loss_dict = self.loss_fn(state, batch, step, generator=g)
         self.apply_gradients(state, loss)
+        if state.occ is not None:
+            u = torch.rand((self.occ_rows, 3), generator=g,
+                           device=self.device)
+            self.refresh_grid(state, step, u)
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         loss_dict["loss"] = loss.detach()
         loss_dict["lr"] = self.lr_schedule(step)

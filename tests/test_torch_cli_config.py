@@ -9,8 +9,11 @@ package's, exactly (no tolerance: flags, paths and dataclass fields).
   field the port's dataclasses keep; the flagship argv gives
   `flagship_configs()` and `flagship_loss_config()`.
 * `finalize_args` writes opts.json with the resolved values.
-* The flags whose paths the port lacks raise NotImplementedError naming
-  their ROADMAP item; a non-empty --xla_opts raises as XLA-only.
+* The flags of the other render paths and of multi-AOI runs (--proposal,
+  --occgrid, --n_importance, a comma-separated --aoi_id) are taken and
+  reach the configs as the JAX package's take them; --data_axis > 1 (a
+  device mesh) raises NotImplementedError naming its ROADMAP item; a
+  non-empty --xla_opts raises as XLA-only.
 """
 
 import dataclasses
@@ -42,6 +45,12 @@ ARGVS = {
              "--fc_layers", "6", "--n_samples", "32", "--chunk", "2048",
              "--grad_clip", "1.0", "--weight_decay", "1e-4",
              "--use_pallas", "--profile", "--seed", "4"],
+    "occgrid_multi": FLAGSHIP + ["--occgrid", "--occ_res", "32",
+                                 "--occ_bins", "64", "--occ_floor", "0.02",
+                                 "--occ_rows", "1000", "--occ_decay", "0.7",
+                                 "--aoi_id", "JAX_269,JAX_270"],
+    "fine_proposal": ["--n_importance", "16", "--proposal", "--n_proposal",
+                      "32", "--prop_lambda", "0.5"],
 }
 
 
@@ -112,11 +121,23 @@ def test_finalize_args_writes_opts_json(tmp_path):
     (["--data_axis", "2"], "A6"),
 ])
 def test_unported_flags_name_their_roadmap_item(argv, item, tmp_path):
+    """A device mesh (A6) still raises before anything is written; the
+    paths of A5 are ported: their flags are taken and reach the configs."""
     args = config.build_train_parser().parse_args(BASE + argv)
     args.project_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        config.finalize_args(args)
-    assert not (tmp_path / "output").exists()
+    if item == "A6":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            config.finalize_args(args)
+        assert not (tmp_path / "output").exists()
+        return
+    config.finalize_args(args)
+    assert (tmp_path / "output").exists()
+    mc = config.model_config_from_args(args)
+    rc = config.render_config_from_args(args)
+    got = {"--proposal": rc.proposal, "--occgrid": rc.occ_grid,
+           "--n_importance": rc.n_importance == 32,
+           "--aoi_id": mc.hash_frames == rc.occ_frames == 2}
+    assert got[argv[0]] and sum(got.values()) == 1
 
 
 def test_xla_opts_is_refused_as_xla_only():

@@ -15,7 +15,10 @@ cells equal, values within 1e-4 m (float atomics); `run_validation` on a
 small synthetic AOI renders through B1 and gives a finite MAE, and its test
 view through B1 agrees with the plain render (per-ray p99 within 2e-2).
 The training CLI's `main` on a small AOI validates through B1, and its
-checkpoint restores on the card bit for bit.
+checkpoint restores on the card bit for bit; with --occgrid too, the grid
+included. B1 on grid-placed samples and on a second multi-AOI frame's
+points, and B2 at the proposal field's shapes (F = 2, T = 2^16), at the
+same bars.
 """
 
 import itertools
@@ -638,4 +641,123 @@ def test_training_cli_on_the_card(device, tmp_path):
     for i in saved:
         for k in ("exp_avg", "exp_avg_sq"):
             assert restored[i][k].device.type == "cuda"
+            assert torch.equal(saved[i][k], restored[i][k]), (i, k)
+
+
+@pytest.mark.cuda
+def test_kernel_on_grid_placed_and_second_frame_points(device):
+    """B1 where the occupancy grid places the samples (the render against
+    the plain render, per-ray p99 within 2e-2) and on points of a
+    multi-AOI run's second frame (x near 3 * 1 + [-1, 1]: the positional
+    mapping sees x up to 4), every head subset within ATOL."""
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=128)
+    rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
+                      sem=True, compute_dtype="bfloat16", occ_grid=True,
+                      occ_res=16)
+    model, p = packed_field(cfg, device)
+    g = np.random.default_rng(4)
+    occ = torch.from_numpy(g.uniform(0, 20, 16 ** 3).astype(np.float32)
+                           * (g.uniform(size=16 ** 3) < 0.2)).to(device)
+    batch = fake_batch(np.random.default_rng(0), 3000)
+    fe.FusedField.launches = 0
+    out = build_render_fn(model, rc, chunk=1024)(batch["rays"], 0,
+                                                 batch["sems"], occ=occ)
+    torch.cuda.synchronize()
+    assert fe.FusedField.launches == 3 * -(-3000 // chunk_size(rc, 1024))
+    ref = build_render_fn(model, rc, chunk=1024, field="plain")(
+        batch["rays"], 0, batch["sems"], occ=occ)
+    uniform = build_render_fn(model, rc, chunk=1024, field="plain")(
+        batch["rays"], 0, batch["sems"])
+    assert (uniform["depth_coarse"] - ref["depth_coarse"]).abs().max() > 1e-2
+    for k in ref:
+        err = (out[k] - ref[k]).abs()
+        assert torch.isfinite(out[k]).all(), k
+        assert torch.quantile(err.flatten().float(), 0.99) <= 2e-2, k
+    xyz, sun, t_emb, sems = field_inputs(70_001, cfg, device, seed=2)
+    xyz = xyz + torch.tensor([3.0, 0.0, 0.0], device=device)
+    for heads in (None, ("sun",), ("rgb", "sky", "sem")):
+        hold_kernel(p, (xyz, sun, t_emb, sems), heads)
+
+
+@pytest.mark.cuda
+def test_proposal_table_gradient_on_b2(device):
+    """The proposal field's table gradient (F = 2, T = 2^16; t_eff 8,192,
+    32,768 and 65,536) routes to B2 at a step's row counts and agrees with
+    the plain version; a proposal train step launches B2 once a level."""
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.train.loop import Trainer
+    from spnerf_torch.config import LossConfig
+
+    g = np.random.default_rng(1)
+    M = 1024 * 64 * 8
+    for t_eff in (8192, 32768, 65536):
+        assert dt.route(t_eff, 2, M) == "dense"
+        ids = torch.from_numpy(g.integers(0, t_eff, M)).to(device)
+        ct = torch.from_numpy(g.normal(size=(2, M)).astype(np.float32)).to(
+            device)
+        out = dt.dtab(ids, ct, t_eff, 2)
+        ref = dt.dtab_plain(ids, ct, t_eff)
+        assert out.shape == (2, t_eff)
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=64)
+    rc = RenderConfig(n_samples=16, solar_correction=True, sem=True,
+                      compute_dtype="bfloat16", proposal=True)
+    tr = Trainer(cfg, rc, LossConfig(sc_lambda=0.1, sem=True), device=device)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    data = tr.to_device(fake_batch(np.random.default_rng(2), 4096))
+    for k in dt.launches:
+        dt.launches[k] = 0
+    ld = tr.train_step(state, data, batch_size=256)
+    torch.cuda.synchronize()
+    assert dt.launches["dtab_dense"] == 8 and np.isfinite(ld["loss"].item())
+    assert sum(dt.launches.values()) == 8
+
+
+@pytest.mark.cuda
+def test_occgrid_cli_on_the_card(device, tmp_path):
+    """`main --occgrid` on a small AOI: its validation renders through B1
+    with the trained grid, and the checkpoint gives the grid back on the
+    card bit for bit, with the field and the Adam state."""
+    from spnerf_torch.cli.train import main
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     loss_config_from_args,
+                                     model_config_from_args,
+                                     render_config_from_args)
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.train.loop import Trainer
+    from spnerf_torch.utils.synth_scene import write_synthetic_aoi
+
+    write_synthetic_aoi(str(tmp_path / "dataset" / "DFC2019_269"), width=48,
+                        height=44, roi_size=28, seed=6)
+    argv = ["--aoi_id", "JAX_269", "--model", "sp-nerf", "--exp_name", "o",
+            "--no_timestamp_exp_name", "--project_dir", str(tmp_path),
+            "--mapping", "--guidedsample", "--sem", "--num_sem_classes", "3",
+            "--sc_lambda", "0.1", "--ss_lambda", "1.0", "--fc_units", "64",
+            "--n_samples", "8", "--occgrid", "--occ_res", "16",
+            "--occ_rows", "512", "--chunk", "1024", "--batch_size", "256",
+            "--log_every", "2", "--max_train_steps", "4",
+            "--device", str(device)]
+    fe.FusedField.launches = 0
+    state = main(argv)
+    assert state.occ.device.type == "cuda"
+    assert (state.occ != 1.0).sum().item() > 0  # four slabs refreshed
+    args = finalize_args(build_train_parser().parse_args(argv),
+                         make_dirs=False)
+    rc = render_config_from_args(args)
+    chunks = -(-48 * 44 // chunk_size(rc, 1024))
+    assert fe.FusedField.launches == 3 * chunks * 2
+    tr = Trainer(model_config_from_args(args), rc,
+                 loss_config_from_args(args), occ_rows=512, device=device)
+    fresh = tr.init_state(torch.Generator().manual_seed(1))
+    mgr = CheckpointManager(tmp_path / "output" / "o" / "ckpts")
+    assert mgr.restore(fresh) is fresh and fresh.step == 4
+    assert fresh.occ.device.type == "cuda"
+    assert torch.equal(fresh.occ, state.occ)
+    for (k, a), b in zip(state.model.state_dict().items(),
+                         fresh.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    saved = state.optimizer.state_dict()["state"]
+    restored = fresh.optimizer.state_dict()["state"]
+    for i in saved:
+        for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(saved[i][k], restored[i][k]), (i, k)

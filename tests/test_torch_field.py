@@ -150,10 +150,15 @@ def test_init_is_seeded_and_bounded():
 
 
 def test_hash_encoding_not_ported():
-    """The hash family is ported with both table layouts; its multi-AOI
-    frames are not, and raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        load_model(ModelConfig(encoding="hash", hash_log2T=10, hash_frames=2),
+    """The hash family is ported with both table layouts and with its
+    multi-AOI frames (held against the JAX package in
+    tests/test_torch_multi.py); a frame count below 1 is refused."""
+    model = load_model(ModelConfig(encoding="hash", hash_log2T=10,
+                                   hash_frames=2), device="cpu")
+    assert model.encoding.frames == 2
+    assert model.encoding.table.shape == (8, 2 ** 10 * 4)
+    with pytest.raises(ValueError, match="hash_frames"):
+        load_model(ModelConfig(encoding="hash", hash_log2T=10, hash_frames=0),
                    device="cpu")
     model = load_model(ModelConfig(encoding="hash", hash_log2T=10,
                                    hash_flat_table=False), device="cpu")

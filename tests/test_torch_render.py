@@ -110,15 +110,33 @@ def test_render_image_matches_trainer(dtype, field, monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
+    """The JAX package's opt-in pass layouts raise; the fine pass, the
+    proposal sampler and the occupancy grid render (each held against the
+    JAX package in tests/test_torch_paths.py, test_torch_proposal.py and
+    test_torch_occgrid.py)."""
+    from spnerf_torch.models import ProposalField
+    from spnerf_torch.ops.occgrid import init_grid
+
     model = SPNeRF(ModelConfig(**MC))
-    rays = torch.from_numpy(fake_batch(np.random.default_rng(0), 4)["rays"])
-    for kw in (dict(n_importance=4), dict(proposal=True),
-               dict(occ_grid=True)):
-        with pytest.raises(NotImplementedError):
-            render_rays(model, RenderConfig(**RC, **kw), rays)
-    monkeypatch.setenv("SPNERF_BATCH_SOLAR", "1")
-    with pytest.raises(NotImplementedError):
-        render_rays(model, RenderConfig(**RC), rays)
+    batch = fake_batch(np.random.default_rng(0), 4)
+    rays, sems = torch.from_numpy(batch["rays"]), torch.from_numpy(
+        batch["sems"])
+    with torch.no_grad():
+        for kw, extra, key in (
+                (dict(n_importance=4), dict(fine_field_apply=model),
+                 "rgb_fine"),
+                (dict(proposal=True, n_proposal=8),
+                 dict(proposal_apply=ProposalField()), "w_prop_coarse"),
+                (dict(occ_grid=True, occ_res=4), dict(occ=init_grid(4)),
+                 "rgb_coarse")):
+            out = render_rays(model, RenderConfig(**RC, **kw), rays,
+                              sems=sems, **extra)
+            assert torch.isfinite(out[key]).all(), key
+    for name in ("SPNERF_BATCH_SOLAR", "SPNERF_BATCH_SC", "SPNERF_NO_MERGE"):
+        with monkeypatch.context() as m:
+            m.setenv(name, "1")
+            with pytest.raises(NotImplementedError, match=name):
+                render_rays(model, RenderConfig(**RC), rays)
 
 
 def test_render_image_pads_and_chunks():

@@ -278,11 +278,20 @@ def test_anneal_schedule_matches_jax():
 
 
 def test_trainer_refuses_unported_options():
+    """A device mesh (ROADMAP A6) is refused; the occupancy grid, the
+    proposal sampler and the fine pass build their state and step (each
+    step is held against the JAX package in tests/test_torch_paths.py)."""
     mc, rc, lc = (ModelConfig(**MC["hash"]), RenderConfig(**RC),
                   LossConfig(**LC))
     with pytest.raises(NotImplementedError):
         Trainer(mc, rc, lc, device="cpu", mesh=object())
-    for rkw in (dict(occ_grid=True), dict(proposal=True),
-                dict(n_importance=8)):
-        with pytest.raises(NotImplementedError):
-            Trainer(mc, dataclasses.replace(rc, **rkw), lc, device="cpu")
+    data = {k: torch.from_numpy(v)
+            for k, v in fake_batch(np.random.default_rng(0), 128).items()}
+    for rkw, part in ((dict(occ_grid=True, occ_res=8), "occ"),
+                      (dict(proposal=True, n_proposal=8), "proposal"),
+                      (dict(n_importance=8), "fine")):
+        tr = Trainer(mc, dataclasses.replace(rc, **rkw), lc, device="cpu")
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        assert getattr(state, part) is not None
+        ld = tr.train_step(state, data, batch_size=16)
+        assert state.step == 1 and np.isfinite(ld["loss"].item())

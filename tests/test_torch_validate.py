@@ -35,7 +35,7 @@ from spnerf_tpu.evaluation.dsm import dsm_from_latlonalt as jax_dsm
 from spnerf_tpu.evaluation.mae import compute_mae_and_save_dsm_diff as jax_mae
 from spnerf_tpu.train.loop import Trainer as JaxTrainer
 from spnerf_tpu.utils.logging import MetricLogger as JaxMetricLogger
-from spnerf_torch.cli.train import (_val_labels, _val_metrics,
+from spnerf_torch.cli.train import (_aoi_dirs, _val_labels, _val_metrics,
                                     predefined_val_ts, run_validation)
 from spnerf_torch.config import LossConfig, ModelConfig, RenderConfig
 from spnerf_torch.convert import field_state_dict
@@ -175,9 +175,33 @@ def test_val_helpers():
     assert _val_labels(items) == ["i0.f0", "i1", "i0.f1"]
 
 
-def test_multi_aoi_validation_refuses(run):
-    args = argparse.Namespace(**{**vars(run["port"]["args"]),
-                                 "aoi_id": f"{AOI},{AOI}"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        run_validation(run["ttr"], run["port"]["scene"], run["state"], args,
-                       1, None, False)
+def test_multi_aoi_validation_refuses(run, tmp_path):
+    """Multi-AOI validation is ported: the AOI twice side by side (the JAX
+    package's `--aoi_id JAX_269,JAX_269` recipe), each view logged under
+    its frame's label and scored against the AOI's own truth; frame 0's
+    rays are the single-AOI scene's, so its views give that run's metrics.
+    (The two packages' multi-AOI validation: tests/test_torch_multi.py.)"""
+    from spnerf_torch.data import load_scenes
+
+    os.symlink(os.path.dirname(run["port"]["args"].gt_dir),
+               tmp_path / AOI)
+    args = argparse.Namespace(**{
+        **vars(run["port"]["args"]), "aoi_id": f"{AOI},{AOI}",
+        "project_dir": str(tmp_path), "dataset_dir": str(tmp_path / "{aoi}"),
+        "logs_dir": str(tmp_path / "logs")})
+    scene = load_scenes([AOI, AOI], lambda a: _aoi_dirs(args, a), sem=True,
+                        num_sem_classes=3, verbose=False)
+    log = MetricLogger(args.logs_dir, tensorboard=False)
+    mean = run_validation(run["ttr"], scene, run["state"], args, 1, log,
+                          False)
+    log.close()
+    got = rows(args)
+    assert [r["split"] for r in got] == [
+        f"train_{AOI}_000_RGB.f0", f"val_{AOI}_003_RGB.f0",
+        f"val_{AOI}_000_RGB.f1", f"val_{AOI}_003_RGB.f1", "val"]
+    single = rows(run["port"]["args"])
+    for a, b in zip(got[:2], single[:2]):
+        for k in ("psnr", "ssim", "mae"):
+            assert abs(a[k] - b[k]) <= 1e-6, (a["split"], k)
+    assert all(np.isfinite(r["mae"]) for r in got)
+    assert set(mean) == {"psnr", "ssim", "mae", "miou", "oa"}
