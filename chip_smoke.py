@@ -152,11 +152,45 @@ Phases, each fatal on failure:
      B2 call of one step held against the plain version. Each run's
      seconds, launches and validation metrics go on one `{"paths": ...}`
      line;
+ 15. data parallelism over ranks and the four pass layouts: (a) a mesh of
+     one rank (NCCL) against no mesh, 3 flagship and 3 hash steps with
+     deterministic algorithms on (the hash table's gradient through its
+     plain version: B2's float atomics do not repeat their last bits), the
+     no-mesh run made twice: the mesh run equals it bit for bit where it
+     repeats itself, else stays within twice its repeat spread; (b) two
+     ranks sharing the card (Gloo on CUDA tensors, spawned processes), 5
+     full-width hash steps (512 rays a rank) and 5 flagship steps: the
+     ranks' parameters and optimizer state equal bit for bit, 24 table
+     gradients a step a rank (the router's B2/B3 split at the halved
+     batch printed), every B2/B3 call of rank 0's first step held on its
+     own inputs (phase 6's tolerances), step 0's averaged table gradient
+     within phase 7's bar of the mean of the two ranks' gradients
+     recomputed here through the plain version, the step and all-reduce
+     ms and bytes of each rank printed; (c) the training CLI over two
+     ranks as `torchrun --nproc_per_node 2 main_torch.py --data_axis 2`
+     starts it (env:// on localhost) on phase 12's AOI, flagship, 10
+     steps: each rank launches B1 666 times (2 views x 111 chunks of
+     5,858 rays, 2,929 a rank, x 3), rank 0 alone writes, the test view
+     rendered over the two ranks equals the 1-rank render of the same
+     checkpoint (RENDER_P99/RENDER_MAX) and B1 is held on each rank's
+     share of its first chunk, the logged MAE equals a 1-rank
+     `run_validation` of the checkpoint within 1e-4 m, and a resume with
+     --data_axis 1 trains to 15; (d) phase 4's view under each of
+     SPNERF_BATCH_SC, SPNERF_BATCH_SOLAR, SPNERF_NO_MERGE and
+     SPNERF_NO_PRUNE: B1 launches 24, 36, 36 and 36, each launch of the
+     first chunk held at KERNEL_ATOL, the view against the default
+     layout's at RENDER_P99/RENDER_MAX; the hash step under BATCH_SOLAR and
+     BATCH_SC: 16 table gradients (2 passes x 8 levels), each held, the
+     loss and table gradient against the default layout's (phase 7's
+     bars). Times of two ranks on one card are printed as such;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
-  `launches_proposal` and their `max_abs_err_*`). The env of phases 10 and
-  11 is set around its phase only and restored after.
+  `launches_proposal` and their `max_abs_err_*`; phase 15's under
+  `launches_dp`, `launches_batch_sc`, `launches_batch_solar`,
+  `launches_no_merge`, `launches_no_prune` and their `max_abs_err_*`).
+  The env of phases 10, 11 and 15 (d) is set around its use only and
+  restored after.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -1086,6 +1120,597 @@ def paths_pass(device, card, project, hold_hash, hold_proposal,
     return rec
 
 
+# ---------------------------------------------------------------- phase 15
+# data parallelism over ranks and the four opt-in pass layouts
+DP_WORLD = 2
+DP_STEPS = 5
+DP_TIMEOUT_S = 600  # per collective, and per group of rank processes
+DP_EXP = "dp2"
+SWITCHES = ("SPNERF_BATCH_SC", "SPNERF_BATCH_SOLAR", "SPNERF_NO_MERGE",
+            "SPNERF_NO_PRUNE")
+
+
+def hold_dtab_calls(calls, tag):
+    """Each recorded table-gradient call (ids, ct, t_eff, fmajor) on the
+    kernel the router picks for it, against the plain version at
+    DTAB_RTOL (phase 6's); {route: [{t_eff, M, err, rel}]}."""
+    from spnerf_torch.ops import dtab as dt
+
+    kernels = {"dense": dt.dtab_dense, "sorted": dt.dtab_sorted,
+               "partials": dt.dtab_sorted_partials}
+    out = {}
+    for ids, ct, t_eff, fmajor in calls:
+        n_feat = ct.shape[0] if fmajor else ct.shape[1]
+        name = dt.route(t_eff, n_feat, ids.shape[0])
+        got = kernels[name](ids, ct, t_eff, fmajor)
+        err, rel = rel_check(got, dt.dtab_plain(ids, ct, t_eff, fmajor),
+                             f"{tag}: dtab_{name} t_eff={t_eff} "
+                             f"M={ids.shape[0]}")
+        out.setdefault(name, []).append(
+            {"t_eff": t_eff, "M": ids.shape[0], "err": err, "rel": rel})
+    return out
+
+
+@contextlib.contextmanager
+def recording_dtab(calls):
+    """The hash field's table-gradient router, wrapped to record the inputs
+    of every call (ids, ct, t_eff, fmajor) and pass them on."""
+    from spnerf_torch.models import hashgrid as hg
+
+    real = hg.dtab
+
+    def recording(ids, ct, t_eff, F, impl=None, fmajor=True, sw_acc=None):
+        calls.append((ids, ct.contiguous(), t_eff, fmajor))
+        return real(ids, ct, t_eff, F, impl=impl, fmajor=fmajor,
+                    sw_acc=sw_acc)
+
+    hg.dtab = recording
+    try:
+        yield calls
+    finally:
+        hg.dtab = real
+
+
+def hold_b1_launches(run, tag):
+    """B1 against its plain version on the field inputs of every launch
+    that `run()` makes, within KERNEL_ATOL; their max abs errors."""
+    from spnerf_torch.ops import field_eval as fe
+
+    seen = []
+    real = fe.FusedField.__call__
+
+    def recording(self, xyz, sun_d, t_emb=None, sem_labels=None, heads=None):
+        seen.append((self.packed, xyz, sun_d, t_emb, sem_labels, heads))
+        return real(self, xyz, sun_d, t_emb, sem_labels, heads=heads)
+
+    fe.FusedField.__call__ = recording
+    try:
+        run()
+    finally:
+        fe.FusedField.__call__ = real
+    if not seen:
+        fail(f"{tag}: no B1 launch")
+    errs = []
+    for packed, xyz, sun, t_emb, sem, heads in seen:
+        out = fe.FusedField(packed)(xyz, sun, t_emb, sem, heads=heads)
+        ref = fe.PlainField(packed)(xyz, sun, t_emb, sem, heads=heads)
+        errs.append(max((out[k] - ref[k]).abs().max().item() for k in ref))
+        if not errs[-1] <= KERNEL_ATOL:
+            fail(f"{tag}: B1 launch on {xyz.shape[0]} points, heads {heads}:"
+                 f" max abs err {errs[-1]} > {KERNEL_ATOL}")
+    return {"launches_held": len(errs), "points": [s[1].shape[0] for s in seen],
+            "max_abs_err": max(errs)}
+
+
+def table_snapshot(state):
+    """Every parameter and optimizer tensor of `state`, on the host."""
+    out = {f"p.{k}": v.detach().cpu().clone()
+           for k, v in state.model.named_parameters()}
+    for i, st in enumerate(state.optimizer.state.values()):
+        out.update({f"o.{i}.{k}": v.detach().cpu().clone()
+                    for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def _rank_env(rank, world):
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+
+
+def _dp_rank(rank, world, init, out_dir):
+    """Phase 15 (b), one rank sharing the card with the others (Gloo on
+    CUDA tensors): DP_STEPS full-width hash steps and DP_STEPS flagship
+    steps over the mesh; writes its record, its final states and (rank 0)
+    step 0's averaged table gradient and the holds of its B2/B3 calls."""
+    _rank_env(rank, world)
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.parallel import data_mesh
+    from spnerf_torch.parallel.mesh import DataMesh
+    from spnerf_torch.utils.synth import train_setup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = data_mesh(world, "cuda", init_method=init, timeout_s=DP_TIMEOUT_S)
+    spans = []
+    real = DataMesh.all_reduce_
+
+    def timed(self, t, mean=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, t, mean)
+        torch.cuda.synchronize()
+        spans.append(((time.perf_counter() - t0) * 1e3,
+                      t.numel() * t.element_size()))
+        return out
+
+    DataMesh.all_reduce_ = timed
+    rec = {"rank": rank, "backend": mesh.backend, "device": str(mesh.device)}
+    try:
+        for family in ("hash", "siren"):
+            tr, data = train_setup(family, device=mesh.device, mesh=mesh)
+            state = tr.replicate_state(tr.init_state(
+                torch.Generator().manual_seed(0)))
+            for k in dt.launches:
+                dt.launches[k] = 0
+            spans.clear()
+            calls, step_ms = [], []
+            for step in range(DP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if step == 0 and family == "hash":
+                    with recording_dtab(calls):
+                        ld = tr.train_step(state, data, BATCH, seed=1)
+                    grad0 = state.model.encoding.table.grad.detach().clone()
+                else:
+                    ld = tr.train_step(state, data, BATCH, seed=1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.isfinite(ld["loss"].item()):
+                    fail(f"rank {rank} {family} step {step}: loss "
+                         f"{ld['loss'].item()}")
+            launches = dict(dt.launches)
+            grads = [s for s in spans if s[1] > 4 * 64]  # not the loss terms
+            r = {"step_ms_runs": step_ms, "loss": ld["loss"].item(),
+                 "launches": launches,
+                 "launches_per_step": {k: v / DP_STEPS
+                                       for k, v in launches.items()},
+                 "all_reduce_ms_runs": [s[0] for s in grads],
+                 "all_reduce_bytes": grads[0][1] if grads else None,
+                 "local_batch": BATCH // world,
+                 "shard_rays": int(data["rays"].shape[0])}
+            torch.save(table_snapshot(state),
+                       os.path.join(out_dir, f"{family}.{rank}.pt"))
+            if family == "hash":
+                r["table_calls"] = len(calls)
+                if rank == 0:
+                    torch.save(grad0.cpu(), os.path.join(out_dir, "grad0.pt"))
+                    r["held"] = hold_dtab_calls(calls, f"rank 0 {family}")
+                del calls, grad0
+            rec[family] = r
+            del tr, data, state
+            torch.cuda.empty_cache()
+        torch.save(rec, os.path.join(out_dir, f"rec.{rank}.pt"))
+    finally:
+        DataMesh.all_reduce_ = real
+        mesh.close()
+
+
+def _cli_rank(rank, world, port, argv, out_dir):
+    """Phase 15 (c), one rank of `main_torch.py --data_axis 2` as
+    `torchrun --nproc_per_node 2` starts it (the launcher's variables, an
+    env:// group on localhost): the run with its kernel launches counted,
+    then the test view rendered over the mesh from the final state with
+    B1 held on its first chunk's launches."""
+    _rank_env(rank, world)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.config import build_train_parser, finalize_args
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.parallel import data_mesh
+    from spnerf_torch.render import build_render_fn, chunk_size
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = data_mesh(world, "cuda", timeout_s=DP_TIMEOUT_S)
+    try:
+        for k in dt.launches:
+            dt.launches[k] = 0
+        fe.FusedField.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = cli_train.main(argv)
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0, "b1": fe.FusedField.launches,
+               "b2": dt.launches["dtab_dense"],
+               "b3": dt.launches["dtab_sorted"], "backend": mesh.backend}
+        args = finalize_args(build_train_parser().parse_args(argv),
+                             make_dirs=False)
+        tr, scene, _ = cli_train.build_trainer_and_scene(args, mesh.device,
+                                                         mesh)
+        sample = scene.load_val_image(scene.val_images[-1], with_sem=True)
+        render = build_render_fn(state.model, tr.rc, state.t_embed,
+                                 chunk=args.chunk, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render(sample["rays"], 0, sample["sems"])
+        torch.cuda.synchronize()
+        rec["view_ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in out.items()},
+                       os.path.join(out_dir, "view.pt"))
+        # B1 on this rank's share of the view's first chunk
+        first = slice(0, chunk_size(tr.rc, args.chunk) // world * world)
+        rec["held"] = hold_b1_launches(lambda: build_render_fn(
+            state.model, tr.rc, state.t_embed, chunk=args.chunk, mesh=mesh)(
+            sample["rays"][first], 0, sample["sems"][first]),
+            f"rank {rank} test view, first chunk")
+        torch.save(rec, os.path.join(out_dir, f"cli.{rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def run_ranks(target, world, args, tag):
+    """`target(rank, world, *args)` in `world` spawned processes; fails
+    when one fails or outlasts DP_TIMEOUT_S (the others are killed)."""
+    import multiprocessing as mproc
+
+    ctx = mproc.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world) + tuple(args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        fail(f"{tag}: rank exit codes {codes}")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_pass(device, card, project, n_view=813 * 793):
+    """Phase 15: (a) a 1-rank NCCL mesh against no mesh; (b) two ranks
+    sharing the card, the full-width hash and flagship steps; (c) the CLI
+    over two ranks on phase 12's AOI, its test view and MAE against one
+    rank, a resume with --data_axis 1; (d) the four pass layouts on phase
+    4's view and on the hash step. Returns the record it prints."""
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     render_config_from_args)
+    from spnerf_torch.models import load_model
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.parallel import DataMesh, data_mesh
+    from spnerf_torch.render import build_render_fn, chunk_size
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.utils.logging import MetricLogger
+    from spnerf_torch.utils.synth import (fake_batch, flagship_configs,
+                                          train_setup)
+
+    import argparse
+
+    rec = {"card": card}
+
+    def params_of(state):
+        return {k: p.detach().clone() for k, p in
+                state.model.named_parameters()}
+
+    def max_diff(a, b):
+        return max((a[k] - b[k]).abs().max().item() for k in a)
+
+    # (a) a mesh of one rank (NCCL) against no mesh: 3 steps each of the
+    #     flagship and the hash step, deterministic algorithms on and the
+    #     hash table's gradient through its plain version (B2's float
+    #     atomics do not repeat their last bits; B2 and B3 are held on the
+    #     mesh's inputs in (b)); the no-mesh run twice, to show it repeats
+    #     itself: then the mesh run must equal it bit for bit, else stay
+    #     within twice its repeat spread
+    mesh = data_mesh(1, "cuda", timeout_s=DP_TIMEOUT_S)
+    rec["one_rank"] = {"backend": mesh.backend}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for family in ("siren", "hash"):
+            runs = []
+            for m in (None, None, mesh):
+                tr, data = train_setup(family, device=device, mesh=m)
+                state = tr.replicate_state(tr.init_state(
+                    torch.Generator().manual_seed(0)))
+                if family == "hash":
+                    state.model.encoding.dtab_impl = "plain"
+                losses = [tr.train_step(state, data, BATCH, seed=1)["loss"]
+                          .item() for _ in range(3)]
+                runs.append((losses, params_of(state)))
+                del tr, data, state
+            (la, pa), (la2, pa2), (lb, pb) = runs
+            spread, diff = max_diff(pa, pa2), max_diff(pa, pb)
+            r = {"losses_no_mesh": la, "losses_mesh": lb,
+                 "losses_no_mesh_again": la2,
+                 "param_max_diff_mesh": diff,
+                 "param_max_diff_repeat": spread}
+            rec["one_rank"][family] = r
+            log(f"(a) {family}, 1-rank {mesh.backend} mesh vs no mesh: "
+                + json.dumps(r))
+            if la[0] != lb[0]:
+                fail(f"(a) {family}: step 0's loss {lb[0]} != {la[0]}")
+            if spread == 0.0 and (la != lb or diff != 0.0):
+                fail(f"(a) {family}: the 1-rank mesh differs from no mesh")
+            if spread > 0.0 and not diff <= 2 * spread:
+                fail(f"(a) {family}: mesh vs no mesh {diff} beyond twice "
+                     f"the no-mesh repeat spread {spread}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        mesh.close()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks sharing the card (Gloo on CUDA tensors)
+    with tempfile.TemporaryDirectory(dir=project) as tmp:
+        t0 = time.time()
+        run_ranks(_dp_rank, DP_WORLD,
+                  ("file://" + os.path.join(tmp, "store"), tmp), "(b)")
+        ranks = [torch.load(os.path.join(tmp, f"rec.{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+        dp = {"s": time.time() - t0, "card": card, "ranks": ranks}
+        for family in ("hash", "siren"):
+            snaps = [torch.load(os.path.join(tmp, f"{family}.{r}.pt"))
+                     for r in range(DP_WORLD)]
+            for k, v in snaps[0].items():
+                if not torch.equal(v, snaps[1][k]):
+                    fail(f"(b) {family}: the ranks' {k} differ")
+            for r in ranks:
+                per = r[family]["launches_per_step"]
+                if family == "hash" and (per["dtab_dense"]
+                                         + per["dtab_sorted"] != 24
+                                         or r["hash"]["table_calls"] != 24):
+                    fail(f"(b) rank {r['rank']}: table gradients a step "
+                         f"{per}, step 0 {r['hash']['table_calls']}")
+        # step 0's averaged table gradient against the two ranks' own,
+        # recomputed in this process through the plain table gradient
+        grad0 = torch.load(os.path.join(tmp, "grad0.pt")).to(device)
+        mean = torch.zeros_like(grad0)
+        for rank in range(DP_WORLD):
+            fake = DataMesh(rank=rank, world=DP_WORLD, group=None,
+                            backend="gloo", device=device)
+            tr, data = train_setup("hash", device=device, mesh=fake)
+            state = tr.init_state(torch.Generator().manual_seed(0))
+            g = tr.step_generator(0, seed=1, rank=rank)
+            batch = tr.sample_batch(data, BATCH // DP_WORLD, g)
+            state.model.encoding.dtab_impl = "plain"
+            loss, _ = tr.loss_fn(state, batch, 0, generator=g)
+            loss.backward()
+            mean += state.model.encoding.table.grad / DP_WORLD
+            del tr, data, state, batch, loss
+        gerr = ((grad0 - mean).abs().max() / mean.abs().max()).item()
+        dp["grad0_rel_err"] = gerr
+        log(f"(b) step 0's averaged table gradient vs the mean of the ranks' "
+            f"plain gradients: max abs err / max {gerr:.3g}")
+        if not gerr <= STEP_GRAD_RTOL:
+            fail(f"(b) averaged table gradient off by {gerr}")
+        del grad0, mean
+    held = ranks[0]["hash"]["held"]
+    dp["held"] = {n: {"calls": len(v), "max_abs_err": max(x["err"] for x in v),
+                      "max_rel_err": max(x["rel"] for x in v),
+                      "t_eff": sorted({x["t_eff"] for x in v}),
+                      "M": sorted({x["M"] for x in v})}
+                  for n, v in held.items()}
+    for r in ranks:
+        for family in ("hash", "siren"):
+            x = r[family]
+            log(f"(b) rank {r['rank']} ({r['backend']}, {r['device']}) "
+                f"{family}: {DP_STEPS} steps at {x['local_batch']} rays a "
+                f"rank, step ms {[round(v, 1) for v in x['step_ms_runs']]}, "
+                f"launches a step {x['launches_per_step']}, all-reduce "
+                f"{x['all_reduce_bytes']} bytes a step in "
+                f"{[round(v, 2) for v in x['all_reduce_ms_runs']]} ms ({card}"
+                f"; two ranks sharing one card)")
+    log(f"(b) rank 0's B2/B3 calls of step 0 on their own inputs: "
+        f"{json.dumps(dp['held'])}")
+    rec["dp"] = dp
+    torch.cuda.empty_cache()
+
+    # (c) the CLI over two ranks, on phase 12's AOI with the flagship's
+    #     ray cache
+    base = CLI_FLAGS + ["--project_dir", project, "--exp_name", DP_EXP,
+                        "--device", str(device)]
+    os.makedirs(os.path.join(project, "output", DP_EXP), exist_ok=True)
+    os.symlink(os.path.join(project, "output", FLAGSHIP_EXP, "cache"),
+               os.path.join(project, "output", DP_EXP, "cache"))
+    with tempfile.TemporaryDirectory(dir=project) as tmp:
+        t0 = time.time()
+        run_ranks(_cli_rank, DP_WORLD,
+                  (free_port(), base + ["--max_train_steps", "10",
+                                        "--data_axis", str(DP_WORLD)], tmp),
+                  "(c)")
+        cli = {"s": time.time() - t0, "card": card,
+               "ranks": [torch.load(os.path.join(tmp, f"cli.{r}.pt"),
+                                    weights_only=False)
+                         for r in range(DP_WORLD)]}
+        view2 = torch.load(os.path.join(tmp, "view.pt"))
+    args = finalize_args(build_train_parser().parse_args(
+        base + ["--max_train_steps", "10"]), make_dirs=False)
+    rc = render_config_from_args(args)
+    chunk = chunk_size(rc, args.chunk) // DP_WORLD * DP_WORLD
+    expect = 3 * -(-n_view // chunk) * 2
+    cli.update(chunk=chunk, expect_b1=expect)
+    for r in cli["ranks"]:
+        if r["b1"] != expect or r["b2"] or r["b3"]:
+            fail(f"(c) a rank launched B1 {r['b1']} times (expected "
+                 f"{expect}), B2 {r['b2']}, B3 {r['b3']}")
+    mgr = CheckpointManager(args.ckpts_dir)
+    if mgr.all_steps() != [10]:
+        fail(f"(c) checkpoints {mgr.all_steps()}, expected [10]")
+    with open(os.path.join(args.logs_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    keys = [(x["step"], x["split"]) for x in rows]
+    if len(keys) != len(set(keys)):
+        fail(f"(c) metrics.jsonl rows written twice: {keys}")
+    logged = next(x for x in rows if (x["step"], x["split"]) == (10, "val"))
+    # one rank, the same checkpoint: the test view and the MAE
+    tr1, scene1, _ = cli_train.build_trainer_and_scene(args, device)
+    state1 = tr1.init_state(torch.Generator().manual_seed(1))
+    mgr.restore(state1)
+    sample = scene1.load_val_image(scene1.val_images[-1], with_sem=True)
+    view1 = build_render_fn(state1.model, tr1.rc, state1.t_embed,
+                            chunk=args.chunk)(sample["rays"], 0,
+                                              sample["sems"])
+    errs = {k: p99_max(view2[k].to(device), v) for k, v in view1.items()}
+    cli["view_vs_one_rank"] = errs
+    if not all(p <= RENDER_P99 and m <= RENDER_MAX for p, m in errs.values()):
+        fail(f"(c) the 2-rank test view vs one rank: {errs}")
+    with tempfile.TemporaryDirectory(dir=project) as tmp:
+        vargs = argparse.Namespace(**{**vars(args), "logs_dir": tmp})
+        logger = MetricLogger(tmp, tensorboard=False)
+        try:
+            mean = cli_train.run_validation(tr1, scene1, state1, vargs, 0,
+                                            logger, False)
+        finally:
+            logger.close()
+    cli.update(mae_two_ranks=logged["mae"], mae_one_rank=mean["mae"],
+               psnr_two_ranks=logged["psnr"], psnr_one_rank=mean["psnr"])
+    if not abs(mean["mae"] - logged["mae"]) <= 1e-4:
+        fail(f"(c) MAE {logged['mae']} (2 ranks) vs {mean['mae']} (1 rank)")
+    del tr1, scene1, state1, view1, view2
+    torch.cuda.empty_cache()
+    # resume with one rank
+    fe.FusedField.launches = 0
+    t0 = time.time()
+    state = cli_train.main(base + ["--max_train_steps", "15", "--data_axis",
+                                   "1", "--auto_resume"])
+    cli["resume"] = {"s": time.time() - t0, "step": state.step,
+                     "b1": fe.FusedField.launches,
+                     "ckpts": mgr.all_steps()}
+    if state.step != 15 or mgr.all_steps() != [10, 15] or \
+            fe.FusedField.launches != 3 * -(-n_view // chunk_size(
+                rc, args.chunk)) * 2:
+        fail(f"(c) the resume with --data_axis 1: {cli['resume']}")
+    del state
+    log(f"(c) the CLI over {DP_WORLD} ranks: " + json.dumps(cli))
+    rec["cli"] = cli
+    torch.cuda.empty_cache()
+
+    # (d) the pass layouts: phase 4's view, each B1 launch of its first
+    #     chunk held, the view against the default layout's
+    mc, frc = flagship_configs()
+    model = load_model(mc, frc.compute_dtype, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    batch = fake_batch(np.random.default_rng(0), N_VIEW)
+    rays = torch.from_numpy(batch["rays"]).to(device)
+    vsems = torch.from_numpy(batch["sems"]).to(device)
+    render = build_render_fn(model, frc)
+    vchunk = chunk_size(frc)
+
+    def view_ms():
+        """The view's ms, median of 3 (CUDA events)."""
+        runs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            render(rays, 0, vsems)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        return float(np.median(runs)), runs
+
+    default = render(rays, 0, vsems)
+    layouts = {"default": dict(zip(("view_ms", "view_ms_runs"), view_ms()))}
+    # 3 launches a chunk; BATCH_SC 2 (the solar pass rides the second);
+    # BATCH_SOLAR 3 (B1 takes no solar tail: separate passes)
+    n_chunks = -(-N_VIEW // vchunk)
+    expect = {"SPNERF_BATCH_SC": 2 * n_chunks, "SPNERF_BATCH_SOLAR":
+              3 * n_chunks, "SPNERF_NO_MERGE": 3 * n_chunks,
+              "SPNERF_NO_PRUNE": 3 * n_chunks}
+    for name in SWITCHES:
+        with env_set(name, "1"):
+            fe.FusedField.launches = 0
+            view = render(rays, 0, vsems)
+            torch.cuda.synchronize()
+            launches = fe.FusedField.launches
+            ms, runs = view_ms()
+            held = hold_b1_launches(lambda: render(rays[:vchunk], 0,
+                                                   vsems[:vchunk]),
+                                    f"(d) {name}, first chunk")
+        errs = {k: p99_max(view[k], v) for k, v in default.items()}
+        worst = max(m for _, m in errs.values())
+        layouts[name] = {"launches": launches, "view_ms": ms,
+                         "view_ms_runs": runs, "held": held,
+                         "view_vs_default_max": worst,
+                         "view_vs_default_p99": max(p for p, _ in
+                                                    errs.values())}
+        log(f"(d) {name}: view {ms:.1f} ms (default layout "
+            f"{layouts['default']['view_ms']:.1f}; {card}), "
+            f"B1 launches {launches}, first chunk's launches held "
+            f"{json.dumps(held)}, view vs the default layout p99 "
+            f"{layouts[name]['view_vs_default_p99']:.3g} max {worst:.3g}")
+        if launches != expect[name]:
+            fail(f"(d) {name}: B1 launches {launches}, expected "
+                 f"{expect[name]}")
+        if not all(p <= RENDER_P99 and m <= RENDER_MAX
+                   for p, m in errs.values()):
+            fail(f"(d) {name}: the view vs the default layout {errs}")
+        del view
+    del render, default, model, rays, vsems
+    torch.cuda.empty_cache()
+
+    # the hash step under BATCH_SOLAR and BATCH_SC: 2 passes x 8 levels of
+    # table gradients, each held; loss and table gradient vs the default
+    htr, hdata = train_setup("hash", device=device)
+    hstate = htr.init_state(torch.Generator().manual_seed(0))
+
+    def grads(calls=None):
+        hstate.optimizer.zero_grad(set_to_none=True)
+        g = htr.step_generator(0, seed=1)
+        batch = htr.sample_batch(hdata, BATCH, g)
+        loss, _ = htr.loss_fn(hstate, batch, 0, generator=g)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), hstate.model.encoding.table.grad.clone()
+
+    loss_d, grad_d = grads()
+    for name in ("SPNERF_BATCH_SOLAR", "SPNERF_BATCH_SC"):
+        with env_set(name, "1"):
+            calls = []
+            for k in dt.launches:
+                dt.launches[k] = 0
+            with recording_dtab(calls):
+                loss_s, grad_s = grads()
+            launches = dict(dt.launches)
+        lerr = abs(loss_s - loss_d) / abs(loss_d)
+        gerr = ((grad_s - grad_d).abs().max() / grad_d.abs().max()).item()
+        held = hold_dtab_calls(calls, f"(d) hash step, {name}")
+        r = {"launches": launches, "loss_rel_err": lerr, "grad_rel_err": gerr,
+             "held": {n: {"calls": len(v),
+                          "max_abs_err": max(x["err"] for x in v),
+                          "max_rel_err": max(x["rel"] for x in v),
+                          "M": sorted({x["M"] for x in v})}
+                      for n, v in held.items()}}
+        layouts[name + "_hash"] = r
+        log(f"(d) hash step, {name}: " + json.dumps(r))
+        if len(calls) != 16 or (launches["dtab_dense"]
+                                + launches["dtab_sorted"]) != 16:
+            fail(f"(d) hash step, {name}: {len(calls)} table gradients, "
+                 f"launches {launches}")
+        if not (lerr <= STEP_LOSS_RTOL and gerr <= STEP_GRAD_RTOL):
+            fail(f"(d) hash step, {name}: loss {lerr}, table gradient {gerr}"
+                 " vs the default layout")
+        del calls, grad_s
+    del htr, hdata, hstate, grad_d
+    rec["layouts"] = layouts
+    torch.cuda.empty_cache()
+    return rec
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1795,6 +2420,13 @@ def main():
                                hold_proposal)
         paths_rec["phase_s"] = time.time() - t14
         torch.cuda.empty_cache()
+
+        log(f"-- phase 15 at {time.time() - t_start:.1f} s")
+        # 15. data parallelism over ranks and the four pass layouts
+        t15 = time.time()
+        mesh_rec = mesh_pass(device, card, project)
+        mesh_rec["phase_s"] = time.time() - t15
+        torch.cuda.empty_cache()
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
     occ, multi = paths_rec["occgrid"], paths_rec["multi"]
     field_entry.update(
@@ -1804,6 +2436,15 @@ def main():
         max_abs_err_second_frame=multi["second_frame"]["max_abs_err"],
         launches_fine=paths_rec["fine"]["b1"],
         launches_proposal=paths_rec["proposal"]["b1"])
+    cli_dp, layouts = mesh_rec["cli"], mesh_rec["layouts"]
+    field_entry.update(
+        launches_dp=[r["b1"] for r in cli_dp["ranks"]],
+        max_abs_err_dp=max(r["held"]["max_abs_err"] for r in cli_dp["ranks"]))
+    for name in SWITCHES:
+        tag = name.removeprefix("SPNERF_").lower()
+        field_entry[f"launches_{tag}"] = layouts[name]["launches"]
+        field_entry[f"max_abs_err_{tag}"] = layouts[name]["held"][
+            "max_abs_err"]
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 
@@ -1883,7 +2524,19 @@ def main():
     sorted_.update(launches_multi=multi["b3"],
                    max_abs_err_multi=mheld["sorted_err"],
                    max_rel_err_multi=mheld["sorted_rel"])
+    dp_held = mesh_rec["dp"]["held"]
+    dp_launches = mesh_rec["dp"]["ranks"][0]["hash"]["launches"]
+    for e, route in ((dense, "dense"), (sorted_, "sorted")):
+        e.update(launches_dp=dp_launches[e["name"]],
+                 max_abs_err_dp=dp_held.get(route, {}).get("max_abs_err"))
+        for name in ("SPNERF_BATCH_SOLAR", "SPNERF_BATCH_SC"):
+            tag = name.removeprefix("SPNERF_").lower()
+            r = layouts[name + "_hash"]
+            e[f"launches_{tag}"] = r["launches"][e["name"]]
+            e[f"max_abs_err_{tag}"] = r["held"].get(route, {}).get(
+                "max_abs_err")
     print(json.dumps({"cli": cli_rec}), flush=True)
+    print(json.dumps({"mesh": mesh_rec}), flush=True)
     print(json.dumps({"paths": paths_rec}), flush=True)
     print(json.dumps({
         "kernels": [field_entry, dense, sorted_, partials, batched],

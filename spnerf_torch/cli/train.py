@@ -28,9 +28,22 @@ A comma-separated --aoi_id trains one field on several AOIs side by side
 and scored in its own frame. With --occgrid, validation places its samples
 by the trained grid.
 
-Entry points run on the card (`--device`, default cuda:<gpu_id>) and
-raise without CUDA unless given `--device cpu`. Not ported yet (ROADMAP
-A6): a device mesh; `finalize_args` refuses --data_axis > 1.
+Data parallelism (`parallel/mesh.py`): the run's ranks are the
+launcher's (`torchrun --nproc_per_node N main_torch.py ...`, where
+--data_axis is 0 or N), else --data_axis (0: every visible card, 1 on the
+CPU); N > 1 without a launcher starts N ranks of this command on this host
+(spawned, with the launcher's variables and a file store). Each rank trains
+on its block of the rays and renders its share of every validation view;
+rank 0 alone prints, logs and writes opts.json, metrics.jsonl, the
+checkpoints, the images and the DSMs, and loads the scene first (it writes
+the ray cache). Every rank restores on --ckpt_path/--auto_resume. With
+--watchdog the watchdog supervises the process that starts the ranks and
+relaunches the whole group; under a launcher, --watchdog is refused (the
+launcher restarts). A rank that fails fails the run.
+
+Entry points run on the card (`--device`, default cuda:<gpu_id>; rank r
+of a mesh takes cuda:(local rank mod the cards)) and raise without CUDA
+unless given `--device cpu`.
 """
 
 import os
@@ -40,16 +53,19 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (build_train_parser, finalize_args,
                       loss_config_from_args, model_config_from_args,
-                      render_config_from_args)
+                      render_config_from_args, write_opts)
 from ..data import load_scene, load_scenes
 from ..device import resolve_device
 from ..evaluation.dsm import dsm_from_latlonalt
 from ..evaluation.mae import compute_mae_and_save_dsm_diff
 from ..evaluation.metrics import miou, overall_accuracy, psnr, ssim
 from ..evaluation.outputs import save_nerf_output_to_images
+from ..parallel import data_mesh, device_count
+from ..parallel.mesh import launcher_world
 from ..render import build_render_fn
 from ..train.checkpoints import CheckpointManager
 from ..train.loop import Trainer, scene_to_device_arrays
@@ -84,9 +100,9 @@ def _aoi_dirs(args, aoi):
     }
 
 
-def build_trainer_and_scene(args, device):
-    """(trainer on `device`, the loaded scene, steps per epoch) for the
-    flags `args` (after `finalize_args`, or a run's opts.json). A
+def build_trainer_and_scene(args, device, mesh=None):
+    """(trainer on `device` over `mesh`, the loaded scene, steps per epoch)
+    for the flags `args` (after `finalize_args`, or a run's opts.json). A
     comma-separated --aoi_id loads a `MultiScene`."""
     kwargs = dict(
         img_downscale=args.img_downscale, stdscale=args.stdscale,
@@ -124,6 +140,7 @@ def build_trainer_and_scene(args, device):
         grad_clip=getattr(args, "grad_clip", 0.0),
         occ_rows=getattr(args, "occ_rows", 4096),
         occ_decay=getattr(args, "occ_decay", 0.8),
+        mesh=mesh,
         device=device,
     )
     return trainer, scene, steps_per_epoch
@@ -178,11 +195,16 @@ def run_validation(trainer, scene, state, args, epoch, logger, save_images):
     args: a namespace with aoi_id, gt_dir, logs_dir, chunk, sem and
     num_sem_classes (the training CLI's names; a multi-AOI run also
     project_dir and dataset_dir). The field renders from `state` on the
-    trainer's device, with its occupancy grid where it has one."""
+    trainer's device, with its occupancy grid where it has one.
+
+    Under the trainer's mesh every rank calls this and renders its share of
+    each view; rank 0 alone scores, logs and writes, and the others return
+    {}."""
     device = trainer.device
+    mesh = trainer.mesh
     render = build_render_fn(state.model, trainer.rc, state.t_embed,
                              chunk=args.chunk, fine=state.fine,
-                             proposal=state.proposal)
+                             proposal=state.proposal, mesh=mesh)
     all_scalars = []
     items = _validation_items(scene, args.aoi_id)
     labels = _val_labels(items)
@@ -194,6 +216,8 @@ def run_validation(trainer, scene, state, args, epoch, logger, save_images):
         # with the occupancy grid, validation places its samples by the
         # trained grid, as the run was trained
         out = render(sample["rays"], t, sample.get("sems"), occ=state.occ)
+        if mesh is not None and not mesh.is_main:
+            continue
         typ = "fine" if "rgb_fine" in out else "coarse"
         h, w = sample["h"], sample["w"]
         img_t = out[f"rgb_{typ}"].float().reshape(h, w, 3)
@@ -289,22 +313,15 @@ def _watchdog_supervise(args, argv):
     """--watchdog N: run the training CLI in a child process and relaunch
     it with --auto_resume whenever metrics.jsonl stops advancing for N
     seconds (3N before the child's first line) or the child exits nonzero.
-    Returns 0 once a child completes."""
+    Returns 0 once a child completes. The child runs in a session of its
+    own, so that a kill reaches the ranks it started."""
+    import signal
     import subprocess
 
     # pin the RESOLVED exp name: a timestamped one would give every child
     # a fresh directory, defeating both resume and progress monitoring
-    base = []
-    it = iter(list(argv))
-    for a in it:
-        if a == "--exp_name":
-            next(it, None)
-            continue
-        if a.startswith("--exp_name="):
-            continue
-        base.append(a)
-    cmd = ([sys.executable, "-m", "spnerf_torch.cli.train"] + base
-           + ["--exp_name", args.exp_name, "--no_timestamp_exp_name"])
+    cmd = ([sys.executable, "-m", "spnerf_torch.cli.train"]
+           + pinned_argv(argv, args.exp_name))
     if "--auto_resume" not in cmd:
         cmd.append("--auto_resume")
     env = dict(os.environ, SPNERF_WATCHDOG_CHILD="1")
@@ -319,7 +336,7 @@ def _watchdog_supervise(args, argv):
         if attempt:
             print(f"[watchdog] relaunch {attempt}/{args.watchdog_max_restarts}",
                   flush=True)
-        child = subprocess.Popen(cmd, env=env)
+        child = subprocess.Popen(cmd, env=env, start_new_session=True)
         last_progress = time.time()
         try:
             last_mtime = os.path.getmtime(metrics_path)
@@ -327,29 +344,34 @@ def _watchdog_supervise(args, argv):
             last_mtime = None
         progressed = False
         killed = False
-        while True:
-            rc = child.poll()
-            if rc is not None:
-                break
-            try:
-                mtime = os.path.getmtime(metrics_path)
-            except OSError:
-                mtime = None
-            if mtime is not None and mtime != last_mtime:
-                last_mtime = mtime
-                last_progress = time.time()
-                progressed = True
-            # start-up (imports, data load, restore, first window) writes
-            # no metrics: it gets three times as long
-            limit = args.watchdog if progressed else 3 * args.watchdog
-            if time.time() - last_progress > limit:
-                print(f"[watchdog] no progress for {limit}s; "
-                      f"killing pid {child.pid}", flush=True)
-                child.kill()
-                child.wait()
-                killed = True
-                break
-            time.sleep(poll_s)
+        try:  # the child's session does not get this one's signals
+            while True:
+                rc = child.poll()
+                if rc is not None:
+                    break
+                try:
+                    mtime = os.path.getmtime(metrics_path)
+                except OSError:
+                    mtime = None
+                if mtime is not None and mtime != last_mtime:
+                    last_mtime = mtime
+                    last_progress = time.time()
+                    progressed = True
+                # start-up (imports, data load, restore, first window) writes
+                # no metrics: it gets three times as long
+                limit = args.watchdog if progressed else 3 * args.watchdog
+                if time.time() - last_progress > limit:
+                    print(f"[watchdog] no progress for {limit}s; "
+                          f"killing pid {child.pid}", flush=True)
+                    os.killpg(child.pid, signal.SIGKILL)
+                    child.wait()
+                    killed = True
+                    break
+                time.sleep(poll_s)
+        except BaseException:
+            if child.poll() is None:
+                os.killpg(child.pid, signal.SIGKILL)
+            raise
         if not killed and rc == 0:
             return 0
         if not killed:
@@ -380,53 +402,153 @@ def _window_len(args):
     return window_len
 
 
+def pinned_argv(argv, exp_name):
+    """`argv` with the run's resolved --exp_name (a timestamped one would
+    differ between processes started apart)."""
+    base = []
+    it = iter(list(argv))
+    for a in it:
+        if a == "--exp_name":
+            next(it, None)
+            continue
+        if a.startswith("--exp_name="):
+            continue
+        base.append(a)
+    return base + ["--exp_name", exp_name, "--no_timestamp_exp_name"]
+
+
+def run_world(args, device):
+    """The run's ranks: the launcher's world size, else --data_axis (0:
+    every visible card, 1 on the CPU)."""
+    launcher = launcher_world()
+    if launcher is None:
+        return args.data_axis or device_count(device.type)
+    if args.data_axis not in (0, launcher):
+        raise SystemExit(f"--data_axis {args.data_axis} under a launcher of "
+                         f"{launcher} ranks: give 0 or {launcher}")
+    return launcher
+
+
+def _rank_main(local_rank, argv, world, device_type, init_method):
+    """One rank started by `launch_ranks`: the launcher's variables, the
+    process group on the file store, then `main`."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    if "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(1)  # as torchrun does for several ranks
+    mesh = data_mesh(world, device_type, init_method=init_method)
+    try:
+        main(argv)
+    finally:
+        mesh.close()
+
+
+def launch_ranks(argv, world, device_type):
+    """Run `world` ranks of the command line `argv` on this host, as a
+    launcher would (spawned processes, a file store in a temporary
+    directory); raises when a rank fails, after stopping the others."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="spnerf-ranks-") as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        mp.start_processes(_rank_main, args=(argv, world, device_type, init),
+                           nprocs=world, join=True, start_method="spawn")
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_train_parser().parse_args(argv)
     # the card unless --device says otherwise; raises without CUDA
     device = resolve_device(args.device, args.gpu_id)
-    finalize_args(args)
+    world = run_world(args, device)
+    watchdog = (args.watchdog > 0
+                and os.environ.get("SPNERF_WATCHDOG_CHILD") != "1")
+    if world > 1 and launcher_world() is None:
+        # this process starts the ranks (under the watchdog, its child does)
+        finalize_args(args, make_dirs=False)
+        if watchdog:
+            return _watchdog_supervise(args, argv)
+        print(f"devices: {device_count(device.type)} visible, {world} ranks "
+              f"on {device.type}")
+        launch_ranks(pinned_argv(argv, args.exp_name), world, device.type)
+        return None
+    mesh, own_group = None, False
+    if world > 1:
+        if watchdog:
+            raise SystemExit("--watchdog supervises the ranks this command "
+                             "starts; under a launcher use its restarts")
+        own_group = not dist.is_initialized()
+        mesh = data_mesh(world, device.type)
+        device = mesh.device
+        finalize_args(args, make_dirs=False)
+        # rank 0's names and paths on every rank
+        vars(args).update(mesh.broadcast_object(vars(args)))
+        if mesh.is_main:
+            write_opts(args)
+    else:
+        finalize_args(args)
+        if watchdog:
+            return _watchdog_supervise(args, argv)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if own_group:
+            mesh.close()
 
-    if (args.watchdog > 0
-            and os.environ.get("SPNERF_WATCHDOG_CHILD") != "1"):
-        return _watchdog_supervise(
-            args, argv if argv is not None else sys.argv[1:])
 
-    for split_file in ("train.txt", "test.txt"):
-        src = os.path.join(args.json_dir, split_file)
-        if os.path.exists(src):
-            shutil.copyfile(src, os.path.join(args.logs_dir, split_file))
+def _train(args, device, mesh):
+    """The run of `main` on this rank (mesh None: the only one)."""
+    is_main = mesh is None or mesh.is_main
+    say = print if is_main else (lambda *a, **k: None)
+    if is_main:
+        for split_file in ("train.txt", "test.txt"):
+            src = os.path.join(args.json_dir, split_file)
+            if os.path.exists(src):
+                shutil.copyfile(src, os.path.join(args.logs_dir, split_file))
     if device.type == "cuda" and device.index is not None:
         # the kernels launch on the current card's stream
         torch.cuda.set_device(device)
-    print(f"device: {device}"
+    rank = "" if mesh is None else f"rank {mesh.rank}/{mesh.world} "
+    print(f"{rank}device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + ("" if mesh is None else f", {mesh.backend}"))
 
-    trainer, scene, steps_per_epoch = build_trainer_and_scene(args, device)
-    print(f"scene: {len(scene)} rays, {steps_per_epoch} steps/epoch")
+    # rank 0 loads the scene first: the first load writes the ray cache
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+    trainer, scene, steps_per_epoch = build_trainer_and_scene(args, device,
+                                                              mesh)
+    if mesh is not None and mesh.is_main:
+        mesh.barrier()
+    say(f"scene: {len(scene)} rays, {steps_per_epoch} steps/epoch")
 
     state = trainer.init_state(torch.Generator().manual_seed(args.seed))
-    ckpt = CheckpointManager(args.ckpts_dir)
+    ckpt = CheckpointManager(args.ckpts_dir, mesh)
     if args.ckpt_path:
         if CheckpointManager(args.ckpt_path).restore(state) is not None:
-            print(f"resumed from {args.ckpt_path} at step {state.step}")
+            say(f"resumed from {args.ckpt_path} at step {state.step}")
     elif args.auto_resume:
         if ckpt.restore(state) is not None:
-            print(f"auto-resumed {args.exp_name} at step {state.step}")
+            say(f"auto-resumed {args.exp_name} at step {state.step}")
         else:
-            print(f"auto-resume: no checkpoint under {args.ckpts_dir}, "
-                  "starting fresh")
+            say(f"auto-resume: no checkpoint under {args.ckpts_dir}, "
+                "starting fresh")
+    state = trainer.replicate_state(state)
 
-    data = trainer.to_device(scene_to_device_arrays(scene))
+    data = trainer.shard_data(scene_to_device_arrays(scene))
     window_len = _window_len(args)
-    logger = MetricLogger(args.logs_dir)
+    logger = MetricLogger(args.logs_dir) if is_main else None
 
     start_step = state.step
     if start_step >= args.max_train_steps:
         # a finished run re-invoked: no re-validation, no second save
-        print(f"already trained to step {start_step} >= "
-              f"{args.max_train_steps}; nothing to do")
-        logger.close()
+        say(f"already trained to step {start_step} >= "
+            f"{args.max_train_steps}; nothing to do")
+        if logger is not None:
+            logger.close()
         return state
     last_epoch_validated = -1
     last_saved_step = -1
@@ -454,14 +576,17 @@ def main(argv=None):
         ld = {k: float(v) for k, v in loss_dict.items()}  # the window's sync
         if profiling:
             profiler.__exit__(None, None, None)
-            prof_dir = os.path.join(args.logs_dir, "profile")
-            os.makedirs(prof_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+            if is_main:
+                prof_dir = os.path.join(args.logs_dir, "profile")
+                os.makedirs(prof_dir, exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(prof_dir,
+                                                          "trace.json"))
         dt = time.time() - t0
         rays_s = done * args.batch_size / max(dt, 1e-9)
-        logger.log(step, {**ld, "rays_per_sec": rays_s})
-        print(f"step {step}: loss {ld['loss']:.5f} "
-              f"psnr {ld['psnr']:.2f} | {rays_s:,.0f} rays/s")
+        if logger is not None:
+            logger.log(step, {**ld, "rays_per_sec": rays_s})
+        say(f"step {step}: loss {ld['loss']:.5f} "
+            f"psnr {ld['psnr']:.2f} | {rays_s:,.0f} rays/s")
 
         # test hook: the first process to get here simulates a hang (the
         # failure the watchdog exists for); relaunches go on normally
@@ -494,17 +619,18 @@ def main(argv=None):
                               args.max_train_steps // steps_per_epoch, logger,
                               True)
         ckpt.save(args.max_train_steps, state, metrics=_val_metrics(mean))
-    logger.close()
+    if logger is not None:
+        logger.close()
     best = ckpt.best_step()
     latest = ckpt.latest_step()
     if latest is not None:
-        print(f"latest checkpoint: step {latest} ({ckpt.step_path(latest)})")
+        say(f"latest checkpoint: step {latest} ({ckpt.step_path(latest)})")
     if best is not None:
-        print(f"best checkpoint (val_psnr): step {best} "
-              f"({ckpt.step_path(best)}) — render it offline with "
-              f"`python -m spnerf_torch.tools render --run_dir "
-              f"{os.path.dirname(args.ckpts_dir)} --step best`")
-    print("training complete")
+        say(f"best checkpoint (val_psnr): step {best} "
+            f"({ckpt.step_path(best)}) — render it offline with "
+            f"`python -m spnerf_torch.tools render --run_dir "
+            f"{os.path.dirname(args.ckpts_dir)} --step best`")
+    say("training complete")
     return state
 
 

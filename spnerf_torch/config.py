@@ -6,9 +6,7 @@ class tables.
 (`spnerf_tpu/config.py`), with its default, plus `--device`, which picks
 the card (the JAX package picks its backend by `JAX_PLATFORMS`).
 `finalize_args` derives the same directory layout and `opts.json`; it
-raises NotImplementedError for the flags whose paths the port does not
-have yet (a device mesh, ROADMAP A6) and for the XLA-only
-`--xla_opts`. The frozen dataclasses hold the fields
+raises NotImplementedError for the XLA-only `--xla_opts`. The frozen dataclasses hold the fields
 of the JAX package's `ModelConfig`, `RenderConfig` and `LossConfig` that the
 port reads, under the same names and defaults (`LossConfig.margin` and
 `stdscale` are read by the depth loaders); the `*_config_from_args`
@@ -288,8 +286,10 @@ def build_train_parser():
     p.add_argument("--precision", type=str, default="bf16", choices=["bf16", "fp32"],
                    help="MLP matmul precision (reference uses AMP fp16)")
     p.add_argument("--data_axis", type=int, default=0,
-                   help="devices for ray data-parallelism; 0 = all. The "
-                        "port runs on one device (more: ROADMAP A6)")
+                   help="ranks for ray data-parallelism, one device each; "
+                        "0 = every visible card (1 on the CPU). N > 1 "
+                        "without a launcher starts N ranks; under torchrun "
+                        "0 or the launcher's world size")
     p.add_argument("--no_timestamp_exp_name", action="store_true")
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for compatibility: on CUDA the eval "
@@ -306,9 +306,6 @@ def build_train_parser():
 
 def check_ported(args):
     """Raise NotImplementedError for a flag whose path the port lacks."""
-    if getattr(args, "data_axis", 0) > 1:
-        raise NotImplementedError(
-            "--data_axis > 1 is not ported to spnerf_torch (ROADMAP A6)")
     if getattr(args, "xla_opts", ""):
         raise NotImplementedError(
             "--xla_opts sets XLA compiler options; it is XLA-only and has no "
@@ -348,10 +345,15 @@ def finalize_args(args, make_dirs=True):
     args.ckpts_dir = os.path.join(args.output_dir, "ckpts")
     args.logs_dir = os.path.join(args.output_dir, "logs")
     if make_dirs:
-        os.makedirs(args.logs_dir, exist_ok=True)
-        with open(os.path.join(args.logs_dir, "opts.json"), "w") as f:
-            json.dump({k: v for k, v in vars(args).items()}, f, indent=2, default=str)
+        write_opts(args)
     return args
+
+
+def write_opts(args):
+    """<logs>/opts.json: every flag and derived path of the run."""
+    os.makedirs(args.logs_dir, exist_ok=True)
+    with open(os.path.join(args.logs_dir, "opts.json"), "w") as f:
+        json.dump({k: v for k, v in vars(args).items()}, f, indent=2, default=str)
 
 
 def _aoi_frames(args) -> int:

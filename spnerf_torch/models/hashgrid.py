@@ -375,14 +375,15 @@ class HashSPNeRF(nn.Module):
     def forward(self, xyz, sun_d, t_emb=None, sem_labels=None,
                 sigma_only=False, heads=None, anneal=None, solar_tail=0):
         """heads: optional subset of ("rgb", "sun", "sky", "beta", "sem");
-        sigma is always computed. solar_tail (the batched solar pass) is not
-        ported."""
-        if solar_tail:
-            raise NotImplementedError(
-                "solar_tail (the batched solar pass) is not ported")
+        sigma is always computed. solar_tail: the last `solar_tail` rows
+        are solar-pass points, which need only sigma and sun_v: the
+        trunk, sigma and the sun head run over every row, the rgb, sky,
+        beta and sem heads over the leading rows only."""
         cfg = self.cfg
         if heads is None:
             heads = ("rgb", "sun", "sky", "beta", "sem")
+        nv = xyz.shape[0] - solar_tail  # the view rows: every head
+        view = (lambda v: v[:nv]) if solar_tail else (lambda v: v)
         L = self.layer
 
         enc = self.encoding(xyz)
@@ -406,7 +407,7 @@ class HashSPNeRF(nn.Module):
         if {"rgb", "sun", "beta"} & set(heads):
             feats = L("feats")(shared)
         if "rgb" in heads:
-            r = F.relu(L("rgb0")(feats))
+            r = F.relu(L("rgb0")(view(feats)))
             out["rgb"] = (torch.sigmoid(L("rgb1")(r).float()) * 1.002
                           - 0.001).to(r.dtype)
         if "sun" in heads:
@@ -414,13 +415,13 @@ class HashSPNeRF(nn.Module):
             s = F.relu(L("sun1")(s))
             out["sun_v"] = torch.sigmoid(L("sun2")(s))
         if "sky" in heads:
-            k = F.relu(L("sky0")(sun_d))
+            k = F.relu(L("sky0")(view(sun_d)))
             out["sky"] = torch.sigmoid(L("sky1")(k))
         if cfg.beta and "beta" in heads:
-            b = F.relu(L("beta0")(feats, t_emb))
+            b = F.relu(L("beta0")(view(feats), view(t_emb)))
             out["beta"] = softplus(L("beta1")(b).float()).to(b.dtype)
         if cfg.sem and "sem" in heads:
-            g = F.relu(L("sem0")(shared))
+            g = F.relu(L("sem0")(view(shared)))
             out["sem_logits"] = L("sem1")(g)
         return out
 

@@ -7,8 +7,21 @@ The field is any callable `field_apply(xyz, sun_d, t_emb, sem_labels,
 heads=None) -> dict` over flat (N, ...) point batches: an `SPNeRF` module or
 a `FusedField`; `proposal_apply(xyz) -> sigma` is the proposal field's.
 
-Not ported yet (they raise NotImplementedError): the JAX package's opt-in
-pass layouts SPNERF_BATCH_SC, SPNERF_BATCH_SOLAR and SPNERF_NO_MERGE.
+Four opt-in pass layouts, as in the JAX package (measured there and off by
+default; the math is the same, the batching differs), each read from the
+environment when `render_rays` is called:
+
+* SPNERF_NO_MERGE=1 evaluates the field again at all the sorted guided
+  samples instead of merging the coarse outputs in;
+* SPNERF_NO_PRUNE=1 runs every head in the solar pass, and turns the two
+  batched layouts off;
+* SPNERF_BATCH_SC=1 evaluates the solar pass in one field call with the
+  view-ray pass before it (the guided pass's new samples, or the coarse
+  samples without guided sampling), every head on every row;
+* SPNERF_BATCH_SOLAR=1 does the same with the solar rows pruned to sigma
+  and sun_v in the model (its `solar_tail`), for a field callable that
+  says it takes `solar_tail` (`supports_solar_tail`, the trainer's); the
+  fine pass batches its view and solar points the same way.
 """
 
 import os
@@ -19,44 +32,93 @@ from ..config import RenderConfig
 from .compositing import composite
 from .sampling import guided_samples, sample_pdf, stratified_z_vals
 
-_UNPORTED_ENV = ("SPNERF_BATCH_SC", "SPNERF_BATCH_SOLAR", "SPNERF_NO_MERGE")
+
+def _switch(name):
+    """A pass-layout switch of the environment (see the module's doc)."""
+    return os.environ.get(name) == "1"
 
 
-def check_supported():
-    """Raise NotImplementedError for the JAX package's opt-in pass layouts
-    (environment switches), which this port lacks."""
-    for name in _UNPORTED_ENV:
-        if os.environ.get(name) == "1":
-            raise NotImplementedError(f"render_rays: {name}=1 is not ported")
+def _batch_solar_enabled(field_apply):
+    """SPNERF_BATCH_SOLAR=1 and a field that takes `solar_tail`."""
+    return (getattr(field_apply, "supports_solar_tail", False)
+            and _switch("SPNERF_BATCH_SOLAR"))
+
+
+def _flat_inputs(n_rays, counts, sun_d, t_emb, sems):
+    """Per-row sun directions, transient embeddings and labels for point
+    sets of counts[i] samples a ray, set after set (each set ray-major)."""
+    def rows(x):
+        if x is None:
+            return None
+        parts = [x[:, None].expand((n_rays, s) + x.shape[1:])
+                 .reshape((n_rays * s,) + x.shape[1:]) for s in counts]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return rows(sun_d), rows(t_emb), rows(sems)
 
 
 def _eval_field(field_apply, rays_o, ray_dirs, z_vals, sun_d, t_emb, sems,
                 heads=None):
     """The field at every (ray, sample) point; returns (R, S, ...) tensors."""
-    n_rays, n_samples = z_vals.shape
-    xyz = rays_o[:, None, :] + ray_dirs[:, None, :] * z_vals[:, :, None]
-    sun_flat = sun_d[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
-    t_flat = (None if t_emb is None else
-              t_emb[:, None, :].expand(n_rays, n_samples, t_emb.shape[-1])
-              .reshape(-1, t_emb.shape[-1]))
-    sem_flat = (None if sems is None else
-                sems[:, None].expand(n_rays, n_samples).reshape(-1))
-    out = field_apply(xyz.reshape(-1, 3), sun_flat, t_flat, sem_flat,
+    return _eval_field_cat(field_apply, [_points(rays_o, ray_dirs, z_vals)],
+                           sun_d, t_emb, sems, heads=heads)[0]
+
+
+def _points(rays_o, ray_dirs, z_vals):
+    """(R, S, 3) points at depths z_vals (R, S) along the rays."""
+    return rays_o[:, None, :] + ray_dirs[:, None, :] * z_vals[:, :, None]
+
+
+def _eval_field_cat(field_apply, xyz_sets, sun_d, t_emb, sems, heads=None):
+    """One field call over the concatenation, ray by ray, of point sets
+    (R, S_i, 3) that share the per-ray inputs; one (R, S_i, ...) dict a
+    set."""
+    n_rays = xyz_sets[0].shape[0]
+    sizes = [x.shape[1] for x in xyz_sets]
+    xyz = xyz_sets[0] if len(xyz_sets) == 1 else torch.cat(xyz_sets, dim=1)
+    out = field_apply(xyz.reshape(-1, 3),
+                      *_flat_inputs(n_rays, [sum(sizes)], sun_d, t_emb, sems),
                       heads=heads)
-    return {k: v.reshape((n_rays, n_samples) + v.shape[1:])
+    out = {k: v.reshape((n_rays, sum(sizes)) + v.shape[1:])
+           for k, v in out.items()}
+    result, ofs = [], 0
+    for n in sizes:
+        result.append({k: v[:, ofs:ofs + n] for k, v in out.items()})
+        ofs += n
+    return result
+
+
+def _eval_field_tail(field_apply, xyz_view, xyz_sc, sun_d, t_emb, sems):
+    """One field call over view points (R, Sv, 3) and solar points
+    (R, Ss, 3), the solar rows last and pruned in the model (`solar_tail`).
+    Returns the view dict (R, Sv, ...) and the solar one (R, Ss, ...) of
+    sigma and sun_v, all the solar terms read."""
+    n_rays, sv = xyz_view.shape[:2]
+    ss = xyz_sc.shape[1]
+    xyz = torch.cat([xyz_view.reshape(-1, 3), xyz_sc.reshape(-1, 3)], dim=0)
+    out = field_apply(xyz, *_flat_inputs(n_rays, [sv, ss], sun_d, t_emb, sems),
+                      solar_tail=n_rays * ss)
+    n_view = n_rays * sv
+    view = {k: v[:n_view].reshape((n_rays, sv) + v.shape[1:])
             for k, v in out.items()}
+    sc = {k: out[k][n_view:].reshape((n_rays, ss) + out[k].shape[1:])
+          for k in ("sigma", "sun_v")}
+    return view, sc
 
 
-def _merge_sorted(field_a, z_a, field_b, z_b):
-    """Merge two per-sample field dicts along the sample axis in z order.
-
-    The coarse pass's outputs are reused at their z positions rather than
-    re-evaluated. A stable sort and a gather apply the permutation exactly;
-    sem_logits stays in concatenation order because the compositor
-    mean-pools it. Returns (merged, z_sorted, z_unsorted).
-    """
+def _sort_perm(z_a, z_b):
+    """The order that sorts the per-ray concatenation of two z sets:
+    (order, z_sorted, z_unsorted). A stable sort, as the JAX package's
+    argsort."""
     z_unsort = torch.cat([z_a, z_b], dim=-1)
     z_sorted, order = torch.sort(z_unsort, dim=-1, stable=True)
+    return order, z_sorted, z_unsort
+
+
+def _apply_perm(field_a, field_b, order):
+    """The per-sample outputs of two passes, concatenated and gathered into
+    sorted order (the JAX package applies the same permutation as a one-hot
+    product). sem_logits stays in concatenation order: the compositor
+    mean-pools it."""
     merged = {}
     for k in field_a:
         v = torch.cat([field_a[k], field_b[k]], dim=1)
@@ -64,7 +126,17 @@ def _merge_sorted(field_a, z_a, field_b, z_b):
             idx = order if v.ndim == 2 else order[..., None].expand_as(v)
             v = torch.take_along_dim(v, idx, dim=1)
         merged[k] = v
-    return merged, z_sorted, z_unsort
+    return merged
+
+
+def _merge_sorted(field_a, z_a, field_b, z_b):
+    """Merge two per-sample field dicts along the sample axis in z order.
+
+    The coarse pass's outputs are reused at their z positions rather than
+    re-evaluated. Returns (merged, z_sorted, z_unsorted).
+    """
+    order, z_sorted, z_unsort = _sort_perm(z_a, z_b)
+    return _apply_perm(field_a, field_b, order), z_sorted, z_unsort
 
 
 def _inference(field_apply, rays_o, ray_dirs, z_vals, sun_d, t_emb, sems,
@@ -132,7 +204,6 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
     [z_prop_coarse, w_prop_coarse]; and the same `_fine`-suffixed with a
     fine pass.
     """
-    check_supported()
     if fine_field_apply is None:
         fine_field_apply = field_apply
     rnd = _Draws(rays.device, generator, draws)
@@ -172,8 +243,27 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
         u = (rnd.uniform("strat", (n_rays, n_samples))
              if rc.perturb > 0 else None)
         z_vals = stratified_z_vals(near, far, n_samples, rc.perturb, u=u)
-    field1 = _eval_field(field_apply, rays_o, rays_d, z_vals, sun_d, t_emb,
-                         sems)
+    # the pass layouts (see the module's doc): the solar pass evaluates the
+    # field at rays_o + sun_d * z over the final z set, which is known
+    # before the last view-ray field call (after the guided pass, from the
+    # coarse composite and the sort alone), so the two can share one call
+    no_prune = _switch("SPNERF_NO_PRUNE")
+    batch_solar = (rc.solar_correction and not no_prune
+                   and _batch_solar_enabled(field_apply))
+    batch_sc = (rc.solar_correction and _switch("SPNERF_BATCH_SC")
+                and not no_prune and not batch_solar)
+    sc_field = None  # the solar pass's sigma and sun_v, when batched
+    if rc.guidedsample or not (batch_sc or batch_solar):
+        field1 = _eval_field(field_apply, rays_o, rays_d, z_vals, sun_d,
+                             t_emb, sems)
+    elif batch_solar:
+        field1, sc_field = _eval_field_tail(
+            field_apply, _points(rays_o, rays_d, z_vals),
+            _points(rays_o, sun_d, z_vals), sun_d, t_emb, sems)
+    else:
+        field1, sc_field = _eval_field_cat(
+            field_apply, [_points(rays_o, rays_d, z_vals),
+                          _points(rays_o, sun_d, z_vals)], sun_d, t_emb, sems)
     noise = rnd.normal("noise0", z_vals.shape) if noisy else None
     result = composite(field1, z_vals, noise_std=noise_std, noise=noise)
 
@@ -190,22 +280,48 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
             target_depth=None if target_depths is None else target_depths[:, 0],
             target_std=target_std, u_pred=u_pred, u_gt=u_gt)
         z_vals_2 = torch.sort(z_vals_2, dim=-1).values.detach()
-        # evaluate the field only at the new samples; the coarse outputs are
-        # merged in by the sort permutation
-        field2 = _eval_field(field_apply, rays_o, rays_d, z_vals_2, sun_d,
-                             t_emb, sems)
-        field_all, z_vals, z_vals_unsort = _merge_sorted(
-            field1, result["z_vals"], field2, z_vals_2)
-        noise = rnd.normal("noise1", z_vals.shape) if noisy else None
-        result = composite(field_all, z_vals, noise_std=noise_std,
-                           noise=noise)
+        if _switch("SPNERF_NO_MERGE"):
+            # every sorted sample through the field again
+            z_vals_unsort = torch.cat([z_vals, z_vals_2], dim=-1)
+            z_vals = torch.sort(z_vals_unsort, dim=-1).values
+            noise = rnd.normal("noise1", z_vals.shape) if noisy else None
+            result = _inference(field_apply, rays_o, rays_d, z_vals, sun_d,
+                                t_emb, sems, noise_std=noise_std, noise=noise)
+        else:
+            order, z_sorted, z_vals_unsort = _sort_perm(result["z_vals"],
+                                                        z_vals_2)
+            xyz2 = _points(rays_o, rays_d, z_vals_2)
+            if batch_solar:
+                field2, sc_field = _eval_field_tail(
+                    field_apply, xyz2, _points(rays_o, sun_d, z_sorted),
+                    sun_d, t_emb, sems)
+            elif batch_sc:
+                field2, sc_field = _eval_field_cat(
+                    field_apply, [xyz2, _points(rays_o, sun_d, z_sorted)],
+                    sun_d, t_emb, sems)
+            else:
+                # the field only at the new samples; the coarse outputs are
+                # merged in by the sort permutation
+                field2 = _eval_field(field_apply, rays_o, rays_d, z_vals_2,
+                                     sun_d, t_emb, sems)
+            field_all = _apply_perm(field1, field2, order)
+            z_vals = z_sorted
+            noise = rnd.normal("noise1", z_vals.shape) if noisy else None
+            result = composite(field_all, z_vals, noise_std=noise_std,
+                               noise=noise)
         result["z_vals_unsort"] = z_vals_unsort
 
+    sc_heads = None if no_prune else ("sun",)
     if rc.solar_correction:
         # the solar terms consume only sigma and sun_v: prune the other heads
         noise = rnd.normal("sc_noise", z_vals.shape) if noisy else None
-        sc = _inference(field_apply, rays_o, sun_d, z_vals, sun_d, t_emb, sems,
-                        heads=("sun",), noise_std=noise_std, noise=noise)
+        if sc_field is not None:
+            sc_field = {k: sc_field[k] for k in ("sigma", "sun_v")}
+            sc = composite(sc_field, z_vals, noise_std=noise_std, noise=noise)
+        else:
+            sc = _inference(field_apply, rays_o, sun_d, z_vals, sun_d, t_emb,
+                            sems, heads=sc_heads, noise_std=noise_std,
+                            noise=noise)
         result["weights_sc"] = sc["weights"]
         result["transparency_sc"] = sc["transparency"]
         result["sun_sc"] = sc["sun"]
@@ -222,15 +338,29 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
                              rc.n_importance, det=det, u=u).detach()
         z_fine = torch.sort(torch.cat([z_vals, z_extra], dim=-1),
                             dim=-1).values
+        sc_f = None
+        if (rc.solar_correction and not no_prune
+                and _batch_solar_enabled(fine_field_apply)):
+            # the fine view and solar points both follow from z_fine
+            fine_field, sc_f = _eval_field_tail(
+                fine_field_apply, _points(rays_o, rays_d, z_fine),
+                _points(rays_o, sun_d, z_fine), sun_d, t_emb, sems)
         noise = rnd.normal("noise_fine", z_fine.shape) if noisy else None
-        fine = _inference(fine_field_apply, rays_o, rays_d, z_fine, sun_d,
-                          t_emb, sems, noise_std=noise_std, noise=noise)
+        if sc_f is None:
+            fine = _inference(fine_field_apply, rays_o, rays_d, z_fine, sun_d,
+                              t_emb, sems, noise_std=noise_std, noise=noise)
+        else:
+            fine = composite(fine_field, z_fine, noise_std=noise_std,
+                             noise=noise)
         if rc.solar_correction:
             noise = (rnd.normal("sc_noise_fine", z_fine.shape) if noisy
                      else None)
-            sc = _inference(fine_field_apply, rays_o, sun_d, z_fine, sun_d,
-                            t_emb, sems, heads=("sun",), noise_std=noise_std,
-                            noise=noise)
+            if sc_f is None:
+                sc = _inference(fine_field_apply, rays_o, sun_d, z_fine,
+                                sun_d, t_emb, sems, heads=sc_heads,
+                                noise_std=noise_std, noise=noise)
+            else:
+                sc = composite(sc_f, z_fine, noise_std=noise_std, noise=noise)
             fine["weights_sc"] = sc["weights"]
             fine["transparency_sc"] = sc["transparency"]
             fine["sun_sc"] = sc["sun"]

@@ -11,8 +11,14 @@ grid the trained grid places the samples (a uniform grid where none is
 given). Lean outputs composite the per-sample sun, albedo, sky
 and beta on the device and drop the per-sample tensors.
 
-The JAX package's machinery for its remote TPU (chunks grouped per dispatch,
-a depth-2 dispatch pipeline, a device mesh) is not ported: chunks here are
+With a mesh (`parallel.data_mesh`), as the JAX package's sharded render:
+the chunk is floored to a multiple of the world size, each rank renders
+its contiguous share of every chunk, and the per-ray outputs are gathered
+on every rank by one all-reduce of zero-filled buffers (Gloo reduces CUDA
+tensors but does not gather them).
+
+The JAX package's machinery for its remote TPU (chunks grouped per
+dispatch, a depth-2 dispatch pipeline) is not ported: chunks here are
 launched in turn on the current CUDA stream.
 """
 
@@ -24,7 +30,7 @@ from .models.spnerf import as_dtype
 from .ops.field_eval import (FusedField, PlainField, pack_params,
                              uses_fused_kernel)
 from .ops.occgrid import init_grid
-from .ops.render import check_supported, render_rays
+from .ops.render import render_rays
 
 EVAL_DROP = ("weights", "transparency", "z_vals", "z_vals_unsort",
              "weights_sc", "transparency_sc", "sun_sc", "z_prop", "w_prop")
@@ -72,8 +78,27 @@ def chunk_size(rc, chunk=40960):
     return max(min(chunk, MAX_POINTS // max(samples_per_ray, 1)), 1024)
 
 
+def gather_shares(outs, mesh):
+    """Every rank's per-ray outputs {key: (C, share, ...)} of C chunks as
+    {key: (C * world * share, ...)}, chunk by chunk, rank by rank: one
+    all-reduce of a flat float32 buffer that is zero outside this rank's
+    share (float32 holds every output dtype exactly)."""
+    keys = sorted(outs)
+    sizes = [outs[k].numel() * mesh.world for k in keys]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=mesh.device)
+    gathered = {}
+    for k, part in zip(keys, torch.split(flat, sizes)):
+        v = outs[k]
+        full = part.view((v.shape[0], mesh.world) + v.shape[1:])
+        full[:, mesh.rank] = v
+        gathered[k] = full
+    mesh.all_reduce_(flat)
+    return {k: v.reshape((-1,) + v.shape[3:]).to(outs[k].dtype)
+            for k, v in gathered.items()}
+
+
 def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
-                    fine=None, proposal=None):
+                    fine=None, proposal=None, mesh=None):
     """Whole-image renderer over `model` (an `SPNeRF` on its device), with
     the fine field `fine` (rc.n_importance > 0) and the proposal field
     `proposal` (rc.proposal).
@@ -84,15 +109,20 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
     the fused field's plain version on any device. A configuration with a
     fine pass or a proposal sampler renders through the modules either way.
 
+    mesh: a `parallel.DataMesh`; every rank calls render_image on the same
+    rays and renders its share of each chunk.
+
     Returns render_image(rays, t, sems=None, occ=None) -> dict of lean
     per-ray tensors on the model's device, one row per ray. rays: (N, 11)
     array or tensor; t: the image's transient index; sems: (N,) labels or
     None; occ: the occupancy grid (rc.occ_grid; None: a uniform grid).
     """
-    check_supported()
     mc = model.cfg
     device = next(model.parameters()).device
     chunk = chunk_size(rc, chunk)
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    chunk = max(chunk // world * world, world)
+    share = chunk // world
     modules_only = rc.n_importance > 0 or rc.proposal
     fused = not modules_only and (
         field == "plain" or uses_fused_kernel(device, mc, rc.compute_dtype))
@@ -125,16 +155,20 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
             sems = torch.zeros(n + pad, dtype=torch.long, device=device)
         t_emb = None
         if t_embed is not None:
-            t_emb = t_embed(torch.full((chunk,), int(t), dtype=torch.long,
+            t_emb = t_embed(torch.full((share,), int(t), dtype=torch.long,
                                        device=device))
         outs = []
         for c in range(n_chunks):
-            sl = slice(c * chunk, (c + 1) * chunk)
+            sl = slice(c * chunk + rank * share, c * chunk + (rank + 1) * share)
             outs.append(lean_eval_outputs(render_rays(
                 field_apply, rc, rays[sl], t_emb=t_emb,
                 sems=sems[sl] if mc.sem else None, train=False,
                 fine_field_apply=fine_apply, proposal_apply=proposal,
                 occ=occ)))
-        return {k: torch.cat([o[k] for o in outs], dim=0)[:n] for k in outs[0]}
+        if mesh is None:
+            return {k: torch.cat([o[k] for o in outs], dim=0)[:n]
+                    for k in outs[0]}
+        outs = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return {k: v[:n] for k, v in gather_shares(outs, mesh).items()}
 
     return render_image

@@ -15,6 +15,10 @@ Retention is keep-all; the best step is the one with the highest
 metrics. The step's random draws come from a generator seeded by (seed,
 step) (`Trainer.step_generator`), so a resumed run draws what an
 uninterrupted one does and no generator state is saved.
+
+Under a mesh (`parallel.data_mesh`) the state is replicated: rank 0 writes
+the checkpoint and the ranks then meet at a barrier; every rank restores.
+So a checkpoint of a mesh run restores into a run of one rank, and back.
 """
 
 import json
@@ -37,8 +41,9 @@ class StepAlreadyExistsError(ValueError):
 
 
 class CheckpointManager:
-    def __init__(self, ckpts_dir):
+    def __init__(self, ckpts_dir, mesh=None):
         self.dir = os.path.abspath(ckpts_dir)
+        self.mesh = mesh
         os.makedirs(self.dir, exist_ok=True)
 
     def step_path(self, step):
@@ -75,7 +80,15 @@ class CheckpointManager:
         return best
 
     def save(self, step, state, metrics=None):
-        """Write `state` (a `TrainState`) as checkpoint `step`."""
+        """Write `state` (a `TrainState`) as checkpoint `step`: on rank 0,
+        the other ranks waiting at a barrier until it is written."""
+        if self.mesh is None:
+            return self._write(step, state, metrics)
+        if self.mesh.is_main:
+            self._write(step, state, metrics)
+        self.mesh.barrier()
+
+    def _write(self, step, state, metrics):
         path = self.step_path(step)
         if os.path.exists(path):
             raise StepAlreadyExistsError(f"checkpoint {path} already exists")

@@ -26,7 +26,16 @@ and the loss adds `prop_lambda` times the interlevel loss; with `occ_grid`
 the occupancy grid places the coarse samples and, after each optimizer
 step, one slab of it is refreshed from the new coarse parameters.
 
-Not ported (it raises NotImplementedError): a device mesh (ROADMAP A6).
+With a mesh (`parallel.data_mesh`), as the JAX package's step under
+`shard_map`: each rank holds a replica of the state (`replicate_state`)
+and a contiguous block of the rays (`shard_data`), draws its
+`batch_size // world` rays and its render draws from a generator of its
+own (rank 0 keeps the no-mesh generator, so a mesh of one rank is a run
+without one, bit for bit), and the gradients and the loss terms are
+averaged over the ranks with one all-reduce before the optimizer (and so
+before its clipping and decays). The grid refresh takes rank 0's jitter on
+every rank, as the JAX package does not fold the device into its key: the
+replicas stay equal, bit for bit.
 """
 
 from dataclasses import dataclass
@@ -42,7 +51,8 @@ from ..models import TransientEmbedding, load_model
 from ..models.proposal import ProposalField
 from ..ops.occgrid import init_grid, slab_rows, update_grid
 from ..ops.proposal import interlevel_loss
-from ..ops.render import check_supported, render_rays
+from ..ops.render import render_rays
+from ..parallel import local_batch
 from . import losses
 
 
@@ -222,9 +232,13 @@ class Trainer:
                  table_level_lr_decay=1.0, weight_decay=0.0, grad_clip=0.0,
                  occ_rows=4096, occ_decay=0.8, device=None):
         if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported (ROADMAP A6)")
-        check_supported()
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"Trainer: device {device} is not the "
+                                 f"mesh's {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
+        self._flat_grads = None  # (parameter ids, buffer, views)
         self.mc, self.rc, self.lc = mc, rc, lc
         self.steps_per_epoch = int(steps_per_epoch)
         self.max_steps = int(max_steps)
@@ -279,6 +293,44 @@ class Trainer:
         """Scene arrays (numpy or tensors) as tensors on the device."""
         return {k: torch.as_tensor(v).to(self.device) for k, v in data.items()}
 
+    def shard_data(self, data):
+        """This rank's block of the scene arrays on its device: N padded
+        to a multiple of the world size by wrapping, then cut into
+        contiguous blocks, rank r the r-th, as the JAX package shards its
+        rays over the mesh. Without a mesh, `to_device`."""
+        if self.mesh is None:
+            return self.to_device(data)
+        world, rank = self.mesh.world, self.mesh.rank
+        n = len(data["rays"])
+        per = -(-n // world)
+        idx = np.arange(rank * per, (rank + 1) * per) % n
+        return self.to_device({k: np.asarray(v)[idx] for k, v in data.items()})
+
+    @torch.no_grad()
+    def replicate_state(self, state):
+        """Rank 0's state on every rank (parameters, optimizer state, grid
+        and step count), in place; the state itself without a mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return state
+        for _, module in state.modules():
+            for t in list(module.parameters()) + list(module.buffers()):
+                mesh.broadcast_(t.data)
+        for st in state.optimizer.state.values():
+            for v in st.values():
+                if torch.is_tensor(v):
+                    mesh.broadcast_(v)
+        if state.occ is not None:
+            mesh.broadcast_(state.occ)
+        counts = torch.tensor([state.step,
+                               getattr(state.optimizer, "count", 0)],
+                              dtype=torch.int64, device=mesh.device)
+        mesh.broadcast_(counts)
+        state.step = int(counts[0])
+        if hasattr(state.optimizer, "count"):
+            state.optimizer.count = int(counts[1])
+        return state
+
     # ------------------------------------------------------------ train step
     def anneal(self, step):
         """Per-level hash feature weights at `step` (coarse-to-fine over
@@ -295,12 +347,15 @@ class Trainer:
                                                  device=self.device), 0.0, 1.0)
 
     def field_apply(self, model, anneal=None):
-        """The renderer's field callable over `model`."""
-        def apply(xyz, sun_d, t_emb, sem_labels, heads=None):
-            if anneal is None:
-                return model(xyz, sun_d, t_emb, sem_labels, heads=heads)
+        """The renderer's field callable over `model`; it takes the
+        solar-pass rows as a `solar_tail` (SPNERF_BATCH_SOLAR)."""
+        kw = {} if anneal is None else {"anneal": anneal}
+
+        def apply(xyz, sun_d, t_emb, sem_labels, heads=None, solar_tail=0):
             return model(xyz, sun_d, t_emb, sem_labels, heads=heads,
-                         anneal=anneal)
+                         solar_tail=solar_tail, **kw)
+
+        apply.supports_solar_tail = True
         return apply
 
     def loss_fn(self, state, batch, step, generator=None, draws=None):
@@ -356,12 +411,13 @@ class Trainer:
                     u, step, self.rc.occ_res, self.occ_rows, self.occ_decay,
                     frames=self.rc.occ_frames)
 
-    def step_generator(self, step, seed=0):
-        """The generator of step `step` of a run seeded `seed`: its seed is
-        a 32-bit hash of the pair (the CPU generator keeps 32 bits)."""
+    def step_generator(self, step, seed=0, rank=0):
+        """The generator of step `step` of a run seeded `seed` on rank
+        `rank`: its seed is a 32-bit hash of (seed, step), and of (seed,
+        step, rank) on a rank r > 0 (the CPU generator keeps 32 bits)."""
+        entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
         g = torch.Generator(device=self.device)
-        g.manual_seed(int(np.random.SeedSequence(
-            [int(seed), int(step)]).generate_state(1)[0]))
+        g.manual_seed(int(np.random.SeedSequence(entropy).generate_state(1)[0]))
         return g
 
     def sample_batch(self, data, batch_size, generator):
@@ -372,31 +428,81 @@ class Trainer:
         return {k: v[idx] for k, v in data.items()}
 
     def apply_gradients(self, state, loss):
-        """Backward, then one optimizer update at the step's learning
-        rate."""
+        """Backward, the gradients averaged over the mesh's ranks, then one
+        optimizer update at the step's learning rate."""
         for group in state.optimizer.param_groups:
             group["lr"] = self.lr_schedule(state.step)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self.average_gradients(state)
         state.optimizer.step()
         state.step += 1
 
-    def train_step(self, state, data, batch_size=1024, seed=0):
-        """One step on a batch drawn from the device-resident scene `data`,
-        then the grid refresh with the new parameters, its jitter from the
-        same generator. Updates `state` in place; returns the step's loss
-        terms, "loss" and "lr" (tensors on the device, except lr)."""
-        step = state.step
-        g = self.step_generator(step, seed)
-        batch = self.sample_batch(data, batch_size, g)
-        loss, loss_dict = self.loss_fn(state, batch, step, generator=g)
+    def average_gradients(self, state):
+        """Every gradient averaged over the ranks by one all-reduce of a
+        flat buffer, made once and kept; each gradient is then a view of
+        it. A parameter without a gradient keeps none (its place in the
+        buffer is zero)."""
+        params = [p for _, p in state.named_parameters()]
+        ids = [id(p) for p in params]
+        if self._flat_grads is None or self._flat_grads[0] != ids:
+            flat = torch.empty(sum(p.numel() for p in params),
+                               dtype=torch.float32, device=self.device)
+            views = list(torch.split(flat, [p.numel() for p in params]))
+            self._flat_grads = (ids, flat, views)
+        _, flat, views = self._flat_grads
+        for p, v in zip(params, views):
+            if p.grad is None:
+                v.zero_()
+            else:
+                v.copy_(p.grad.reshape(-1))
+        self.mesh.all_reduce_(flat, mean=True)
+        for p, v in zip(params, views):
+            if p.grad is not None:
+                p.grad = v.view_as(p)
+
+    def train_step(self, state, data, batch_size=1024, seed=0, draws=None):
+        """One step on `batch_size` rays (over all ranks) drawn from the
+        device-resident scene `data` (this rank's block under a mesh), then
+        the grid refresh with the new parameters, its jitter from the same
+        generator (rank 0's on every rank). Updates `state` in place;
+        returns the step's loss terms, "loss" and "lr" (tensors on the
+        device, except lr), averaged over the ranks.
+
+        draws: the step's random numbers by name instead of the generator
+        (a test hands in another package's): "idx" the batch's rows of
+        `data`, "occ_u" (occ_rows, 3) the grid's jitter, the rest the
+        renderer's (see `render_rays`)."""
+        step, mesh = state.step, self.mesh
+        if mesh is not None:
+            batch_size = local_batch(batch_size, mesh)
+        if draws is None:
+            g = self.step_generator(step, seed,
+                                    0 if mesh is None else mesh.rank)
+            batch = self.sample_batch(data, batch_size, g)
+        else:
+            g = None
+            idx = torch.as_tensor(draws["idx"], device=self.device).long()
+            batch = {k: v[idx] for k, v in data.items()}
+        loss, loss_dict = self.loss_fn(state, batch, step, generator=g,
+                                       draws=draws)
         self.apply_gradients(state, loss)
+        loss_dict = {k: v.detach() for k, v in dict(loss_dict,
+                                                     loss=loss).items()}
+        if mesh is not None:
+            names = sorted(loss_dict)
+            terms = torch.stack([loss_dict[k].float() for k in names])
+            loss_dict = dict(zip(names, mesh.all_reduce_(terms, mean=True)))
         if state.occ is not None:
-            u = torch.rand((self.occ_rows, 3), generator=g,
-                           device=self.device)
+            if draws is None:
+                u = torch.rand((self.occ_rows, 3), generator=g,
+                               device=self.device)
+            else:
+                u = torch.as_tensor(draws["occ_u"], device=self.device)
+            if mesh is not None:
+                mesh.broadcast_(u)
             self.refresh_grid(state, step, u)
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
-        loss_dict["loss"] = loss.detach()
         loss_dict["lr"] = self.lr_schedule(step)
         return loss_dict
 

@@ -41,11 +41,12 @@ def hash_configs(n_samples=64, flat_table=True):
 
 
 def train_setup(encoding="siren", n_rays=65536, device=None, seed=0,
-                flat_table=True):
+                flat_table=True, mesh=None):
     """(trainer, data) of the flagship train step (encoding="siren", lr
     5e-4) or its hash family (encoding="hash", lr 1e-2; flat_table=False
     for the (L, T, F) table): a Trainer at 1000 steps per epoch and 30,000
-    steps, and a device-resident synthetic scene of n_rays rows from `seed`.
+    steps, and a device-resident synthetic scene of n_rays rows from `seed`
+    (this rank's block of it over `mesh`, a `parallel.DataMesh`).
     The state comes from `trainer.init_state(generator)`."""
     from ..train.loop import Trainer
 
@@ -55,8 +56,8 @@ def train_setup(encoding="siren", n_rays=65536, device=None, seed=0,
         mc, rc = flagship_configs()
         lc, lr = flagship_loss_config(), FLAGSHIP_LR
     trainer = Trainer(mc, rc, lc, lr=lr, steps_per_epoch=1000,
-                      max_steps=30000, device=device)
-    data = trainer.to_device(fake_batch(np.random.default_rng(seed), n_rays))
+                      max_steps=30000, mesh=mesh, device=device)
+    data = trainer.shard_data(fake_batch(np.random.default_rng(seed), n_rays))
     return trainer, data
 
 

@@ -20,6 +20,7 @@ import dataclasses
 import json
 
 import pytest
+import torch
 
 from spnerf_tpu import config as jconfig
 from spnerf_torch import config
@@ -121,22 +122,21 @@ def test_finalize_args_writes_opts_json(tmp_path):
     (["--data_axis", "2"], "A6"),
 ])
 def test_unported_flags_name_their_roadmap_item(argv, item, tmp_path):
-    """A device mesh (A6) still raises before anything is written; the
-    paths of A5 are ported: their flags are taken and reach the configs."""
+    """The paths of A5 and the device mesh of A6 are ported: their flags
+    are taken, the run's files are written, and each flag reaches the
+    configs (A5) or the run's rank count (A6, `cli.train.run_world`)."""
+    from spnerf_torch.cli.train import run_world
+
     args = config.build_train_parser().parse_args(BASE + argv)
     args.project_dir = str(tmp_path)
-    if item == "A6":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            config.finalize_args(args)
-        assert not (tmp_path / "output").exists()
-        return
     config.finalize_args(args)
     assert (tmp_path / "output").exists()
     mc = config.model_config_from_args(args)
     rc = config.render_config_from_args(args)
     got = {"--proposal": rc.proposal, "--occgrid": rc.occ_grid,
            "--n_importance": rc.n_importance == 32,
-           "--aoi_id": mc.hash_frames == rc.occ_frames == 2}
+           "--aoi_id": mc.hash_frames == rc.occ_frames == 2,
+           "--data_axis": run_world(args, torch.device("cpu")) == 2}
     assert got[argv[0]] and sum(got.values()) == 1
 
 

@@ -212,9 +212,17 @@ def test_hash_model_loads_and_refuses_unported_options():
         assert torch.equal(va, vb) and torch.equal(va, vc), k
     assert a.encoding.table.abs().max() <= 1e-4
     assert a.encoding.table.shape == (2, 2 ** 10 * 4)
-    with pytest.raises(NotImplementedError, match="solar_tail"):
-        a(torch.zeros(2, 3), torch.zeros(2, 3), None,
-          torch.zeros(2, dtype=torch.long), solar_tail=1)
+    # solar_tail: every head on the leading rows, sigma and sun_v on all
+    # (held against the JAX package in tests/test_torch_layouts.py)
+    xyz = torch.rand(5, 3, generator=torch.Generator().manual_seed(4)) - 0.5
+    args = (xyz, torch.nn.functional.normalize(xyz + 1.0, dim=-1), None,
+            torch.tensor([0, 1, 2, -100, 1]))
+    whole, tail = a(*args), a(*args, solar_tail=2)
+    assert set(tail) == set(whole)
+    for k, v in whole.items():
+        rows = 5 if k in ("sigma", "sun_v") else 3
+        assert tail[k].shape[0] == rows, k
+        torch.testing.assert_close(tail[k], v[:rows], rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("case", sorted(CFGS))

@@ -110,10 +110,14 @@ def test_render_image_matches_trainer(dtype, field, monkeypatch):
 
 
 def test_unported_paths_raise(monkeypatch):
-    """The JAX package's opt-in pass layouts raise; the fine pass, the
-    proposal sampler and the occupancy grid render (each held against the
-    JAX package in tests/test_torch_paths.py, test_torch_proposal.py and
-    test_torch_occgrid.py)."""
+    """Every path renders: the fine pass, the proposal sampler and the
+    occupancy grid (each held against the JAX package in
+    tests/test_torch_paths.py, test_torch_proposal.py and
+    test_torch_occgrid.py), and each of the four opt-in pass layouts, which
+    give the default layout's outputs (held against the JAX package's
+    layouts in tests/test_torch_layouts.py). A field without
+    `supports_solar_tail`, as this module, keeps separate passes under
+    SPNERF_BATCH_SOLAR."""
     from spnerf_torch.models import ProposalField
     from spnerf_torch.ops.occgrid import init_grid
 
@@ -132,11 +136,16 @@ def test_unported_paths_raise(monkeypatch):
             out = render_rays(model, RenderConfig(**RC, **kw), rays,
                               sems=sems, **extra)
             assert torch.isfinite(out[key]).all(), key
-    for name in ("SPNERF_BATCH_SOLAR", "SPNERF_BATCH_SC", "SPNERF_NO_MERGE"):
-        with monkeypatch.context() as m:
+        default = render_rays(model, RenderConfig(**RC), rays, sems=sems)
+    for name in ("SPNERF_BATCH_SOLAR", "SPNERF_BATCH_SC", "SPNERF_NO_MERGE",
+                 "SPNERF_NO_PRUNE"):
+        with monkeypatch.context() as m, torch.no_grad():
             m.setenv(name, "1")
-            with pytest.raises(NotImplementedError, match=name):
-                render_rays(model, RenderConfig(**RC), rays)
+            out = render_rays(model, RenderConfig(**RC), rays, sems=sems)
+        assert set(out) == set(default), name
+        for k, v in default.items():
+            torch.testing.assert_close(out[k], v, rtol=0, atol=1e-5,
+                                       msg=f"{name} {k}")
 
 
 def test_render_image_pads_and_chunks():

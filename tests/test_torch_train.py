@@ -278,15 +278,29 @@ def test_anneal_schedule_matches_jax():
 
 
 def test_trainer_refuses_unported_options():
-    """A device mesh (ROADMAP A6) is refused; the occupancy grid, the
-    proposal sampler and the fine pass build their state and step (each
-    step is held against the JAX package in tests/test_torch_paths.py)."""
+    """Every option builds its state and steps: a device mesh (one Gloo
+    rank here; more ranks in tests/test_torch_parallel.py), the occupancy
+    grid, the proposal sampler and the fine pass (each step held against
+    the JAX package in tests/test_torch_paths.py). The mesh's device is
+    the trainer's; another device is refused."""
+    from spnerf_torch.parallel import data_mesh
+
     mc, rc, lc = (ModelConfig(**MC["hash"]), RenderConfig(**RC),
                   LossConfig(**LC))
-    with pytest.raises(NotImplementedError):
-        Trainer(mc, rc, lc, device="cpu", mesh=object())
     data = {k: torch.from_numpy(v)
             for k, v in fake_batch(np.random.default_rng(0), 128).items()}
+    mesh = data_mesh(1, "cpu", timeout_s=60)
+    try:
+        tr = Trainer(mc, rc, lc, mesh=mesh)
+        assert tr.device == torch.device("cpu") and tr.mesh is mesh
+        state = tr.replicate_state(tr.init_state(
+            torch.Generator().manual_seed(0)))
+        ld = tr.train_step(state, tr.shard_data(data), batch_size=16)
+        assert state.step == 1 and np.isfinite(ld["loss"].item())
+        with pytest.raises(ValueError, match="mesh"):
+            Trainer(mc, rc, lc, mesh=mesh, device="meta")
+    finally:
+        mesh.close()
     for rkw, part in ((dict(occ_grid=True, occ_res=8), "occ"),
                       (dict(proposal=True, n_proposal=8), "proposal"),
                       (dict(n_importance=8), "fine")):
