@@ -183,12 +183,38 @@ Phases, each fatal on failure:
      BATCH_SC: 16 table gradients (2 passes x 8 levels), each held, the
      loss and table gradient against the default layout's (phase 7's
      bars). Times of two ranks on one card are printed as such;
+ 16. the data-prep tail in a temporary project: (a) a raw DFC2019 AOI at
+     full size (`write_raw_aoi`: 4 images whose crop to the 512x512 lidar
+     ROI at 0.5 m is about 810 px a side, the RPCs in tag 50844, the sun
+     angles in tag 42112) prepared by `python -m
+     spnerf_torch.data.create_dataset` as a subprocess (crop, JSONs whose
+     sun angles must be the tags', seeded splits: 2 train, 2 test), MicMac
+     depth from the lidar (`synthesize_depth_from_lidar`, stride 2),
+     `tools utm-to-geocentric` on a UTM copy of one depth file (back within
+     UTM_ROUND_TRIP_BAR), `tools cal-rmse-depth` on the card (the same
+     score as on the CPU within 1e-5 m, the MAE of the lidar's own surface
+     below DEPTH_MAE_BAR; the splat timed), `convert-tiff` and `viz-dsm`
+     (which names the PNG it skips where matplotlib is missing), each
+     step's seconds printed; (b) the flagship through the CLI (phase 13's
+     flags without --sem: the prepared data has no semantic labels, as
+     the JAX package's create_dataset writes none) for PREP_STEPS steps at
+     --img_downscale 1, validated (B1 launches counted), then each B1
+     launch of the test view's first and ragged last chunk held at
+     KERNEL_ATOL on the trained field's samples and the render against
+     the plain render at RENDER_P99/RENDER_MAX, the plain float32 control
+     beside it; (c) the hash family 10 steps at --img_downscale 4 on the
+     same dataset, 30 B2 and 210 B3 launches, every B2/B3 call of one step
+     of the restored run held (phase 6's tolerances); (d)
+     `dryrun_torch.dryrun_multichip(2)`: the eight train-step variants of
+     the JAX dry run over two Gloo ranks sharing the card, its lines
+     printed. Its numbers on one `{"prep": ...}` line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
   `launches_proposal` and their `max_abs_err_*`; phase 15's under
   `launches_dp`, `launches_batch_sc`, `launches_batch_solar`,
-  `launches_no_merge`, `launches_no_prune` and their `max_abs_err_*`).
+  `launches_no_merge`, `launches_no_prune` and their `max_abs_err_*`;
+  phase 16's under `launches_prep` and `max_abs_err_prep`).
   The env of phases 10, 11 and 15 (d) is set around its use only and
   restored after.
 
@@ -1711,6 +1737,255 @@ def mesh_pass(device, card, project, n_view=813 * 793):
 
 
 
+# ---------------------------------------------------------------- phase 16
+# the data-prep tail: a raw AOI prepared, scored, trained and validated
+PREP_STEPS = 300
+DEPTH_MAE_BAR = 0.05  # m: the lidar's own surface through the splat
+UTM_ROUND_TRIP_BAR = 1e-4  # m: UTM text and back to ECEF
+# the flagship's flags as phase 13 takes them, without --sem: the prepared
+# data has no semantic labels (the JAX package's create_dataset writes none)
+PREP_FLAGS = ["--aoi_id", AOI_ID, "--model", "sp-nerf", "--mapping",
+              "--guidedsample", "--sc_lambda", "0.1", "--depth",
+              "--ds_lambda", "1.0", "--chunk", "40960", "--log_every", "50",
+              "--no_timestamp_exp_name"]
+
+
+def prep_pass(device, card, hold_hash):
+    """Phase 16 in a temporary project: (a) a raw DFC2019 AOI at full size
+    prepared by `python -m spnerf_torch.data.create_dataset`, depth made
+    from its lidar, `tools utm-to-geocentric` on a UTM copy of one depth
+    file, `tools cal-rmse-depth` on the card (held against the CPU), and
+    `convert-tiff` and `viz-dsm`; (b) the flagship trained PREP_STEPS steps
+    on it through the CLI and validated, B1 held per launch and the render
+    against the plain render on the test view's first and ragged last
+    chunk; (c) the hash family 10 steps on it, B2 and B3 held on one step's
+    inputs (hold_hash); (d) `dryrun_torch.dryrun_multichip(2)` on the card.
+    Returns the record it prints."""
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     render_config_from_args)
+    from spnerf_torch.data.micmac import cal_rmse_depth, dense_depth_to_dsm
+    from spnerf_torch.data.synth_depth import synthesize_depth_from_lidar
+    from spnerf_torch.evaluation.dsm import rasterize_dsm
+    from spnerf_torch.geo import ecef_to_latlon, latlon_to_utm
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.render import build_render_fn, chunk_size
+    from spnerf_torch.tools import main as tools_main
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.train.loop import scene_to_device_arrays
+    from spnerf_torch.utils.synth_scene import write_raw_aoi
+
+    import dryrun_torch
+
+    rec = {"card": card, "s": {}}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["s"][tag] = time.perf_counter() - t0
+        log(f"  {tag}: {rec['s'][tag]:.2f} s")
+        return out
+
+    with tempfile.TemporaryDirectory() as project:
+        # (a) the raw AOI to a prepared dataset
+        raw = os.path.join(project, "raw")
+        written = timed("write_raw", lambda: write_raw_aoi(
+            raw, crop_px=800, roi_size=512, seed=0))
+        timed("create_dataset", lambda: subprocess.run(
+            [sys.executable, "-m", "spnerf_torch.data.create_dataset",
+             "--aoi_id", AOI_ID, "--dataset_dir", raw, "--output_dir",
+             os.path.join(project, "prepared"), "--seed", "0"],
+            cwd=HERE, check=True))
+        data_dir = os.path.join(project, "prepared", AOI_ID)
+        json_dir, gt_dir = (os.path.join(data_dir, "JSON"),
+                            os.path.join(data_dir, "Truth"))
+        metas = {}
+        for name in sorted(os.listdir(json_dir)):
+            if name.endswith(".json"):
+                with open(os.path.join(json_dir, name)) as f:
+                    m = json.load(f)
+                metas[m["img"]] = (m["width"], m["height"],
+                                   m["sun_elevation"], m["sun_azimuth"])
+        with open(os.path.join(json_dir, "train.txt")) as f:
+            train = f.read().split()
+        rec["images"] = metas
+        log(f"prepared {len(metas)} images (width, height, sun el, az): "
+            f"{json.dumps(metas)}; train {train}")
+        if len(metas) != 4 or len(train) != 2:
+            fail(f"prepared images {metas}, train split {train}")
+        for img, (_, _, el, az) in metas.items():
+            if (el, az) != tuple(written["sun"][img]):
+                fail(f"{img}: sun angles {el}, {az} in its JSON, "
+                     f"{written['sun'][img]} in its tag 42112")
+        ids = timed("synthesize_depth", lambda: synthesize_depth_from_lidar(
+            json_dir, gt_dir, AOI_ID, os.path.join(data_dir, "Depth"),
+            stride=2, verbose=False))
+        pts_path = os.path.join(data_dir, "Depth", f"{ids[0]}_3DPts_ecef.txt")
+        ecef = np.loadtxt(pts_path)
+        rec["depth_points"] = len(ecef)
+
+        # a UTM copy of the depth file, back to ECEF through the tool
+        utm_dir = os.path.join(project, "utm")
+        os.makedirs(utm_dir)
+        lat, lon, alt = ecef_to_latlon(ecef[:, 0], ecef[:, 1], ecef[:, 2])
+        east, north, _, _ = latlon_to_utm(lat, lon, 17, True)
+        np.savetxt(os.path.join(utm_dir, f"{ids[0]}_3DPts.txt"),
+                   np.stack([east, north, alt], -1))
+        back, = timed("utm_to_geocentric", lambda: tools_main([
+            "utm-to-geocentric", "--file_dir", utm_dir, "--aoi_id", AOI_ID]))
+        rec["utm_round_trip_m"] = float(np.abs(np.loadtxt(back)
+                                               - ecef).max())
+        log(f"utm-to-geocentric: {len(ecef)} points back within "
+            f"{rec['utm_round_trip_m']:.3g} m")
+        if not rec["utm_round_trip_m"] <= UTM_ROUND_TRIP_BAR:
+            fail(f"utm-to-geocentric round trip {rec['utm_round_trip_m']} m")
+
+        # the depth scored on the card, against the CPU's score
+        stats = timed("cal_rmse_depth", lambda: tools_main([
+            "cal-rmse-depth", "--pts3d_ecef", pts_path, "--gt_dir", gt_dir,
+            "--aoi_id", AOI_ID, "--out_dir", os.path.join(project, "rmse"),
+            "--device", str(device)]))
+        on_cpu = cal_rmse_depth(pts_path, gt_dir, AOI_ID, device="cpu")
+        roi_txt = os.path.join(gt_dir, f"{AOI_ID}_DSM.txt")
+        xoff, yoff, size, res = np.loadtxt(roi_txt)
+        rec.update(depth=stats, depth_cpu=on_cpu, depth_dsm_ms=cuda_ms(
+            lambda: dense_depth_to_dsm(ecef, roi_txt, device=device), 5),
+            splat_ms=cuda_ms(lambda: rasterize_dsm(
+                east, north, alt, xoff, yoff + size * res, res,
+                xsize=int(size), ysize=int(size), device=device), 5))
+        log(f"cal-rmse-depth on the card: MAE {stats['mae']:.4f} m, RMSE "
+            f"{stats['rmse']:.4f} m, coverage {stats['coverage']:.4f} "
+            f"({len(ecef)} points; CPU {json.dumps(on_cpu)}); the splat "
+            f"{rec['splat_ms']:.3f} ms from UTM (its float64 origin "
+            f"subtraction and copy included), "
+            f"{rec['depth_dsm_ms']:.3f} ms from ECEF (the host geodesy "
+            f"included) ({card})")
+        if (abs(stats["mae"] - on_cpu["mae"]) > 1e-5
+                or abs(stats["rmse"] - on_cpu["rmse"]) > 1e-5
+                or stats["coverage"] != on_cpu["coverage"]):
+            fail(f"cal-rmse-depth card {stats} vs CPU {on_cpu}")
+        if not stats["mae"] < DEPTH_MAE_BAR:
+            fail(f"depth from the lidar scores MAE {stats['mae']} m, not "
+                 f"below {DEPTH_MAE_BAR}")
+        img = os.path.join(data_dir, "RGB", AOI_ID, f"{ids[0]}.tif")
+        timed("convert_tiff", lambda: tools_main(
+            ["convert-tiff", img, "--out_dir", os.path.join(project, "mm")]))
+        rec["viz_dsm"] = tools_main(["viz-dsm", os.path.join(
+            gt_dir, f"{AOI_ID}_DSM.tif"), os.path.join(project, "dsm.png")])
+
+        # (b) the flagship, PREP_STEPS steps, validated through B1
+        argv = PREP_FLAGS + ["--project_dir", project, "--device",
+                             str(device), "--dataset_dir", data_dir]
+
+        def run(tag, args):
+            """main(args), its seconds and launches (counts set to 0 just
+            before, read just after)."""
+            for k in dt.launches:
+                dt.launches[k] = 0
+            fe.FusedField.launches = 0
+            state = timed(tag, lambda: cli_train.main(args))
+            r = {"s": rec["s"][tag], "b1": fe.FusedField.launches,
+                 "b2": dt.launches["dtab_dense"],
+                 "b3": dt.launches["dtab_sorted"]}
+            exp = args[args.index("--exp_name") + 1]
+            with open(os.path.join(project, "output", exp, "logs",
+                                   "metrics.jsonl")) as f:
+                rows = [json.loads(ln) for ln in f]
+            r["val"] = {x["split"]: {k: x[k] for k in ("psnr", "ssim", "mae")}
+                        for x in rows if x["split"].startswith("val")}
+            r["steps_per_s"] = [x["rays_per_sec"] / 1024 for x in rows
+                                if x["split"] == "train"]
+            r["loss"] = [x["loss"] for x in rows if x["split"] == "train"]
+            rec[tag] = r
+            log(f"{tag}: {json.dumps(r)}")
+            return state, finalize_args(build_train_parser().parse_args(args),
+                                        make_dirs=False)
+
+        fargs = argv + ["--exp_name", "prep_flagship", "--max_train_steps",
+                        str(PREP_STEPS)]
+        state, args = run("flagship", fargs)
+        r = rec["flagship"]
+        _, scene, _ = cli_train.build_trainer_and_scene(args, device)
+        rc = render_config_from_args(args)
+        chunk = chunk_size(rc, args.chunk)
+        view = scene.val_images[-1]
+        n_view = view.h * view.w
+        n_chunks = -(-n_view // chunk)
+        expect = 3 * sum(-(-v.h * v.w // chunk) for v in scene.val_images)
+        if r["b1"] != expect or r["b2"] or r["b3"]:
+            fail(f"the prepared flagship run launched B1 {r['b1']} times "
+                 f"(expected {expect}), B2 {r['b2']}, B3 {r['b3']}")
+        if not np.isfinite(r["val"]["val"]["mae"]):
+            fail(f"the prepared flagship run's MAE: {r['val']}")
+        # C7: B1 on the trained field's own samples of the test view
+        sample = scene.load_val_image(view)
+        rays = sample["rays"]
+        render = build_render_fn(state.model, rc, state.t_embed)
+        plain = build_render_fn(state.model, rc, state.t_embed,
+                                field="plain")
+        plain32 = build_render_fn(state.model,
+                                  replace(rc, compute_dtype="float32"),
+                                  state.t_embed, field="plain")
+        r["view"] = {"img": view.img_id, "rays": n_view, "chunk": chunk}
+        launch_errs = []
+        for tag, sl in (("first", slice(0, chunk)),
+                        ("last", slice((n_chunks - 1) * chunk, n_view))):
+            outs = []
+            held = hold_b1_launches(lambda: outs.append(render(rays[sl], 0)),
+                                    f"prepared flagship, {tag} chunk")
+            launch_errs.append(held["max_abs_err"])
+            out, ref, ctl = outs[0], plain(rays[sl], 0), plain32(rays[sl], 0)
+            errs = {"launches_held": held["launches_held"],
+                    "launch_max_abs_err": held["max_abs_err"]}
+            for k, v in ref.items():
+                p99, mx = p99_max(out[k], v)
+                c99, cmx = p99_max(out[k], ctl[k])
+                errs[k] = {"p99": p99, "max": mx, "control_p99": c99,
+                           "control_max": cmx}
+                log(f"  prepared flagship, {tag} chunk ({len(rays[sl])} "
+                    f"rays), {k}: kernel vs plain render p99 {p99:.3g}, max "
+                    f"{mx:.3g}; control (vs plain float32) p99 {c99:.3g}, "
+                    f"max {cmx:.3g}")
+                if not (p99 <= RENDER_P99 and mx <= RENDER_MAX):
+                    fail(f"prepared flagship, {tag} chunk, {k}: kernel "
+                         f"render disagrees with the plain render")
+            r["view"][tag] = errs
+        r["launch_max_abs_err"] = max(launch_errs)
+        log(f"prepared flagship: {PREP_STEPS} steps in {r['s']:.1f} s, MAE "
+            f"{r['val']['val']['mae']:.4f} m, B1 launches {r['b1']}, each "
+            f"held launch within {r['launch_max_abs_err']:.3g} of its plain "
+            f"version (KERNEL_ATOL {KERNEL_ATOL}) ({card})")
+        del state, scene, render, plain, plain32
+        torch.cuda.empty_cache()
+
+        # (c) the hash family on the same dataset, B2 and B3 held
+        hargv = argv + HASH_ARGS + ["--exp_name", "prep_hash",
+                                    "--max_train_steps", "10"]
+        hstate, hargs = run("hash", hargv)
+        r = rec["hash"]
+        if (r["b2"], r["b3"]) != (3 * 10, 21 * 10):
+            fail(f"the prepared hash run launched B2 {r['b2']} and B3 "
+                 f"{r['b3']} times, expected 30 and 210")
+        del hstate
+        htr, hscene, _ = cli_train.build_trainer_and_scene(hargs, device)
+        fresh = htr.init_state(torch.Generator().manual_seed(1))
+        if CheckpointManager(hargs.ckpts_dir).restore(fresh) is None:
+            fail("the prepared hash run's checkpoint does not restore")
+        r["held"] = hold_hash(htr, fresh, htr.to_device(
+            scene_to_device_arrays(hscene)))
+        del fresh, htr, hscene
+        torch.cuda.empty_cache()
+
+    # (d) every train-step variant over two ranks sharing the card
+    results = timed("dryrun", lambda: dryrun_torch.dryrun_multichip(2))
+    rec["dryrun"] = [{"program": x["program"], "loss": x["loss"]}
+                     for x in results[0]]
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2427,6 +2702,14 @@ def main():
         mesh_rec = mesh_pass(device, card, project)
         mesh_rec["phase_s"] = time.time() - t15
         torch.cuda.empty_cache()
+
+    log(f"-- phase 16 at {time.time() - t_start:.1f} s")
+    # 16. a raw AOI prepared, scored, trained and validated; every
+    #     train-step variant over two ranks
+    t16 = time.time()
+    prep_rec = prep_pass(device, card, hold_cli_hash)
+    prep_rec["phase_s"] = time.time() - t16
+    torch.cuda.empty_cache()
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
     occ, multi = paths_rec["occgrid"], paths_rec["multi"]
     field_entry.update(
@@ -2445,6 +2728,10 @@ def main():
         field_entry[f"launches_{tag}"] = layouts[name]["launches"]
         field_entry[f"max_abs_err_{tag}"] = layouts[name]["held"][
             "max_abs_err"]
+
+    field_entry.update(
+        launches_prep=prep_rec["flagship"]["b1"],
+        max_abs_err_prep=prep_rec["flagship"]["launch_max_abs_err"])
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 
@@ -2535,7 +2822,15 @@ def main():
             e[f"launches_{tag}"] = r["launches"][e["name"]]
             e[f"max_abs_err_{tag}"] = r["held"].get(route, {}).get(
                 "max_abs_err")
+    pheld16 = prep_rec["hash"]["held"]
+    dense.update(launches_prep=prep_rec["hash"]["b2"],
+                 max_abs_err_prep=pheld16["dense_err"],
+                 max_rel_err_prep=pheld16["dense_rel"])
+    sorted_.update(launches_prep=prep_rec["hash"]["b3"],
+                   max_abs_err_prep=pheld16["sorted_err"],
+                   max_rel_err_prep=pheld16["sorted_rel"])
     print(json.dumps({"cli": cli_rec}), flush=True)
+    print(json.dumps({"prep": prep_rec}), flush=True)
     print(json.dumps({"mesh": mesh_rec}), flush=True)
     print(json.dumps({"paths": paths_rec}), flush=True)
     print(json.dumps({

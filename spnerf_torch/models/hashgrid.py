@@ -48,6 +48,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.dtab import dtab, dtab_levels, window_eligible
 from ..ops.occgrid import frame_decompose
+from ..switches import HASH_SWITCHES, refuse
 from .spnerf import TorchDense, as_dtype, embed_lookup, softplus, uniform_
 
 # the spatial hash's primes; products are taken modulo 2^32 as in uint32
@@ -274,6 +275,7 @@ class HashGridEncoding(nn.Module):
                 for r in self.resolutions]
 
     def forward(self, xyz):
+        refuse(HASH_SWITCHES)  # the JAX package's switches that change it
         L, nf, T = self.n_levels, self.n_features, self.table_size
         xyz = xyz.float()
         frame = None

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..switches import refuse
+
 INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
@@ -35,6 +37,7 @@ def sample_pdf(bins, weights, n_importance, det=False, u=None, eps=1e-5):
     bins: (R, M+1) edges; weights: (R, M); u: (R, n_importance) draws, used
     unless `det` or u is None (then evenly spaced). Returns (R, n_importance).
     """
+    refuse(("SPNERF_PDF_LOOKUP",))
     n_rays, m = weights.shape
     weights = weights + eps
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)

@@ -1,22 +1,28 @@
-"""Run tools: the `render` and `summarize-runs` subcommands of the JAX
-package's `tools.py`.
+"""Helper and run tools: the subcommands of the JAX package's `tools.py`.
 
 `python -m spnerf_torch.tools <subcommand>`:
 
-  render          render every validation view (and its DSM, depth, sun,
-                  albedo and semantic outputs) from a saved checkpoint: it
-                  reads the run's opts.json, rebuilds the trainer and the
-                  scene, restores --step best|latest|N and runs
-                  `run_validation`, which renders through the fused field
-                  kernel (B1) on the card, placing the samples by the
-                  checkpoint's occupancy grid where the run has one.
-                  `python eval_torch.py` can then score the outputs.
-  summarize-runs  one table over training runs: the encoding, the last
-                  step, the median logged rays/s and each view's newest
-                  validation PSNR/SSIM/MAE (from logs/metrics.jsonl).
+  utm-to-geocentric  MicMac *_3DPts.txt (UTM) -> *_3DPts_ecef.txt
+  convert-tiff       GeoTIFF -> MicMac-compatible uncompressed TIFF
+  cal-rmse-depth     MAE/RMSE of MicMac input depth against the lidar DSM;
+                     the DSM splat runs on the card unless --device cpu
+  viz-depth-in       sparse input depth: raw, over the image, side by side
+  viz-dsm            DSM GeoTIFF -> viridis PNG
+  render             render every validation view (and its DSM, depth, sun,
+                     albedo and semantic outputs) from a saved checkpoint: it
+                     reads the run's opts.json, rebuilds the trainer and the
+                     scene, restores --step best|latest|N and runs
+                     `run_validation`, which renders through the fused field
+                     kernel (B1) on the card, placing the samples by the
+                     checkpoint's occupancy grid where the run has one.
+                     `python eval_torch.py` can then score the outputs.
+  summarize-runs     one table over training runs: the encoding, the last
+                     step, the median logged rays/s and each view's newest
+                     validation PSNR/SSIM/MAE (from logs/metrics.jsonl).
 
-The data-preparation and visualisation subcommands are not ported yet
-(ROADMAP A7).
+The viz subcommands draw with matplotlib; where it does not import they
+name the PNGs they skip. The JAX package's `warm-cache` fills XLA's
+compilation cache and has no counterpart here.
 """
 
 import argparse
@@ -24,6 +30,67 @@ import glob
 import json
 import os
 import sys
+
+
+def _cmd_utm_to_geocentric(args):
+    from .data.micmac import convert_3dpts_file
+
+    if args.file:
+        files = list(args.file)
+    else:
+        files = sorted(glob.glob(os.path.join(args.file_dir, "*_3DPts.txt")))
+        if not files:
+            sys.exit(f"no *_3DPts.txt under {args.file_dir}")
+    outs = []
+    for f in files:
+        outs.append(convert_3dpts_file(f, aoi_id=args.aoi_id, zone=args.zone,
+                                       northern=not args.south))
+        print(f"{f} -> {outs[-1]}")
+    return outs
+
+
+def _cmd_convert_tiff(args):
+    from .data.micmac import convert_tiff
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    outs = []
+    for f in args.input:
+        outs.append(convert_tiff(f, os.path.join(args.out_dir,
+                                                 os.path.basename(f))))
+        print(f"{f} -> {outs[-1]}")
+    return outs
+
+
+def _cmd_cal_rmse_depth(args):
+    from .data.micmac import cal_rmse_depth
+    from .device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+    stats = cal_rmse_depth(args.pts3d_ecef, args.gt_dir, args.aoi_id,
+                           out_dir=args.out_dir, device=device)
+    print(json.dumps(stats))
+    return stats
+
+
+def _cmd_viz_depth_in(args):
+    from .visualization.depth import visualize_depth_points
+
+    depth = visualize_depth_points(args.pts2d, args.pts3d, args.image,
+                                   args.out_prefix)
+    if os.path.exists(f"{args.out_prefix}_raw.png"):
+        print(f"wrote {args.out_prefix}_{{raw,overlay,side_by_side}}.png")
+    return depth
+
+
+def _cmd_viz_dsm(args):
+    from .visualization.depth import visualize_dsm
+
+    out = visualize_dsm(args.dsm, args.output)
+    if out is not None:
+        print(f"wrote {out}")
+    return out
 
 
 def _cmd_render(args):
@@ -176,8 +243,55 @@ def _cmd_summarize_runs(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="python -m spnerf_torch.tools",
-        description="SP-NeRF run tools (PyTorch/CUDA)")
+        description="SP-NeRF helper and run tools (PyTorch/CUDA)")
     sub = p.add_subparsers(dest="command", required=True)
+
+    u = sub.add_parser("utm-to-geocentric",
+                       help="MicMac *_3DPts.txt (UTM) -> *_3DPts_ecef.txt")
+    u.add_argument("--file_dir", type=str,
+                   help="directory of *_3DPts.txt files")
+    u.add_argument("--file", type=str, nargs="*",
+                   help="explicit file list (alternative to --file_dir)")
+    u.add_argument("--aoi_id", type=str,
+                   help="AOI id whose city prefix selects the UTM zone "
+                        "(e.g. JAX_269)")
+    u.add_argument("--zone", type=int, default=None,
+                   help="explicit UTM zone (overrides --aoi_id)")
+    u.add_argument("--south", action="store_true",
+                   help="southern hemisphere (default northern)")
+    u.set_defaults(fn=_cmd_utm_to_geocentric)
+
+    c = sub.add_parser("convert-tiff",
+                       help="re-encode GeoTIFFs MicMac-compatibly")
+    c.add_argument("input", type=str, nargs="+")
+    c.add_argument("--out_dir", type=str, required=True)
+    c.set_defaults(fn=_cmd_convert_tiff)
+
+    r = sub.add_parser("cal-rmse-depth",
+                       help="score MicMac input depth against the lidar DSM")
+    r.add_argument("--pts3d_ecef", type=str, required=True)
+    r.add_argument("--gt_dir", type=str, required=True,
+                   help="directory with <aoi>_DSM.{tif,txt}")
+    r.add_argument("--aoi_id", type=str, required=True)
+    r.add_argument("--out_dir", type=str, default=None,
+                   help="optionally save the rasterized depth DSM here")
+    r.add_argument("--device", type=str, default=None,
+                   help="torch device of the DSM splat: the card by "
+                        "default; 'cpu' runs on the CPU")
+    r.set_defaults(fn=_cmd_cal_rmse_depth)
+
+    vi = sub.add_parser("viz-depth-in",
+                        help="visualize sparse input depth on the image")
+    vi.add_argument("--pts2d", type=str, required=True)
+    vi.add_argument("--pts3d", type=str, required=True)
+    vi.add_argument("--image", type=str, required=True)
+    vi.add_argument("--out_prefix", type=str, required=True)
+    vi.set_defaults(fn=_cmd_viz_depth_in)
+
+    vo = sub.add_parser("viz-dsm", help="DSM GeoTIFF -> viridis PNG")
+    vo.add_argument("dsm", type=str)
+    vo.add_argument("output", type=str)
+    vo.set_defaults(fn=_cmd_viz_dsm)
 
     rd = sub.add_parser(
         "render",
@@ -224,6 +338,12 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if (args.command == "utm-to-geocentric" and args.zone is None
+            and not args.aoi_id):
+        sys.exit("utm-to-geocentric needs --aoi_id or --zone")
+    if (args.command == "utm-to-geocentric" and not args.file
+            and not args.file_dir):
+        sys.exit("utm-to-geocentric needs --file_dir or --file")
     return args.fn(args)
 
 

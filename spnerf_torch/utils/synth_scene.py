@@ -21,20 +21,33 @@ denominator terms keep `localization` doing real Gauss-Newton work. No
 scene.loc is written: the first `load_scene` fits it.
 
 Depth points, and `surface_points` of any image, come from the fixed-point
-ray-surface intersection of the JAX package's
-`data/synth_depth.py:synthesize_depth_for_image` (localize at the current
+ray-surface intersection of `data/synth_depth.py` (localize at the current
 altitude, look the DSM up at the ground point, repeat; keep the pixels whose
-final point reprojects within a pixel), copied here.
+final point reprojects within a pixel).
+
+`write_raw_aoi(root, ...)` writes the same kind of AOI in the layout of the
+raw DFC2019 release instead, the input of `data/create_dataset.py`:
+
+  root/RGB/{aoi}/{img}.tif     uint8 RGB, larger than the ROI's footprint,
+      the RPC00B block in tag 50844 and the sun angles as NITF_USE00A_SUN_EL
+      and _SUN_AZ items of the GDAL-metadata tag (42112)
+  root/Truth/{aoi}_DSM.tif, {aoi}_DSM.txt   the lidar DSM and its ROI
 
 The image and ROI sizes are arguments: the bundled AOI's 813 x 793 px and
 512 x 512 cells at 0.5 m on the card, a few tens of pixels in tests.
+`write_raw_aoi` sizes its images from the crop it should give (about 800 px
+a side over a 512-cell ROI on the card), within a margin of a quarter of
+that on each side.
 """
 
 import os
 
 import numpy as np
 
-from ..geo import RPCModel, geodetic_to_ecef, latlon_to_utm, utm_to_latlon
+from ..data.create_dataset import (_T_GDAL_METADATA, _T_RPC,
+                                   rpc_to_geotiff_tag)
+from ..data.synth_depth import synthesize_depth_for_image
+from ..geo import RPCModel, latlon_to_utm, utm_to_latlon
 from ..io import write_dict_to_json, write_geotiff
 
 ZONE, NORTHERN = 17, True  # Jacksonville
@@ -42,6 +55,8 @@ CENTER_LATLON = (30.3124, -81.6626)
 GROUND_ALT = 2.0  # m, at the ROI centre
 RESOLUTION = 0.5  # m, the DFC2019 lidar grid
 DEPTH_STRIDE = 4  # MicMac depth at every 4th pixel of every 4th row
+RAW_IMAGES = 4  # JAX_269's count: 2 train and 2 test after the split
+RAW_MARGIN = 0.25  # of the crop, on each side of a raw image
 WATER, TREES, BUILDING, GROUND = 9, 5, 6, 2
 _COLORS = {GROUND: (150, 140, 120), BUILDING: (200, 90, 80),
            WATER: (40, 70, 140), TREES: (50, 120, 50)}
@@ -110,52 +125,12 @@ def _rpc(rng, width, height, gsd, alt_scale):
         col_num=col_num, col_den=col_den)
 
 
-def _dsm_lookup(dsm, xoff, yoff_top, res, easts, norths):
-    """Nearest-neighbor altitude lookup; NaN outside the ROI."""
-    cols = np.floor((easts - xoff) / res).astype(np.int64)
-    rows = np.floor((yoff_top - norths) / res).astype(np.int64)
-    ok = ((cols >= 0) & (cols < dsm.shape[1])
-          & (rows >= 0) & (rows < dsm.shape[0]))
-    alts = np.full(easts.shape, np.nan)
-    alts[ok] = dsm[rows[ok], cols[ok]]
-    return alts
-
-
 def surface_points(meta, dsm, roi, stride=1):
     """One image -> (pts2d (N, 2) int64 [col, row], pts3d (N, 3) ECEF,
     correl (N,)): the pixels on a `stride` grid whose ray meets the DSM
-    surface, by the fixed-point iteration of the JAX package's
-    `synthesize_depth_for_image`. roi: (xoff, south yoff, size, res)."""
-    rpc = RPCModel.from_dict(meta["rpc"])
-    xoff, yoff, size, res = [float(v) for v in roi]
-    yoff_top = yoff + size * res
-    dsm = np.asarray(dsm, np.float64)
-
-    cols, rows = np.meshgrid(
-        np.arange(0, int(meta["width"]), stride, dtype=np.int64),
-        np.arange(0, int(meta["height"]), stride, dtype=np.int64),
-    )
-    cols = cols.reshape(-1).astype(np.float64)
-    rows = rows.reshape(-1).astype(np.float64)
-
-    alts = np.full(cols.shape, float(np.nanmean(dsm)))
-    lons = lats = None
-    for _ in range(6):
-        lons, lats = rpc.localization(cols, rows, alts)
-        easts, norths, _, _ = latlon_to_utm(lats, lons, ZONE, NORTHERN)
-        new_alts = _dsm_lookup(dsm, xoff, yoff_top, res, easts, norths)
-        alts = np.where(np.isfinite(new_alts), new_alts, alts)
-    easts, norths, _, _ = latlon_to_utm(lats, lons, ZONE, NORTHERN)
-    valid = np.isfinite(_dsm_lookup(dsm, xoff, yoff_top, res, easts, norths))
-    # at surface discontinuities the altitude iteration oscillates between
-    # roof and ground: keep the points that reproject onto their pixel
-    pc, pr = rpc.projection(lons, lats, alts)
-    reproj_err = np.hypot(pc - cols, pr - rows)
-    valid &= reproj_err < 1.0
-    x, y, z = geodetic_to_ecef(lats[valid], lons[valid], alts[valid])
-    pts2d = np.stack([cols[valid], rows[valid]], axis=-1).astype(np.int64)
-    correl = 100.0 * (1.0 - reproj_err[valid])
-    return pts2d, np.stack([x, y, z], axis=-1), correl
+    surface (`data/synth_depth.py`). roi: (xoff, south yoff, size, res)."""
+    return synthesize_depth_for_image(meta, np.asarray(dsm, np.float64), roi,
+                                      ZONE, NORTHERN, stride=stride)
 
 
 def _rgb(rng, rpc, cls, roi, width, height):
@@ -183,6 +158,26 @@ def _rgb(rng, rpc, cls, roi, width, height):
     return np.clip(img, 0, 255).astype(np.uint8).reshape(height, width, 3)
 
 
+def _write_lidar(gt_dir, aoi_id, roi_size, rng):
+    """The ROI (xoff, south yoff, size, res) centred on CENTER_LATLON, its
+    surface and classes from `rng`, the DSM written as {aoi}_DSM.tif and
+    {aoi}_DSM.txt under gt_dir. Returns (roi, dsm, cls, transform)."""
+    resolution = RESOLUTION
+    e0, n0, _, _ = latlon_to_utm(np.array([CENTER_LATLON[0]]),
+                                 np.array([CENTER_LATLON[1]]), ZONE, NORTHERN)
+    half = roi_size * resolution / 2
+    roi = (float(np.round(e0[0] - half)), float(np.round(n0[0] - half)),
+           int(roi_size), float(resolution))
+    dsm, cls = _surface(rng, roi_size, resolution)
+    transform = (roi[0], resolution, roi[1] + roi_size * resolution,
+                 -resolution)
+    write_geotiff(os.path.join(gt_dir, f"{aoi_id}_DSM.tif"), dsm,
+                  transform=transform, epsg=32600 + ZONE)
+    np.savetxt(os.path.join(gt_dir, f"{aoi_id}_DSM.txt"),
+               np.array(roi, np.float64), fmt="%.6f")
+    return roi, dsm, cls, transform
+
+
 def write_synthetic_aoi(root, aoi_id="JAX_269", width=813, height=793,
                         roi_size=512, n_train=3, seed=0):
     """Write the AOI under `root`: n_train train images and one test image
@@ -200,21 +195,11 @@ def write_synthetic_aoi(root, aoi_id="JAX_269", width=813, height=793,
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
 
-    e0, n0, _, _ = latlon_to_utm(np.array([CENTER_LATLON[0]]),
-                                 np.array([CENTER_LATLON[1]]), ZONE, NORTHERN)
-    half = roi_size * resolution / 2
-    roi = (float(np.round(e0[0] - half)), float(np.round(n0[0] - half)),
-           int(roi_size), float(resolution))
-    dsm, cls = _surface(rng, roi_size, resolution)
-    transform = (roi[0], resolution, roi[1] + roi_size * resolution,
-                 -resolution)
-    epsg = 32600 + ZONE
-    write_geotiff(os.path.join(dirs["gt_dir"], f"{aoi_id}_DSM.tif"), dsm,
-                  transform=transform, epsg=epsg)
-    np.savetxt(os.path.join(dirs["gt_dir"], f"{aoi_id}_DSM.txt"),
-               np.array(roi, np.float64), fmt="%.6f")
+    roi, dsm, cls, transform = _write_lidar(dirs["gt_dir"], aoi_id,
+                                            roi_size, rng)
     write_geotiff(os.path.join(dirs["sem_dir"], f"{aoi_id}_CLS.tif"), cls,
-                  transform=transform, epsg=epsg)
+                  transform=transform, epsg=32600 + ZONE)
+    half = roi_size * resolution / 2
 
     corners = np.array([[0, 0], [1, 0], [1, 1], [0, 1], [0, 0]], np.float64)
     lat_c, lon_c = utm_to_latlon(roi[0] + corners[:, 0] * 2 * half,
@@ -252,3 +237,43 @@ def write_synthetic_aoi(root, aoi_id="JAX_269", width=813, height=793,
             f.write("\n".join(f"{i}.json" for i in split) + "\n")
     return dict(dirs, train=ids[:n_train], test=ids[n_train:], roi=roi)
 
+
+def raw_image_xml(el, az, date):
+    """GDAL-metadata XML carrying the NITF items GDAL copies from an NTF."""
+    return ('<GDALMetadata>\n'
+            f'  <Item name="NITF_STDIDC_ACQUISITION_DATE">{date}</Item>\n'
+            f'  <Item name="NITF_USE00A_SUN_EL">{el:+.1f}</Item>\n'
+            f'  <Item name="NITF_USE00A_SUN_AZ">{az:+.1f}</Item>\n'
+            '</GDALMetadata>')
+
+
+def write_raw_aoi(root, aoi_id="JAX_269", crop_px=800, roi_size=512,
+                  sun_metadata=True, seed=0):
+    """Write a raw DFC2019 AOI under `root`: RAW_IMAGES images whose crop
+    to the roi_size-cell lidar ROI is about crop_px a side, each image
+    (1 + 2 * RAW_MARGIN) times that, and the lidar DSM. sun_metadata=False
+    leaves tag 42112 out. Returns {"img_dir", "gt_dir", "roi", "sun"} (sun:
+    {img file: (elevation, azimuth)}, as written)."""
+    rng = np.random.default_rng(seed)
+    dirs = {"img_dir": os.path.join(root, "RGB", aoi_id),
+            "gt_dir": os.path.join(root, "Truth")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    roi, dsm, cls, _ = _write_lidar(dirs["gt_dir"], aoi_id, roi_size, rng)
+
+    gsd = roi_size * RESOLUTION / crop_px
+    size = int(round(crop_px * (1 + 2 * RAW_MARGIN)))
+    lo, hi = float(dsm.min()) - 5.0, float(dsm.max()) + 5.0
+    sun = {}
+    for k in range(RAW_IMAGES):
+        name = f"{aoi_id}_{k:03d}_RGB.tif"
+        rpc = _rpc(rng, size, size, gsd, alt_scale=(hi - lo) / 2)
+        el, az = rng.uniform(40.0, 70.0), rng.uniform(100.0, 200.0)
+        sun[name] = (round(el, 1), round(az, 1))
+        xml = raw_image_xml(el, az, f"2015{k + 1:02d}15")
+        write_geotiff(os.path.join(dirs["img_dir"], name),
+                      _rgb(rng, rpc, cls, roi, size, size),
+                      extra_double_tags={_T_RPC: rpc_to_geotiff_tag(rpc)},
+                      extra_ascii_tags={_T_GDAL_METADATA: xml}
+                      if sun_metadata else None)
+    return dict(dirs, roi=roi, sun=sun)

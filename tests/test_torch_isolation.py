@@ -14,7 +14,7 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "spnerf_tpu")
 def port_sources():
     files = sorted((ROOT / "spnerf_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "main_torch.py",
-              ROOT / "eval_torch.py"]
+              ROOT / "eval_torch.py", ROOT / "dryrun_torch.py"]
     return files
 
 
@@ -35,6 +35,10 @@ def imported_modules(path):
 def test_port_imports_no_jax():
     files = port_sources()
     assert len(files) > 10 and all(f.exists() for f in files)
+    for module in ("data/micmac.py", "data/synth_depth.py",
+                   "data/create_dataset.py", "visualization/depth.py",
+                   "switches.py"):
+        assert ROOT / "spnerf_torch" / module in files, module
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in imported_modules(f)
            if m and m.split(".")[0] in BANNED]
@@ -80,9 +84,9 @@ def test_train_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_cli_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    """The training and evaluation CLIs, `tools render` and LPIPS run on the
-    card unless asked for the CPU: without CUDA they raise before they
-    write anything."""
+    """The training and evaluation CLIs, `tools render`, `tools
+    cal-rmse-depth` (its DSM splat) and LPIPS run on the card unless asked
+    for the CPU: without CUDA they raise before they write anything."""
     from spnerf_torch.cli import evaluate, train
     from spnerf_torch.evaluation.lpips import lpips
     from spnerf_torch.tools import main as tools_main
@@ -97,9 +101,27 @@ def test_cli_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: evaluate.main(["--project_dir", str(proj), "--exp_name",
                                "e", "--dataset_dir", str(proj)]),
         lambda: tools_main(["render", "--run_dir", str(proj)]),
+        lambda: tools_main(["cal-rmse-depth", "--pts3d_ecef", str(proj),
+                            "--gt_dir", str(proj), "--aoi_id", "JAX_269"]),
         lambda: lpips(None, None, weights_path=str(proj)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not proj.exists()
+
+
+def test_dataset_preparation_needs_no_device(monkeypatch, tmp_path):
+    """`python -m spnerf_torch.data.create_dataset` and the depth synthesis
+    are host numpy: they run without CUDA and without a device flag."""
+    from spnerf_torch.data.create_dataset import main
+    from spnerf_torch.data.synth_depth import synthesize_depth_from_lidar
+    from spnerf_torch.utils.synth_scene import write_raw_aoi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    write_raw_aoi(str(tmp_path / "raw"), crop_px=24, roi_size=16)
+    out, _, json_dir = main(["--aoi_id", "JAX_269", "--dataset_dir",
+                             str(tmp_path / "raw"), "--output_dir",
+                             str(tmp_path / "out")])
+    assert synthesize_depth_from_lidar(json_dir, f"{out}/Truth", "JAX_269",
+                                       f"{out}/Depth", verbose=False)

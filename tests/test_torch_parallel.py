@@ -9,8 +9,12 @@ processes (`tests/test_torch_ranks.py`).
   batch of 64 (32 a rank) on shared weights. Each rank is handed the JAX
   device's batch rows and render draws from the keys `_step_impl` folds
   with the device index, and the grid case JAX's unfolded grid jitter.
-  Cases: a small Siren, a small hash field, and the Siren with the
-  occupancy grid. Bars: the averaged loss 2e-5 relative at every step;
+  Cases: a small Siren, a small hash field, the Siren with the occupancy
+  grid, and, as the JAX package's dry run has them (`__graft_entry__.py`),
+  beta with the fine pass (the beta loss on from step 0), the proposal
+  sampler (no depth loss, no guided sampling, its table redrawn at scale
+  0.5) and a hash field of two multi-AOI frames (half the rays in frame
+  1). Bars: the averaged loss 2e-5 relative at every step;
   step 0's averaged gradients within 2e-4 of each leaf's largest entry
   (the JAX ones computed device by device and averaged, as `pmean`
   does); the parameters after 3 steps within 1e-4, the trajectory bar
@@ -24,6 +28,18 @@ processes (`tests/test_torch_ranks.py`).
   and the grid by 9.8e-6 (the same refresh on the same weights is held at
   1e-5 in `tests/test_torch_occgrid.py`, so 1e-6 is out of reach). The two
   ranks' parameters, optimizer state and grid are bit for bit equal.
+  Two cases hold their parameters after 3 steps at 2e-4, each for one
+  entry measured past 1e-4 (every other bar is the test's):
+  - beta_fine: one fine-field kernel entry of 3,040 at 1.22e-4 (its Adam
+    second moment 7.4e-9, a normal gradient): after step 0 the packages'
+    weights differ by rounding, and the inverse CDF that places the fine
+    samples is discontinuous where a draw meets a bin's edge, so a fine
+    sample of one ray can land in another bin in each package at step 1
+    or 2 (`tests/test_torch_paths.py` sees 1e-3 on fine depths that way);
+  - frames: one table entry of 131,072 at 1.63e-4, its Adam second moment
+    4.8e-18 (a gradient of ~4e-8, at Adam's eps of 1e-8, where the update
+    lr * g / (|g| + eps) turns a rounding-sized change of g, or a corner
+    of a point on a cell's edge, into a fraction of lr).
 * A mesh of one rank equals a run without a mesh bit for bit (3 steps,
   the generator's draws).
 * The sharded eval render (2 ranks) against the JAX mesh render on
@@ -41,7 +57,9 @@ from spnerf_tpu import config as jconfig
 from spnerf_tpu.parallel import data_mesh as jax_data_mesh
 from spnerf_tpu.train.loop import Trainer as JaxTrainer
 from spnerf_torch.config import LossConfig, ModelConfig, RenderConfig
-from spnerf_torch.convert import field_state_dict, flax_field_params
+from spnerf_torch.convert import (field_state_dict, flax_field_params,
+                                  transient_state_dict)
+from spnerf_torch.data.multi import FRAME_SPACING
 from spnerf_torch.parallel import DataMesh, data_mesh
 from spnerf_torch.train.loop import Trainer
 from spnerf_torch.utils.synth import fake_batch
@@ -56,9 +74,22 @@ HASH = dict(encoding="hash", hash_levels=4, hash_features=2, hash_log2T=14,
 RC = dict(n_samples=8, guidedsample=True, solar_correction=True, sem=True)
 LC = dict(sc_lambda=0.1, depth=True, ds_lambda=1.0, stdscale=1.0, sem=True,
           ss_lambda=1.0)
-CASES = {"siren": (SIREN, RC), "hash": (HASH, RC),
-         "occ_grid": (SIREN, dict(RC, occ_grid=True, occ_res=8, occ_bins=16))}
+# name: (model, render, loss) config keywords
+CASES = {"siren": (SIREN, RC, LC), "hash": (HASH, RC, LC),
+         "occ_grid": (SIREN, dict(RC, occ_grid=True, occ_res=8, occ_bins=16),
+                      LC),
+         # the beta loss on from step 0, so that step 0's gradients reach
+         # the beta head and the transient embedding
+         "beta_fine": (dict(SIREN, beta=True),
+                       dict(RC, beta=True, n_importance=4),
+                       dict(LC, beta=True, first_beta_epoch=0)),
+         "proposal": (SIREN, dict(RC, proposal=True, n_proposal=4,
+                                  guidedsample=False),
+                      dict(LC, depth=False, ds_lambda=0.0)),
+         # two multi-AOI frames: the second half of the rays in frame 1
+         "frames": (dict(HASH, hash_frames=2), RC, LC)}
 TRAINER = dict(lr=1e-3, steps_per_epoch=3)
+PARAM_ATOL = {"beta_fine": 2e-4, "frames": 2e-4}  # see the docstring
 N_DATA, BATCH, STEPS = 1001, 64, 3
 
 
@@ -70,9 +101,11 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def scene():
+def scene(case=None):
     b = fake_batch(np.random.default_rng(1), N_DATA)
     b["sems"][::7] = -100
+    if case == "frames":
+        b["rays"][N_DATA // 2:, 0] += FRAME_SPACING
     return b
 
 
@@ -102,22 +135,26 @@ def test_shard_data_matches_the_jax_mesh(world):
 def jax_reference(case):
     """The JAX mesh run: (losses, step 0's averaged gradients, final
     params, final grid, the per-step per-device draws for the port, the
-    initial coarse params)."""
-    mkw, rkw = CASES[case]
+    initial params, the scene), the params and gradients of every module
+    (coarse, fine, proposal, t)."""
+    mkw, rkw, lkw = CASES[case]
     jtr = JaxTrainer(jconfig.ModelConfig(**mkw), jconfig.RenderConfig(**rkw),
-                     jconfig.LossConfig(**LC), mesh=jax_data_mesh(2),
+                     jconfig.LossConfig(**lkw), mesh=jax_data_mesh(2),
                      donate=False, **trainer_kw(rkw))
     state = jtr.init_state(jax.random.PRNGKey(0))
     params = dict(state.params)
-    if "HashGridEncoding_0" in params["coarse"]:
-        coarse = dict(params["coarse"])
-        table = coarse["HashGridEncoding_0"]["table"]
-        coarse["HashGridEncoding_0"] = {"table": jnp.asarray(
-            np.random.default_rng(1).normal(size=table.shape)
-            .astype(np.float32) * 0.1)}
-        params["coarse"] = coarse
+    # hash tables redrawn so that they matter: the field's at scale 0.1,
+    # the proposal's at 0.5
+    for key, scale in (("coarse", 0.1), ("proposal", 0.5)):
+        if "HashGridEncoding_0" in params.get(key, {}):
+            module = dict(params[key])
+            table = module["HashGridEncoding_0"]["table"]
+            module["HashGridEncoding_0"] = {"table": jnp.asarray(
+                np.random.default_rng(1).normal(size=table.shape)
+                .astype(np.float32) * scale)}
+            params[key] = module
     state = state.replace(params=params, opt_state=jtr.tx.init(params))
-    host = scene()
+    host = scene(case)
     n_local = -(-N_DATA // 2)
     padded = {k: v[np.arange(2 * n_local) % N_DATA] for k, v in host.items()}
     bpd = BATCH // 2
@@ -156,8 +193,8 @@ def jax_reference(case):
         state, ld = step_fn(state, data, key)
         losses.append(float(ld["loss"]))
     occ = None if state.occ is None else np.asarray(state.occ)
-    return (losses, grads["coarse"], jax.device_get(state.params["coarse"]),
-            occ, draws, params["coarse"], host)
+    return (losses, grads, jax.device_get(state.params), occ, draws, params,
+            host)
 
 
 def leaves_close(ours, ref, tag, atol=None, rel=None):
@@ -172,20 +209,44 @@ def leaves_close(ours, ref, tag, atol=None, rel=None):
                                    + jax.tree_util.keystr(path))
 
 
+PREFIXES = {"fine.": "fine", "proposal.": "proposal", "t_embed.": "t"}
+
+
+def flax_modules(named):
+    """{flax params key: params tree} of the port's named tensors of every
+    module (`TrainState.named_parameters` names)."""
+    split = {}
+    for k, v in named.items():
+        pre = next((p for p in PREFIXES if k.startswith(p)), "")
+        split.setdefault(PREFIXES.get(pre, "coarse"), {})[k[len(pre):]] = v
+    return {key: ({"embedding": d["embedding"].numpy()} if key == "t"
+                  else flax_field_params(d)) for key, d in split.items()}
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_two_rank_step_matches_the_jax_mesh(case, tmp_path):
-    mkw, rkw = CASES[case]
+    mkw, rkw, lkw = CASES[case]
     losses, grads, params, occ, draws, init, host = jax_reference(case)
-    job = dict(mc=mkw, rc=rkw, lc=LC, trainer=trainer_kw(rkw),
-               weights=field_state_dict(init), data=host, steps=STEPS,
-               batch=BATCH, draws=draws)
+    modules = {name: field_state_dict(init[key])
+               for key, name in (("fine", "fine"), ("proposal", "proposal"))
+               if key in init}
+    if "t" in init:
+        modules["t_embed"] = transient_state_dict(init["t"])
+    job = dict(mc=mkw, rc=rkw, lc=lkw, trainer=trainer_kw(rkw),
+               weights=field_state_dict(init["coarse"]),
+               module_weights=modules, data=host, steps=STEPS, batch=BATCH,
+               draws=draws)
     ranks = [r["runs"][0] for r in run_ranks("mesh_steps", 2, job, tmp_path)]
     ours = ranks[0]
     np.testing.assert_allclose([d["loss"] for d in ours["losses"]], losses,
                                rtol=2e-5)
-    leaves_close(flax_field_params(ours["grads0"]), grads, "grad", rel=2e-4)
-    leaves_close(flax_field_params(ours["params"]), params, "param",
-                 atol=1e-4)
+    ours_grads = flax_modules(ours["grads0"])
+    ours_params = flax_modules(ours["params"])
+    assert set(ours_grads) == set(ours_params) == set(params) == set(grads)
+    for key in params:
+        leaves_close(ours_grads[key], grads[key], f"{key} grad", rel=2e-4)
+        leaves_close(ours_params[key], params[key], f"{key} param",
+                     atol=PARAM_ATOL.get(case, 1e-4))
     if occ is not None:
         np.testing.assert_allclose(ours["occ"].numpy(), occ, rtol=0,
                                    atol=1e-4)
@@ -204,10 +265,10 @@ def test_two_rank_step_matches_the_jax_mesh(case, tmp_path):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_one_rank_mesh_is_no_mesh(case):
-    mkw, rkw = CASES[case]
-    mc, rc, lc = ModelConfig(**mkw), RenderConfig(**rkw), LossConfig(**LC)
+    mkw, rkw, lkw = CASES[case]
+    mc, rc, lc = ModelConfig(**mkw), RenderConfig(**rkw), LossConfig(**lkw)
     kw = trainer_kw(rkw)
-    data = scene()
+    data = scene(case)
     runs = []
     mesh = data_mesh(1, "cpu", timeout_s=60)
     try:

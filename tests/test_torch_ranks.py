@@ -1,6 +1,6 @@
 """Rank processes for the port's multi-rank tests on the CPU
-(`tests/test_torch_parallel.py`, `tests/test_torch_layouts.py`), and the
-tests of that harness itself.
+(`tests/test_torch_parallel.py`, `tests/test_torch_layouts.py`,
+`tests/test_torch_dryrun.py`), and the tests of that harness itself.
 
 `run_ranks(job, world, inputs, tmp_path)` starts `world` spawned
 processes, each one thread and one Gloo rank on a `file://` store under
@@ -28,10 +28,12 @@ COLLECTIVE_TIMEOUT_S = 60
 def mesh_steps(mesh, job):
     """`job["steps"]` train steps of a Trainer over the mesh, once for each
     environment in job["envs"], each from a fresh state (seed 0, then
-    job["weights"] in the field when given): the loss terms of every step,
-    the averaged field gradients of step 0, and the field's parameters,
-    the optimizer state and the grid after the last step. job["draws"]
-    [step][rank] hands each rank its draws (`Trainer.train_step`)."""
+    job["weights"] in the field and job["module_weights"][name] in the
+    state's module `name` when given): the loss terms of every step, the
+    averaged gradients of step 0, and the parameters (every module's, named
+    as `TrainState.named_parameters` names them), the optimizer state and
+    the grid after the last step. job["draws"][step][rank] hands each rank
+    its draws (`Trainer.train_step`)."""
     from spnerf_torch.train.loop import Trainer
 
     mc, rc, lc = (ModelConfig(**job["mc"]), RenderConfig(**job["rc"]),
@@ -45,6 +47,8 @@ def mesh_steps(mesh, job):
             state = tr.init_state(torch.Generator().manual_seed(0))
             if "weights" in job:
                 state.model.load_state_dict(job["weights"])
+            for name, sd in job.get("module_weights", {}).items():
+                getattr(state, name).load_state_dict(sd)
             state = tr.replicate_state(state)
             data = tr.shard_data(job["data"])
             losses, grads0 = [], None
@@ -56,7 +60,7 @@ def mesh_steps(mesh, job):
                 losses.append({k: float(v) for k, v in ld.items()})
                 if step == 0:
                     grads0 = {k: p.grad.clone() for k, p in
-                              state.model.named_parameters()
+                              state.named_parameters()
                               if p.grad is not None}
         finally:
             for k, v in old.items():
@@ -67,7 +71,7 @@ def mesh_steps(mesh, job):
         runs.append({
             "losses": losses, "grads0": grads0,
             "params": {k: p.detach().clone()
-                       for k, p in state.model.named_parameters()},
+                       for k, p in state.named_parameters()},
             "optimizer": [{k: v.clone() for k, v in st.items()
                            if torch.is_tensor(v)}
                           for st in state.optimizer.state.values()],
@@ -88,7 +92,16 @@ def render_view(mesh, job):
     return {k: v.clone() for k, v in render(job["rays"], 0).items()}
 
 
-JOBS = {"mesh_steps": mesh_steps, "render_view": render_view}
+def dryrun(mesh, job):
+    """`dryrun_torch.dryrun_multichip` on this rank: its eight programs'
+    losses and parameters."""
+    import dryrun_torch
+
+    return dryrun_torch.dryrun_multichip(mesh.world, mesh=mesh)
+
+
+JOBS = {"mesh_steps": mesh_steps, "render_view": render_view,
+        "dryrun": dryrun}
 
 
 def _rank(job, rank, world, init, in_path, out_path):
