@@ -5,12 +5,20 @@ an NVIDIA H100 and the CUDA toolkit)
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel of the path from spnerf_torch/csrc with nvcc;
+  2. build every kernel of the path from spnerf_torch/csrc with nvcc, the
+     three sources in parallel;
   3. hold the fused-field kernel (B1) against its plain PyTorch version at
      the flagship width (8x512 Siren, bf16) on a ragged 131,195-point batch
      for every head subset, on n = 1, 63, 65 and 187 (three tiles, the last
      ragged), and at widths 96, 160 and 256 (semantic and beta heads) for
-     every head subset;
+     every head subset; then B1's general route
+     (`csrc/field_eval_general.cu`) against the plain version (F32_ATOL in
+     float32 with TF32 off, KERNEL_ATOL in bf16): float32 at the flagship
+     width, every head subset on the 131,195 points and n = 1, 63, 65,
+     187; both dtypes, every head subset, at widths 96, 160 and 256 (bf16
+     packed for the general kernel) and 736, 768, 800 and 1024, with and
+     without a beta head; bf16 at fc_units 80 and with a transient code of
+     32;
   4. render a synthetic 256x256 view (65,536 rays) through the eval renderer
      at the flagship configuration with random weights from seed 0: outputs
      finite and in range, every chunk's three field passes launched the
@@ -18,10 +26,12 @@ Phases, each fatal on failure:
      field, and the view is timed (median of 3 after a warm-up). The same
      subset rendered through the plain field in float32 is printed beside it
      as a control: the size of a change of the rounding policy, which the
-     render limits must sit below. The subset rendered with
-     compute_dtype="float32" on the card launches no B1 (it goes through the
-     module in float32) and agrees with that plain float32 render within
-     1e-4;
+     render limits must sit below. The bf16 view launches the wgmma kernel
+     only. The subset rendered with compute_dtype="float32" on the card
+     launches the general kernel 3 times a chunk (no wgmma) and agrees with
+     that plain float32 render within F32_ATOL; the float32 view is timed
+     (median of 3 after a warm-up) through the general kernel and through
+     the module (the parent's float32 route, a yardstick), in turns;
   5. at the main path's shapes (chunk x n_samples points for the coarse and
      guided passes, chunk x the merged samples per ray for the solar pass),
      hold each launch against its plain version and time both (CUDA events,
@@ -30,7 +40,12 @@ Phases, each fatal on failure:
      (`gemm_ms`, a yardstick the port never calls); the log line also gives
      the weight bytes the launch reads from L2 as the design reckons them
      (every tile streams every weight stage; a reckoning, not a
-     measurement);
+     measurement); then the general route in float32 at the same two
+     shapes: held within F32_ATOL, timed (events, profiler device time)
+     beside its bound at the float32 units' 67 TFLOP/s, the plain version,
+     the same products as float32 `torch.matmul` with TF32 off
+     (`gemm_ms_f32`) and the `SPNeRF` module in float32 on the same
+     inputs (`module_ms`; yardsticks the port never calls on this path);
   6. the table-gradient kernels B2 (dtab_dense) and B3 (dtab_sorted) on the
      inputs of the hash train step: one backward of the hash configuration
      (L8 F4 T=2^19, batch 1024, 64 + 64 + 128 samples) through the plain
@@ -208,13 +223,29 @@ Phases, each fatal on failure:
      `dryrun_torch.dryrun_multichip(2)`: the eight train-step variants of
      the JAX dry run over two Gloo ranks sharing the card, its lines
      printed. Its numbers on one `{"prep": ...}` line;
+ 17. the float32 CLI on phase 12's AOI: phase 13's flagship flags plus
+     `--precision fp32`, 10 steps (the module trains), its final
+     validation through the general kernel (launches counted per route,
+     held to views x chunks x 3, no wgmma launch), each launch of the test
+     view's first and ragged last chunk held against the plain float32
+     version (F32_ATOL), a finite MAE; `tools render --step best` (the
+     logged PSNR and SSIM again, the same launches) and `eval_torch.py
+     --skip_lpips` on its outputs; then a bf16 field of fc_units 768
+     (random weights, seed 768) renders the test view's first and ragged
+     last chunk through the general kernel, held at RENDER_P99/RENDER_MAX
+     against the plain bf16 render (the plain float32 control beside it)
+     and each launch at KERNEL_ATOL. Its numbers on one `{"fp32": ...}`
+     line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
   `launches_proposal` and their `max_abs_err_*`; phase 15's under
   `launches_dp`, `launches_batch_sc`, `launches_batch_solar`,
   `launches_no_merge`, `launches_no_prune` and their `max_abs_err_*`;
-  phase 16's under `launches_prep` and `max_abs_err_prep`).
+  phase 16's under `launches_prep` and `max_abs_err_prep`; the general
+  route's entry `field_eval_general`: phase 5's float32 times, its
+  launches at phase 17's validation, `launches_view` of phase 4's
+  float32 view, its errors in float32 and bf16).
   The env of phases 10, 11 and 15 (d) is set around its use only and
   restored after.
 
@@ -238,6 +269,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 KERNEL_ATOL = 2e-2  # bf16: sum order may flip one bf16 ulp of an activation
+# float32 (the general route against the plain version with TF32 off): the
+# same float32 products summed in another order, through eight layers
+F32_ATOL = 1e-4
 # per-ray outputs, kernel vs plain field: 99th percentile and max. The sound
 # render reads at most 3.1e-4 and 6.1e-4; the plain float32 render of the
 # same rays differs from it by up to 1.8e-3 and 2.8e-3.
@@ -255,6 +289,7 @@ STEP_GRAD_RTOL = 1e-4
 STEP_LOSS_RTOL = 1e-6
 BATCH = 1024
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
+PEAK_F32 = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 N_CHECK = 131_072 + 123
 N_VIEW = 256 * 256
@@ -380,9 +415,10 @@ def launch_shapes(rc, chunk, all_heads):
             "sun": (("sun",), chunk * merged)}
 
 
-def gemm_fn(cfg, heads, n, device):
-    """A launch's products alone: one bf16 (n, K) x (K, N) `torch.matmul`
-    per layer the call runs, back to back (a yardstick, never the port's)."""
+def gemm_fn(cfg, heads, n, device, dtype=torch.bfloat16):
+    """A launch's products alone: one (n, K) x (K, N) `torch.matmul` in
+    `dtype` per layer the call runs, back to back (a yardstick, never the
+    port's; float32 with TF32 off, as main sets it)."""
     from spnerf_torch.models.spnerf import layer_specs
     from spnerf_torch.ops.field_eval import layers_run
 
@@ -390,9 +426,31 @@ def gemm_fn(cfg, heads, n, device):
     ops = []
     for nm in layers_run(cfg, heads):
         k, m = shapes[nm]
-        ops.append((torch.randn(n, k, device=device, dtype=torch.bfloat16),
-                    torch.randn(k, m, device=device, dtype=torch.bfloat16)))
+        ops.append((torch.randn(n, k, device=device, dtype=dtype),
+                    torch.randn(k, m, device=device, dtype=dtype)))
     return lambda: [torch.matmul(a, b) for a, b in ops]
+
+
+def module_render_fn(model, rc, *args):
+    """`build_render_fn` with the field through the `SPNeRF` module, as the
+    parent rendered float32 (a yardstick of the general kernel)."""
+    import spnerf_torch.render as rmod
+
+    real = rmod.uses_fused_kernel
+    rmod.uses_fused_kernel = lambda *a: False
+    try:
+        return rmod.build_render_fn(model, rc, *args)
+    finally:
+        rmod.uses_fused_kernel = real
+
+
+def reset_b1():
+    """Set B1's launch counts, the total and each route's, to 0."""
+    from spnerf_torch.ops import field_eval as fe
+
+    fe.FusedField.launches = 0
+    for k in fe.FusedField.route_launches:
+        fe.FusedField.route_launches[k] = 0
 
 
 AOI_ID = "JAX_269"
@@ -870,6 +928,170 @@ def cli_pass(device, card, project, hold_hash, n_view=813 * 793):
     return rec
 
 
+# phase 17's run: the flagship of phase 13 in float32, and the width of the
+# bf16 field rendered through the general kernel beside it
+FP32_EXP = "flagship_fp32"
+FP32_ARGS = ["--precision", "fp32", "--max_train_steps", "10"]
+WIDE_UNITS = 768
+
+
+def fp32_pass(device, card, project, n_view=813 * 793):
+    """Phase 17: the float32 CLI on phase 12's AOI under `project` (its
+    ray cache): 10 flagship steps at --precision fp32, the final validation
+    through the general kernel, each launch of the test view's first and
+    last chunk held, `tools render --step best` and `eval_torch.py
+    --skip_lpips` on its outputs; then a bf16 field of fc_units WIDE_UNITS
+    on the test view's first and last chunk. Returns the record it
+    prints."""
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.cli.evaluate import main as eval_main
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     model_config_from_args,
+                                     render_config_from_args)
+    from spnerf_torch.models import load_model
+    from spnerf_torch.ops import dtab as dt
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.render import build_render_fn, chunk_size
+    from spnerf_torch.tools import main as tools_main
+    from spnerf_torch.train.checkpoints import CheckpointManager
+
+    rec = {"card": card}
+    argv = CLI_FLAGS + FP32_ARGS + ["--project_dir", project, "--device",
+                                    str(device), "--exp_name", FP32_EXP]
+    os.makedirs(os.path.join(project, "output", FP32_EXP), exist_ok=True)
+    os.symlink(os.path.join(project, "output", FLAGSHIP_EXP, "cache"),
+               os.path.join(project, "output", FP32_EXP, "cache"))
+
+    def run(tag, fn):
+        """fn(), its seconds and B1's launches by route (counts set to 0
+        just before and read just after)."""
+        reset_b1()
+        for k in dt.launches:
+            dt.launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        r = {"s": time.perf_counter() - t0, "b1": fe.FusedField.launches,
+             "b1_routes": dict(fe.FusedField.route_launches),
+             "b2": dt.launches["dtab_dense"], "b3": dt.launches["dtab_sorted"]}
+        rec[tag] = r
+        log(f"{tag}: {json.dumps(r)}")
+        return out
+
+    args = finalize_args(build_train_parser().parse_args(argv),
+                         make_dirs=False)
+    mc, rc = model_config_from_args(args), render_config_from_args(args)
+    if rc.compute_dtype != "float32" or fe.route(mc, "float32") != "general":
+        fail(f"--precision fp32: compute_dtype {rc.compute_dtype}, route "
+             f"{fe.route(mc, rc.compute_dtype)}")
+    chunk = chunk_size(rc, args.chunk)
+    expect = 3 * -(-n_view // chunk) * 2
+
+    # (a) 10 steps at --precision fp32, validated through the general kernel
+    state = run("run", lambda: cli_train.main(argv))
+    r = rec["run"]
+    with open(os.path.join(project, "output", FP32_EXP, "logs",
+                           "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    r["val"] = {x["split"]: {k: x[k] for k in ("psnr", "ssim", "mae")}
+                for x in rows if x["split"].startswith("val")}
+    r["steps_per_s"] = [x["rays_per_sec"] / args.batch_size for x in rows
+                        if x["split"] == "train"]
+    r["loss"] = [x["loss"] for x in rows if x["split"] == "train"]
+    if r["b1_routes"] != {"wgmma": 0, "general": expect} or r["b2"] or r["b3"]:
+        fail(f"the float32 run launched B1 {r['b1_routes']} (expected "
+             f"{expect} general), B2 {r['b2']}, B3 {r['b3']}")
+    if not np.isfinite(r["val"]["val"]["mae"]):
+        fail(f"the float32 run's MAE: {r['val']}")
+
+    # each launch of the test view's first and last chunk on its own
+    # inputs, against the plain float32 version
+    _, scene, _ = cli_train.build_trainer_and_scene(args, device)
+    view = scene.val_images[-1]
+    sample = scene.load_val_image(view, with_sem=True)
+    rays, sems = sample["rays"], sample["sems"]
+    n_chunks = -(-n_view // chunk)
+    slices = {"first": slice(0, chunk),
+              "last": slice((n_chunks - 1) * chunk, n_view)}
+    render = build_render_fn(state.model, rc, state.t_embed, chunk=args.chunk)
+    r["held"] = {}
+    for tag, sl in slices.items():
+        r["held"][tag] = hold_b1_launches(
+            lambda: render(rays[sl], 0, sems[sl]), f"float32 run, {tag} chunk")
+        if r["held"][tag]["routes"] != ["general"]:
+            fail(f"float32 run, {tag} chunk: routes {r['held'][tag]}")
+    r["launch_max_abs_err"] = max(h["max_abs_err"] for h in r["held"].values())
+    log(f"float32 run: 10 steps in {r['s']:.1f} s, MAE "
+        f"{r['val']['val']['mae']:.4f} m, B1 {json.dumps(r['b1_routes'])}, "
+        f"each held launch within {r['launch_max_abs_err']:.3g} of the plain "
+        f"float32 version (F32_ATOL {F32_ATOL}) ({card})")
+    del state, render
+
+    # (b) the best checkpoint re-rendered, and the offline evaluation
+    best = CheckpointManager(args.ckpts_dir).best_step()
+    out = run("render_best", lambda: tools_main([
+        "render", "--run_dir", args.output_dir, "--step", "best", "--device",
+        str(device), "--out_dir", os.path.join(project, "render_fp32")]))
+    logged = [x for x in rows if x["split"] == "val" and x["step"] == best][-1]
+    r = rec["render_best"]
+    r.update(step=out["step"], psnr=out["psnr"], ssim=out["ssim"],
+             logged_psnr=logged["psnr"], logged_ssim=logged["ssim"])
+    if (out["step"] != best
+            or not abs(out["psnr"] - logged["psnr"]) <= RENDER_PSNR_ATOL
+            or not abs(out["ssim"] - logged["ssim"]) <= RENDER_SSIM_ATOL
+            or r["b1_routes"] != {"wgmma": 0, "general": expect}):
+        fail(f"render --step best of the float32 run: {json.dumps(r)}")
+    means = run("eval", lambda: eval_main([
+        "--project_dir", project, "--exp_name", FP32_EXP, "--dataset_dir",
+        os.path.join(project, "dataset", "DFC2019_269"), "--epoch_number",
+        "0", "--skip_lpips", "--device", str(device)]))
+    if not all(np.isfinite(means[k]) for k in ("psnr", "ssim", "mae")):
+        fail(f"eval_torch --skip_lpips on the float32 run: {means}")
+    rec["eval"]["means"] = {k: v if np.isfinite(v) else None
+                            for k, v in means.items()}
+
+    # (c) a bf16 field of fc_units WIDE_UNITS (random weights) through the
+    #     general kernel on the test view's first and last chunk
+    wc = replace(mc, fc_units=WIDE_UNITS)
+    wrc = replace(rc, compute_dtype="bfloat16")
+    if fe.route(wc, "bfloat16") != "general":
+        fail(f"fc_units {WIDE_UNITS} in bf16 routes to {fe.route(wc, 'bfloat16')}")
+    wide = load_model(wc, "bfloat16", device=device,
+                      generator=torch.Generator().manual_seed(WIDE_UNITS))
+    render = build_render_fn(wide, wrc, chunk=args.chunk)
+    plain = build_render_fn(wide, wrc, chunk=args.chunk, field="plain")
+    plain32 = build_render_fn(wide, rc, chunk=args.chunk, field="plain")
+    w = rec["wide"] = {"fc_units": WIDE_UNITS, "launches": 0}
+    for tag, sl in slices.items():
+        outs = []
+        held = hold_b1_launches(lambda: outs.append(render(rays[sl], 0,
+                                                           sems[sl])),
+                                f"bf16 fc_units {WIDE_UNITS}, {tag} chunk")
+        if held["routes"] != ["general"] or held["launches_held"] != 3:
+            fail(f"bf16 fc_units {WIDE_UNITS}, {tag} chunk: B1 {held}")
+        w["launches"] += held["launches_held"]
+        out, ref, ctl = (outs[0], plain(rays[sl], 0, sems[sl]),
+                         plain32(rays[sl], 0, sems[sl]))
+        errs = {"launch_max_abs_err": held["max_abs_err"]}
+        for k, v in ref.items():
+            p99, mx = p99_max(out[k], v)
+            c99, cmx = p99_max(out[k], ctl[k])
+            errs[k] = {"p99": p99, "max": mx, "control_p99": c99,
+                       "control_max": cmx}
+            log(f"  bf16 fc_units {WIDE_UNITS}, {tag} chunk "
+                f"({len(rays[sl])} rays), {k}: kernel vs plain render p99 "
+                f"{p99:.3g}, max {mx:.3g}; control (vs plain float32) p99 "
+                f"{c99:.3g}, max {cmx:.3g}")
+            if not (p99 <= RENDER_P99 and mx <= RENDER_MAX):
+                fail(f"bf16 fc_units {WIDE_UNITS}, {tag} chunk, {k}: the "
+                     f"general kernel's render disagrees with the plain "
+                     f"render")
+        w[tag] = errs
+    w["launch_max_abs_err"] = max(w[t]["launch_max_abs_err"] for t in slices)
+    return rec
+
+
 # phase 14's runs: the occupancy-grid flagship (the JAX package's fast
 # preset, at 10 steps), a multi-AOI hash run, a fine-pass and a proposal
 # flagship run, each as the training CLI takes it
@@ -1199,14 +1421,16 @@ def recording_dtab(calls):
 
 def hold_b1_launches(run, tag):
     """B1 against its plain version on the field inputs of every launch
-    that `run()` makes, within KERNEL_ATOL; their max abs errors."""
+    that `run()` makes, at the launch's compute dtype, within KERNEL_ATOL
+    (F32_ATOL in float32); their max abs errors and routes."""
     from spnerf_torch.ops import field_eval as fe
 
     seen = []
     real = fe.FusedField.__call__
 
     def recording(self, xyz, sun_d, t_emb=None, sem_labels=None, heads=None):
-        seen.append((self.packed, xyz, sun_d, t_emb, sem_labels, heads))
+        seen.append((self.packed, self.compute_dtype, xyz, sun_d, t_emb,
+                     sem_labels, heads))
         return real(self, xyz, sun_d, t_emb, sem_labels, heads=heads)
 
     fe.FusedField.__call__ = recording
@@ -1217,14 +1441,16 @@ def hold_b1_launches(run, tag):
     if not seen:
         fail(f"{tag}: no B1 launch")
     errs = []
-    for packed, xyz, sun, t_emb, sem, heads in seen:
-        out = fe.FusedField(packed)(xyz, sun, t_emb, sem, heads=heads)
-        ref = fe.PlainField(packed)(xyz, sun, t_emb, sem, heads=heads)
+    for packed, cd, xyz, sun, t_emb, sem, heads in seen:
+        out = fe.FusedField(packed, cd)(xyz, sun, t_emb, sem, heads=heads)
+        ref = fe.PlainField(packed, cd)(xyz, sun, t_emb, sem, heads=heads)
         errs.append(max((out[k] - ref[k]).abs().max().item() for k in ref))
-        if not errs[-1] <= KERNEL_ATOL:
+        atol = F32_ATOL if str(cd).endswith("float32") else KERNEL_ATOL
+        if not errs[-1] <= atol:
             fail(f"{tag}: B1 launch on {xyz.shape[0]} points, heads {heads}:"
-                 f" max abs err {errs[-1]} > {KERNEL_ATOL}")
-    return {"launches_held": len(errs), "points": [s[1].shape[0] for s in seen],
+                 f" max abs err {errs[-1]} > {atol}")
+    return {"launches_held": len(errs), "points": [s[2].shape[0] for s in seen],
+            "routes": sorted({s[0].route for s in seen}),
             "max_abs_err": max(errs)}
 
 
@@ -2020,7 +2246,7 @@ def main():
     log(f"-- phase 2 at {time.time() - t_start:.1f} s")
     # 2. build the path's kernel sources, one nvcc each, in parallel
     t0 = time.time()
-    texts = _build.build_all(["field_eval", "dtab"])
+    texts = _build.build_all(["field_eval", "field_eval_general", "dtab"])
     log(f"build: {time.time() - t0:.1f} s")
     for name, text in texts.items():
         for line in text.splitlines():
@@ -2036,19 +2262,24 @@ def main():
     xyz, sun, sems = field_inputs(N_CHECK, 1, device, mc.num_sem_classes)
     kernel_err = 0.0
 
-    def hold_field(pk, args, heads, tag):
-        """One B1 launch against PlainField; returns the max abs error."""
-        out = fe.FusedField(pk)(*args, heads=heads)
+    def hold_field(pk, args, heads, tag, dtype="bfloat16"):
+        """One B1 launch (on the route `pk` is packed for) against
+        PlainField; returns the max abs error."""
+        before = fe.FusedField.route_launches[pk.route]
+        out = fe.FusedField(pk, dtype)(*args, heads=heads)
         torch.cuda.synchronize()
-        ref = fe.PlainField(pk)(*args, heads=heads)
+        if fe.FusedField.route_launches[pk.route] != before + 1:
+            fail(f"{tag}: no launch on the {pk.route} route")
+        ref = fe.PlainField(pk, dtype)(*args, heads=heads)
         if set(out) != set(ref):
             fail(f"{tag}: kernel outputs {sorted(out)} != plain {sorted(ref)}")
+        atol = F32_ATOL if dtype == "float32" else KERNEL_ATOL
         err = 0.0
         for k in ref:
             e = (out[k] - ref[k]).abs().max().item()
-            if not (e <= KERNEL_ATOL) or not torch.isfinite(out[k]).all():
-                fail(f"{tag} heads={heads} {k}: max abs err {e} > "
-                     f"{KERNEL_ATOL}")
+            if not (e <= atol) or not torch.isfinite(out[k]).all():
+                fail(f"{tag} {pk.route} {dtype} heads={heads} {k}: max abs "
+                     f"err {e} > {atol}")
             err = max(err, e)
         return err
 
@@ -2089,6 +2320,63 @@ def main():
         f"max abs err {json.dumps(widths)}")
     kernel_err = max([kernel_err, *widths.values()])
 
+    # the general route against the plain version: float32 at the flagship
+    # width, then both dtypes at the wgmma widths (bf16 packed for the
+    # general kernel) and past the wgmma kernel's envelope
+    gen_err = {"float32": 0.0, "bfloat16": 0.0}
+    packed32 = fe.pack_params(model, "float32")
+    if packed32.route != "general":
+        fail(f"the float32 flagship packs for {packed32.route}")
+    xyz, sun, sems = field_inputs(N_CHECK, 1, device, mc.num_sem_classes)
+    gen_err["float32"] = max(hold_field(
+        packed32, (xyz, sun, None, sems), h, f"n={N_CHECK}", "float32")
+        for h in subsets)
+    for heads in (fe.ALL_HEADS, ("sun",)):
+        field = fe.FusedField(packed32, "float32")
+        ms = cuda_ms(lambda: field(xyz, sun, None, sems, heads=heads), 3)
+        log(f"  general kernel, float32, at n={N_CHECK}, heads={heads}: "
+            f"{ms:.3f} ms, "
+            f"{fe.flops_per_point(mc, heads) * N_CHECK / ms / 1e9:.1f} "
+            f"TFLOP/s")
+    del xyz, sun, sems
+    for n in (1, 63, 65, 187):
+        args = field_inputs(n, n, device, mc.num_sem_classes)
+        for heads in (fe.ALL_HEADS, ("sun",)):
+            gen_err["float32"] = max(gen_err["float32"], hold_field(
+                packed32, (args[0], args[1], None, args[2]), heads, f"n={n}",
+                "float32"))
+    log(f"general kernel vs plain, float32, flagship, n={N_CHECK} every head "
+        f"subset and n = 1, 63, 65, 187: max abs err {gen_err['float32']}")
+    gen_widths = {}
+    gen_cases = [(dtype, width, beta, 16)
+                 for width in (96, 160, 256, 736, 768, 800, 1024)
+                 for beta in (False, True)
+                 for dtype in ("float32", "bfloat16")]
+    gen_cases += [("bfloat16", 80, True, 16), ("bfloat16", 512, True, 32)]
+    for dtype, width, beta, t_dims in gen_cases:
+        wc = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
+                         fc_units=width, t_embedding_dims=t_dims)
+        wp = fe.pack_params(load_model(
+            wc, dtype, device=device,
+            generator=torch.Generator().manual_seed(width)), dtype,
+            kernel="general")
+        xyz, sun, sems = field_inputs(1000, width, device, 3)
+        t_emb = (torch.from_numpy(np.random.default_rng(width).normal(
+            size=(1000, t_dims)).astype(np.float32)).to(device)
+            if beta else None)
+        tag = f"{dtype} w{width}{' beta' if beta else ''} t{t_dims}"
+        gen_widths[tag] = max(hold_field(wp, (xyz, sun, t_emb, sems), h,
+                                         f"general {tag}", dtype)
+                              for h in subsets)
+        gen_err[dtype] = max(gen_err[dtype], gen_widths[tag])
+        del wp
+    log(f"general kernel vs plain, every head subset, n=1000: max abs err "
+        f"{json.dumps(gen_widths)}")
+    log(f"general kernel: max abs err float32 {gen_err['float32']} "
+        f"(F32_ATOL {F32_ATOL}), bf16 {gen_err['bfloat16']} (KERNEL_ATOL "
+        f"{KERNEL_ATOL})")
+    torch.cuda.empty_cache()
+
     log(f"-- phase 4 at {time.time() - t_start:.1f} s")
     # 4. the main path: one synthetic view through the eval renderer
     batch = fake_batch(np.random.default_rng(0), N_VIEW)
@@ -2097,14 +2385,15 @@ def main():
     render = build_render_fn(model, rc)
     chunk = chunk_size(rc)
     n_chunks = -(-N_VIEW // chunk)
-    fe.FusedField.launches = 0
+    reset_b1()
     view = render(rays, 0, vsems)
     torch.cuda.synchronize()
     launches = fe.FusedField.launches
+    routes = dict(fe.FusedField.route_launches)
     log(f"view: {N_VIEW} rays, chunk {chunk} rays, {n_chunks} chunks, "
-        f"field kernel launches {launches}")
-    if launches != 3 * n_chunks:
-        fail(f"expected {3 * n_chunks} kernel launches, got {launches}")
+        f"field kernel launches {launches} {json.dumps(routes)}")
+    if launches != 3 * n_chunks or routes["wgmma"] != launches:
+        fail(f"expected {3 * n_chunks} wgmma kernel launches, got {routes}")
     for k, v in view.items():
         if v.shape[0] != N_VIEW or not torch.isfinite(v).all():
             fail(f"{k}: shape {tuple(v.shape)} or non-finite values")
@@ -2118,20 +2407,23 @@ def main():
     plain32 = build_render_fn(model, replace(rc, compute_dtype="float32"),
                               field="plain")(*sub)
 
-    # C2: a float32 render on the card goes through the module, not B1
-    fe.FusedField.launches = 0
-    module32 = build_render_fn(model, replace(rc, compute_dtype="float32"))(
-        *sub)
+    # a float32 render on the card takes the general kernel, 3 a chunk
+    rc32 = replace(rc, compute_dtype="float32")
+    render32 = build_render_fn(model, rc32)
+    reset_b1()
+    kernel32 = render32(*sub)
     torch.cuda.synchronize()
-    if fe.FusedField.launches:
-        fail(f"the float32 render launched B1 {fe.FusedField.launches} times")
-    f32_err = max((module32[k] - plain32[k]).abs().max().item()
+    routes32 = dict(fe.FusedField.route_launches)
+    if routes32 != {"wgmma": 0, "general": 3}:
+        fail(f"the float32 subset launched {routes32}, expected 3 general")
+    f32_err = max((kernel32[k] - plain32[k]).abs().max().item()
                   for k in plain32)
-    log(f"  float32 render on the card: no B1 launch, max abs err against "
-        f"the plain float32 render {f32_err:.3g}")
-    if not f32_err <= 1e-4:
+    log(f"  float32 render on the card: B1 launches {json.dumps(routes32)}, "
+        f"max abs err against the plain float32 render {f32_err:.3g}")
+    if not f32_err <= F32_ATOL:
         fail(f"float32 render disagrees with the plain float32 render: "
              f"{f32_err}")
+    del kernel32
     for k, v in plain.items():
         p99, mx = p99_max(view[k][:1024], v)
         c99, cmx = p99_max(view[k][:1024], plain32[k])
@@ -2152,6 +2444,37 @@ def main():
     view_ms = float(np.median(times[1:]))
     log(json.dumps({"view_ms": view_ms, "rays_per_s": N_VIEW / view_ms * 1e3,
                     "view_ms_runs": times[1:], "card": card}))
+
+    # the float32 view through the general kernel and through the module
+    # (the parent's float32 route), in turns: one warm-up round, 3 timed
+    module32 = module_render_fn(model, rc32)
+    reset_b1()
+    view32 = render32(rays, 0, vsems)
+    torch.cuda.synchronize()
+    launches32 = fe.FusedField.route_launches["general"]
+    if (launches32 != 3 * n_chunks
+            or fe.FusedField.launches != launches32):
+        fail(f"the float32 view launched {fe.FusedField.route_launches}")
+    ref32 = module32(rays, 0, vsems)
+    vs_module = max((view32[k] - ref32[k]).abs().max().item() for k in ref32)
+    del view32, ref32
+    runs32 = {"kernel": [], "module": []}
+    for _ in range(4):
+        for tag, fn in (("kernel", render32), ("module", module32)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(rays, 0, vsems)
+            end.record()
+            torch.cuda.synchronize()
+            runs32[tag].append(start.elapsed_time(end))
+    view32_rec = {"view_ms_f32": float(np.median(runs32["kernel"][1:])),
+                  "view_ms_f32_module": float(np.median(runs32["module"][1:])),
+                  "runs": {k: v[1:] for k, v in runs32.items()},
+                  "launches": launches32,
+                  "max_abs_diff_vs_module": vs_module, "card": card}
+    log(json.dumps(view32_rec))
+    del render32, module32
 
     log(f"-- phase 5 at {time.time() - t_start:.1f} s")
     # 5. each launch of the path at its shapes: the coarse and guided passes
@@ -2205,6 +2528,92 @@ def main():
     log(f"field kernel time per view (from the per-launch times): "
         f"{kernel_view_ms:.1f} ms of {view_ms:.1f} ms; "
         f"bound {bound_view_ms:.1f} ms")
+    # the general route in float32 at the same shapes, beside its bound at
+    # the float32 units' rate, float32 `torch.matmul` and the module
+    from spnerf_torch.render import module_at
+
+    field32, plainf32 = (fe.FusedField(packed32, "float32"),
+                         fe.PlainField(packed32, "float32"))
+    module = module_at(model, "float32")
+    rec32 = {}
+    for tag, (heads, n_pts) in launch_shapes(rc, chunk,
+                                             fe.ALL_HEADS).items():
+        xyz, sun, sems = field_inputs(n_pts, 2, device, mc.num_sem_classes)
+        call = lambda: field32(xyz, sun, None, sems, heads=heads)
+        out, ref = call(), plainf32(xyz, sun, None, sems, heads=heads)
+        errs = {k: (out[k] - ref[k]).abs().max().item() for k in ref}
+        log(f"general kernel vs plain, float32, heads={tag}, n={n_pts}: max "
+            f"abs err " + json.dumps({k: float(f"{v:.3g}")
+                                      for k, v in errs.items()}))
+        for k, v in errs.items():
+            if not (v <= F32_ATOL) or not torch.isfinite(out[k]).all():
+                fail(f"general kernel {k}: max abs err {v} > {F32_ATOL}")
+        gen_err["float32"] = max(gen_err["float32"], max(errs.values()))
+        del out, ref
+        ms = cuda_ms(call, 5)
+        plain_ms = cuda_ms(lambda: plainf32(xyz, sun, None, sems,
+                                            heads=heads), 2)
+        with torch.no_grad():
+            module_ms = cuda_ms(lambda: module(xyz, sun, None, sems,
+                                               heads=heads), 2)
+        dev = device_ms(call, 1, keys=("field_eval_general",))["kernel"]
+        gemm = gemm_fn(mc, heads, n_pts, device, torch.float32)
+        gemm_ms_f32 = cuda_ms(gemm, 3)
+        del gemm
+        flops = fe.flops_per_point(mc, heads) * n_pts
+        outs = sum(w for _, w in fe.active_outputs(mc, heads))
+        nbytes = 4 * (n_pts * (fe.in_width(mc) + 3 + outs)
+                      + packed32.w_all.numel() + packed32.b_all.numel())
+        rec32[tag] = dict(
+            n=n_pts, ms=ms, plain_ms=plain_ms, device_ms=dev,
+            gemm_ms_f32=gemm_ms_f32, module_ms=module_ms,
+            bound_ms=max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
+            bound_by=("operations" if flops / PEAK_F32 >= nbytes / PEAK_BYTES
+                      else "bytes"))
+        log(f"field_eval_general float32 heads={tag}: {n_pts} points, kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), device {dev} ms, "
+            f"plain {plain_ms:.3f} ms, module {module_ms:.3f} ms, bound "
+            f"{rec32[tag]['bound_ms']:.3f} ms, float32 matmuls alone "
+            f"{gemm_ms_f32:.3f} ms ({card})")
+        del xyz, sun, sems
+    gen_view_ms = sum(per_view[t] * rec32[t]["ms"] for t in rec32)
+    gen_bound_view_ms = sum(per_view[t] * rec32[t]["bound_ms"] for t in rec32)
+    log(f"general kernel time per float32 view (from the per-launch times): "
+        f"{gen_view_ms:.1f} ms of {view32_rec['view_ms_f32']:.1f} ms; bound "
+        f"{gen_bound_view_ms:.1f} ms")
+    g = rec32["all"]
+    general_entry = {
+        "name": "field_eval_general",
+        "route": "cuda",
+        "source": "spnerf_torch/csrc/field_eval_general.cu",
+        "replaces": "spnerf_tpu/ops/pallas/field_eval.py:104",
+        "compute_dtype": "float32",
+        "launches_view": launches32,
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "device_ms": g["device_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"],
+        "library_ms": None,
+        "gemm_ms_f32": g["gemm_ms_f32"],
+        "module_ms": g["module_ms"],
+        "points_per_launch": {t: rec32[t]["n"] for t in rec32},
+        "tile_points": fe.general_tile_rows(mc.fc_units, packed32.k0_pad, 0),
+        "heads": "all",
+        "ms_sun": rec32["sun"]["ms"],
+        "device_ms_sun": rec32["sun"]["device_ms"],
+        "plain_ms_sun": rec32["sun"]["plain_ms"],
+        "bound_ms_sun": rec32["sun"]["bound_ms"],
+        "gemm_ms_f32_sun": rec32["sun"]["gemm_ms_f32"],
+        "module_ms_sun": rec32["sun"]["module_ms"],
+        "launches_per_view": per_view,
+        "ms_per_view": gen_view_ms,
+        "bound_ms_per_view": gen_bound_view_ms,
+        "view_ms": view32_rec["view_ms_f32"],
+        "view_ms_module": view32_rec["view_ms_f32_module"],
+        "card": card,
+    }
+    del field32, plainf32, module, packed32
     a = rec["all"]
     field_entry = {
         "name": "field_eval",
@@ -2703,13 +3112,21 @@ def main():
         mesh_rec["phase_s"] = time.time() - t15
         torch.cuda.empty_cache()
 
-    log(f"-- phase 16 at {time.time() - t_start:.1f} s")
-    # 16. a raw AOI prepared, scored, trained and validated; every
-    #     train-step variant over two ranks
-    t16 = time.time()
-    prep_rec = prep_pass(device, card, hold_cli_hash)
-    prep_rec["phase_s"] = time.time() - t16
-    torch.cuda.empty_cache()
+        log(f"-- phase 16 at {time.time() - t_start:.1f} s")
+        # 16. a raw AOI prepared, scored, trained and validated; every
+        #     train-step variant over two ranks
+        t16 = time.time()
+        prep_rec = prep_pass(device, card, hold_cli_hash)
+        prep_rec["phase_s"] = time.time() - t16
+        torch.cuda.empty_cache()
+
+        log(f"-- phase 17 at {time.time() - t_start:.1f} s")
+        # 17. the float32 CLI through the general kernel, and a bf16 field
+        #     wider than the wgmma kernel takes
+        t17 = time.time()
+        fp32_rec = fp32_pass(device, card, project)
+        fp32_rec["phase_s"] = time.time() - t17
+        torch.cuda.empty_cache()
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
     occ, multi = paths_rec["occgrid"], paths_rec["multi"]
     field_entry.update(
@@ -2732,6 +3149,15 @@ def main():
     field_entry.update(
         launches_prep=prep_rec["flagship"]["b1"],
         max_abs_err_prep=prep_rec["flagship"]["launch_max_abs_err"])
+    wide = fp32_rec["wide"]
+    general_entry.update(
+        launches=fp32_rec["run"]["b1_routes"]["general"],
+        launches_render_best=fp32_rec["render_best"]["b1_routes"]["general"],
+        max_abs_err=max(gen_err["float32"],
+                        fp32_rec["run"]["launch_max_abs_err"]),
+        max_abs_err_cli=fp32_rec["run"]["launch_max_abs_err"],
+        max_abs_err_bf16=max(gen_err["bfloat16"], wide["launch_max_abs_err"]),
+        launches_wide_bf16=wide["launches"])
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 
@@ -2833,8 +3259,10 @@ def main():
     print(json.dumps({"prep": prep_rec}), flush=True)
     print(json.dumps({"mesh": mesh_rec}), flush=True)
     print(json.dumps({"paths": paths_rec}), flush=True)
+    print(json.dumps({"fp32": fp32_rec, "view_f32": view32_rec}), flush=True)
     print(json.dumps({
-        "kernels": [field_entry, dense, sorted_, partials, batched],
+        "kernels": [field_entry, general_entry, dense, sorted_, partials,
+                    batched],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,
                         "hash_tlf": tlf_rec, "hash_sw_acc0": acc0_rec,
                         "hash_tlf_batched": bat_rec},

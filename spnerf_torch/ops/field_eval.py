@@ -1,21 +1,32 @@
-"""Fused forward of the SP-NeRF field: the CUDA kernel, its plain version,
-and the wrapper that chooses between them by the device of its input.
+"""Fused forward of the SP-NeRF field: the CUDA kernels, their plain
+version, and the wrapper that chooses between them by the device of its
+input.
 
-The kernel (`csrc/field_eval.cu`) replaces the JAX package's Pallas field
-kernel (`spnerf_tpu/ops/pallas/field_eval.py`, `_make_kernel` and
-`_fused_apply`). It evaluates the Siren trunk with its skip and any subset of
-the heads on a tile of points with the activations in shared memory; only
-the inputs and the head outputs touch device memory.
+Two kernels replace the JAX package's Pallas field kernel
+(`spnerf_tpu/ops/pallas/field_eval.py`, `_make_kernel` and `_fused_apply`),
+one route each (`route`). Both evaluate the Siren trunk with its skip and any
+subset of the heads on a tile of points with the activations in shared
+memory, walking the same layer program (`program`); only the inputs and the
+head outputs touch device memory.
 
-Numerics, as in the Pallas kernel: every matmul takes bf16 operands (the
-activation and the weight, both rounded from float32) and accumulates in
-float32; bias, pre-activations and head epilogues are float32. Since every
-use of an activation is a matmul operand, the kernel keeps activations in
-bf16 and is faithful to that policy.
+- "wgmma" (`csrc/field_eval.cu`): bf16 operands on the tensor cores, for the
+  flagship family at fc_units a multiple of 32 up to 704 (640 with a beta
+  head) and t_embedding_dims <= 16 (`supports_config`). Every use of an
+  activation is a matmul operand, so it keeps activations in bf16.
+- "general" (`csrc/field_eval_general.cu`): float32 activations and FFMA
+  sums, the operands either float32 (compute_dtype "float32", the Pallas
+  kernel's float32 dots) or rounded to bf16 at the product; every width up
+  to W_MAX, for float32 renders and the bf16 fields the wgmma kernel does
+  not take.
 
-On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs the
-plain version, `fused_field_plain`, which repeats the kernel's arithmetic
-with PyTorch ops.
+Numerics, as in the Pallas kernel: every matmul takes compute-dtype
+operands (the activation and the weight, both rounded from float32) and
+accumulates in float32; bias, pre-activations and head epilogues are
+float32.
+
+On a CUDA tensor the wrapper launches its route's kernel; on a CPU tensor it
+runs the plain version, `fused_field_plain`, which repeats the kernels'
+arithmetic with PyTorch ops.
 """
 
 import ctypes
@@ -38,6 +49,13 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on the H100
 BLOCK_BYTES = 64 * 128  # one 64-row, 64-wide bf16 tile in shared memory
 STAGE_BYTES = NCHUNK * 128  # one weight stage: NCHUNK rows x 64 bf16
 MAX_STAGES = 6  # the weight ring's depth where shared memory holds it
+# the general route (csrc/field_eval_general.cu KS, THREADS, W_MAX): weight
+# slabs of GKS rows, every segment and output padded to GKS; a pass of a
+# layer covers GEN_THREADS x 32 / BM columns of a BM-point tile
+GKS = 16
+GEN_THREADS = 256
+W_MAX = 1024
+ROUTES = ("wgmma", "general")
 OUTPUTS = ("sigma", "rgb", "sun_v", "sky", "beta", "sem_logits")
 # the kernel's epilogues and operand sources (csrc/field_eval.cu EPI_*, SRC_*)
 EPI = {n: i for i, n in enumerate(("sin30", "sin", "relu", "none",
@@ -65,14 +83,31 @@ def supports_config(cfg: ModelConfig) -> bool:
             and ring_stages(cfg.fc_units, _ceil(in_width(cfg)), has_t) > 0)
 
 
+def route(cfg: ModelConfig, compute_dtype):
+    """Which CUDA kernel evaluates the field at `compute_dtype`: "wgmma" for
+    bf16 within `supports_config`; "general" for float32 at any width up to
+    W_MAX and for bf16 outside the wgmma kernel's envelope (wider fields,
+    fc_units not a multiple of 32, t_embedding_dims > 16); None outside the
+    family, wider than W_MAX, or at another dtype."""
+    cd = as_dtype(compute_dtype)
+    if not in_family(cfg) or cd not in (torch.bfloat16, torch.float32):
+        return None
+    if cd == torch.bfloat16 and supports_config(cfg):
+        return "wgmma"
+    t_pad = _ceil(cfg.t_embedding_dims, GKS) if cfg.beta else 0
+    if general_tile_rows(cfg.fc_units, _ceil(in_width(cfg), GKS), t_pad):
+        return "general"
+    return None
+
+
 def uses_fused_kernel(device, cfg: ModelConfig, compute_dtype) -> bool:
-    """Whether a render on `device` evaluates the field through the CUDA
-    kernel: a covered configuration in bfloat16 on CUDA. The kernel computes
-    bf16 products only; a float32 render on CUDA goes through the `SPNeRF`
-    module in float32 (with TF32 off, the float32 products the JAX kernel
-    computes), and the CPU always takes the module."""
-    return (torch.device(device).type == "cuda" and supports_config(cfg)
-            and as_dtype(compute_dtype) == torch.bfloat16)
+    """Whether a render on `device` evaluates the field through a CUDA
+    kernel: on CUDA wherever `route` names one. Elsewhere the field renders
+    through the `SPNeRF` module (on CUDA a float32 module with TF32 off
+    computes the float32 products the JAX kernel computes), and the CPU
+    always takes the module."""
+    return (torch.device(device).type == "cuda"
+            and route(cfg, compute_dtype) is not None)
 
 
 def _ceil(x, m=KPAD):
@@ -97,9 +132,11 @@ def swizzle_index(rows):
 
 @dataclass
 class LayerPack:
-    """Where a layer lives in the kernel's layout: byte offset of its first
-    weight stage, float offset of its bias, the padded depths of its two
-    input segments (k2 = 0 for one), its padded and real output widths."""
+    """Where a layer lives in a kernel's layout: the offset of its weights
+    (in bytes, of its first weight stage, in the wgmma layout; in floats in
+    the general one), the float offset of its bias, the padded depths of
+    its two input segments (k2 = 0 for one), its padded and real output
+    widths. `slabs` and `stages` describe the wgmma layout."""
 
     w_off: int
     b_off: int
@@ -122,18 +159,26 @@ class LayerPack:
 
 @dataclass
 class PackedField:
-    """The field's weights, once in plain form and once in the kernel's
-    layout.
+    """The field's weights, once in plain form and once in the layout of the
+    kernel of `route`.
 
     Plain: `ws[i]` (K, N) float32 and `bs[i]` (N,) float32 for the layer
-    `names[i]`. Kernel: each layer's transposed weight, bf16, cut into
-    stages of one N-chunk (NCHUNK output columns, fewer for a narrow last
-    chunk) by one K-slab (64 input rows, each input segment padded to whole
-    slabs), every stage laid out in the 128-byte swizzled K-major order that
-    wgmma reads from shared memory, so that one bulk copy moves it; stages
-    follow each other in the order `LayerPack.stages` gives, layer after
-    layer, in `w_all` (bytes as bf16 pairs). Biases zero-padded to npad in
-    `b_all`. `layers[name]` says where each layer is.
+    `names[i]`. Biases zero-padded to npad in `b_all`; `layers[name]` says
+    where each layer is in `w_all` and `b_all`.
+
+    "wgmma" (also where no route takes the field): each layer's transposed
+    weight, bf16, cut into stages of one N-chunk (NCHUNK output columns,
+    fewer for a narrow last chunk) by one K-slab (64 input rows, each input
+    segment padded to whole slabs), every stage laid out in the 128-byte
+    swizzled K-major order that wgmma reads from shared memory, so that one
+    bulk copy moves it; stages follow each other in the order
+    `LayerPack.stages` gives, layer after layer, in `w_all` (bytes as bf16
+    pairs; `w_off` in bytes).
+
+    "general": each layer's (K, N) weight, row-major float32, every input
+    segment and the output zero-padded to multiples of GKS, layer after
+    layer in `w_all` (`w_off` in floats); in bf16 each weight is rounded to
+    bf16 when packed (`compute_dtype`).
     """
 
     cfg: ModelConfig
@@ -145,17 +190,62 @@ class PackedField:
     b_all: torch.Tensor
     layers: Dict[str, LayerPack]
     k0_pad: int
+    route: Optional[str]
+    compute_dtype: torch.dtype
 
 
-def pack_params(model) -> PackedField:
-    """Pack an `SPNeRF` module's weights for the fused field."""
+def _pack_general(specs, ws, bs, cd):
+    """The general route's layout of the layers: (w_all, b_all, layers)."""
+    w_parts, b_parts, layers = [], [], {}
+    w_off = b_off = 0
+    for (name, segs, out, _), w, b in zip(specs, ws, bs):
+        kp = [_ceil(s, GKS) for s in segs]
+        npad = _ceil(out, GKS)
+        wt = torch.zeros(sum(kp), npad, dtype=torch.float32, device=w.device)
+        src = dst = 0
+        for s, p in zip(segs, kp):
+            wt[dst:dst + s, :out] = w[src:src + s]
+            src, dst = src + s, dst + p
+        w_parts.append(wt.to(cd).float().reshape(-1))
+        bp = torch.zeros(npad, dtype=torch.float32, device=b.device)
+        bp[:out] = b
+        b_parts.append(bp)
+        layers[name] = LayerPack(w_off, b_off, kp[0],
+                                 kp[1] if len(kp) > 1 else 0, npad, out)
+        w_off += wt.numel()
+        b_off += npad
+    return torch.cat(w_parts), torch.cat(b_parts), layers
+
+
+def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
+    """Pack an `SPNeRF` module's weights for the fused field at
+    `compute_dtype`, in the layout of `kernel` ("wgmma" or "general"; None:
+    `route(cfg, compute_dtype)`'s, the wgmma kernel's where there is none).
+    The packed layout decides which kernel a `FusedField` launches on CUDA;
+    `kernel="general"` puts a bf16 field the wgmma kernel takes on the
+    general kernel instead (to hold the two against each other)."""
     cfg = model.cfg
     if not in_family(cfg):
         raise ValueError("configuration not covered by the fused field")
+    cd = as_dtype(compute_dtype)
+    r = route(cfg, cd) if kernel is None else kernel
+    takes = {"wgmma": supports_config(cfg) and cd == torch.bfloat16,
+             "general": route(cfg, torch.float32) == "general"}
+    if kernel is not None and not takes.get(kernel, False):
+        raise ValueError(f"kernel {kernel!r} does not take this field at "
+                         f"{cd}")
     specs = layer_specs(cfg)
     names = [s[0] for s in specs]
     ws = [model.layer(n).kernel.detach().float() for n in names]
     bs = [model.layer(n).bias.detach().float() for n in names]
+    sem_table = (model.semantic_embedding.detach().float()
+                 if cfg.sem else None)
+    if r == "general":
+        w_all, b_all, layers = _pack_general(specs, ws, bs, cd)
+        return PackedField(cfg=cfg, names=names, ws=ws, bs=bs,
+                           sem_table=sem_table, w_all=w_all, b_all=b_all,
+                           layers=layers, k0_pad=_ceil(in_width(cfg), GKS),
+                           route=r, compute_dtype=cd)
     w_parts, b_parts, layers = [], [], {}
     w_off = b_off = 0
     for (name, segs, out, _), w, b in zip(specs, ws, bs):
@@ -182,18 +272,18 @@ def pack_params(model) -> PackedField:
         layers[name] = lp
         w_off += 2 * npad * lp.slabs * SLAB
         b_off += npad
-    sem_table = (model.semantic_embedding.detach().float()
-                 if cfg.sem else None)
     return PackedField(cfg=cfg, names=names, ws=ws, bs=bs,
                        sem_table=sem_table, w_all=torch.cat(w_parts),
                        b_all=torch.cat(b_parts), layers=layers,
-                       k0_pad=_ceil(in_width(cfg)))
+                       k0_pad=_ceil(in_width(cfg)), route=r,
+                       compute_dtype=cd)
 
 
 def program(packed: PackedField, heads):
-    """The kernel's layer program for a head subset: (n_ops, 11) int32 rows
+    """The kernels' layer program for a head subset: (n_ops, 11) int32 rows
     of (w_off, b_off, k1, k2, npad, nreal, a1, a2, dst, epi, out), in the
-    order the kernel runs them. a1, a2: the input segments' sources (SRC);
+    order the kernels run them, at the offsets and paddings of the packed
+    layout. a1, a2: the input segments' sources (SRC);
     dst: the activation buffer written (0, 1), or -1 for a head output, out:
     its index in OUTPUTS. The trunk ping-pongs between buf0 and buf1; the
     heads run on its output X and the other buffer Y, the solar head last
@@ -256,6 +346,34 @@ def smem_bytes(width, k0_pad, has_t, stages):
     blocks = 2 * _ceil(width, SLAB) // SLAB + _ceil(k0_pad, SLAB) // SLAB
     return (1024 + (blocks + 1 + int(has_t)) * BLOCK_BYTES
             + stages * (STAGE_BYTES + 16))
+
+
+def general_pass_cols(bm):
+    """Output columns of one pass of a layer at a BM-point tile: 256
+    threads, each 4 points x 8 columns (csrc/field_eval_general.cu
+    pass_cols)."""
+    return GEN_THREADS * 32 // bm
+
+
+def general_smem_bytes(bm, width, k0_pad, t_pad):
+    """The general kernel's dynamic shared memory at a BM-point tile
+    (spnerf_field_eval_general_smem): two float32 activation buffers of
+    ceil16(width) columns, the input, sun (16) and transient tiles, and two
+    weight stages of GKS x general_pass_cols(bm) floats."""
+    return 4 * (bm * (2 * _ceil(width, GKS) + k0_pad + GKS + t_pad)
+                + 2 * GKS * general_pass_cols(bm))
+
+
+def general_tile_rows(width, k0_pad, t_pad):
+    """The general kernel's tile (spnerf_field_eval_general_tile): 64, 32
+    or 16 points, the largest whose smem fits SMEM_LIMIT; 0 where none does
+    or width > W_MAX."""
+    if not 1 <= width <= W_MAX:
+        return 0
+    for bm in (64, 32, 16):
+        if general_smem_bytes(bm, width, k0_pad, t_pad) <= SMEM_LIMIT:
+            return bm
+    return 0
 
 
 def active_outputs(cfg: ModelConfig, heads):
@@ -378,65 +496,130 @@ def ring_stages(width, k0_pad, has_t):
     return 0
 
 
+def _check_launch(packed: PackedField, want, x_in, sun, t_in, heads):
+    """The checks both routes' wrappers make: CUDA tensors on one device,
+    weights packed for route `want`, a program the kernels take. Returns
+    the program."""
+    if packed.route != want:
+        raise ValueError(f"weights packed for the {packed.route} route, not "
+                         f"{want}: pack_params(model, compute_dtype)")
+    dev = x_in.device
+    if dev.type != "cuda":
+        raise ValueError("the field kernels take CUDA tensors")
+    for t in (sun, t_in, packed.w_all, packed.b_all):
+        if t is not None and t.device != dev:
+            raise ValueError(f"tensor on {t.device}, expected {dev}")
+    prog = program(packed, heads)
+    if len(prog) > MAX_OPS:
+        raise ValueError(f"the kernels run at most {MAX_OPS} layers")
+    return prog
+
+
+def _launch(lib, fn, args, dev, tag):
+    """fn(*args, stream) on the current stream of `dev`; raises on the
+    cudaError_t it returns."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err:
+        raise RuntimeError(f"{tag} kernel launch failed: "
+                           + lib.spnerf_cuda_error_string(err).decode())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def fused_field_kernel(packed: PackedField, x_in, sun, t_in=None,
                        heads=ALL_HEADS):
-    """Launch the CUDA kernel on CUDA tensors; same contract as
+    """Launch the wgmma kernel on CUDA tensors; same contract as
     `fused_field_plain` in bf16."""
     from . import _build
 
     cfg = packed.cfg
-    dev = x_in.device
-    if dev.type != "cuda":
-        raise ValueError("fused_field_kernel takes CUDA tensors")
-    for t in (sun, t_in, packed.w_all, packed.b_all):
-        if t is not None and t.device != dev:
-            raise ValueError(f"tensor on {t.device}, expected {dev}")
-    if cfg.fc_units % 32:
-        raise ValueError("the kernel takes fc_units % 32 == 0")
-    if cfg.beta and cfg.t_embedding_dims > KPAD:
-        raise ValueError(f"the kernel takes t_embedding_dims <= {KPAD}")
+    prog = _check_launch(packed, "wgmma", x_in, sun, t_in, heads)
     has_t = cfg.beta and "beta" in heads
-    if not ring_stages(cfg.fc_units, packed.k0_pad, has_t):
-        raise ValueError(f"fc_units {cfg.fc_units}: the kernel's tiles and a "
-                         f"ring of 2 stages do not fit {SMEM_LIMIT} bytes of "
-                         f"shared memory")
-    prog = program(packed, heads)
-    if len(prog) > MAX_OPS:
-        raise ValueError(f"the kernel runs at most {MAX_OPS} layers")
     outs = active_outputs(cfg, heads)
     n = x_in.shape[0]
-    res = {nm: torch.empty((n, wd), dtype=torch.float32, device=dev)
+    res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
            for nm, wd in outs}
     if n:
         xb = _padded_bf16(x_in, packed.k0_pad)
         sb = _padded_bf16(sun, KPAD)
         tb = _padded_bf16(t_in, KPAD) if has_t else None
         lib = _build.load("field_eval")
-        ptr = lambda t: None if t is None else t.data_ptr()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-        err = _declare(lib)(
-            ptr(xb), ptr(sb), ptr(tb), ptr(packed.w_all), ptr(packed.b_all),
-            prog.ctypes.data, len(prog), cfg.fc_units, packed.k0_pad,
-            int(has_t), n,
-            *(ptr(res.get(k)) for k in OUTPUTS), stream)
-        if err:
-            raise RuntimeError("field_eval kernel launch failed: "
-                               + lib.spnerf_cuda_error_string(err).decode())
+        _launch(lib, _declare(lib), (
+            _ptr(xb), _ptr(sb), _ptr(tb), _ptr(packed.w_all),
+            _ptr(packed.b_all), prog.ctypes.data, len(prog), cfg.fc_units,
+            packed.k0_pad, int(has_t), n,
+            *(_ptr(res.get(k)) for k in OUTPUTS)), x_in.device, "field_eval")
         FusedField.launches += 1
+        FusedField.route_launches["wgmma"] += 1
+    res["sigma"] = res["sigma"][:, 0]
+    return res
+
+
+def _declare_general(lib):
+    f = lib.spnerf_field_eval_general
+    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                  + [ctypes.c_void_p] * 7)
+    f.restype = ctypes.c_int
+    lib.spnerf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.spnerf_cuda_error_string.restype = ctypes.c_char_p
+    return f
+
+
+def fused_field_general(packed: PackedField, x_in, sun, t_in=None,
+                        heads=ALL_HEADS):
+    """Launch the general route's kernel on CUDA tensors; same contract as
+    `fused_field_plain` at `packed.compute_dtype`."""
+    from . import _build
+
+    cfg = packed.cfg
+    prog = _check_launch(packed, "general", x_in, sun, t_in, heads)
+    has_t = cfg.beta and "beta" in heads
+    t_dim = cfg.t_embedding_dims if has_t else 0
+    t_pad = _ceil(t_dim, GKS)
+    if not general_tile_rows(cfg.fc_units, packed.k0_pad, t_pad):
+        raise ValueError(f"fc_units {cfg.fc_units}: wider than {W_MAX}, or "
+                         f"the tiles do not fit {SMEM_LIMIT} bytes")
+    outs = active_outputs(cfg, heads)
+    n = x_in.shape[0]
+    res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
+           for nm, wd in outs}
+    if n:
+        xin = x_in.float().contiguous()
+        sn = sun.float().contiguous()
+        tin = t_in.float().contiguous() if has_t else None
+        if (xin.shape[1] != in_width(cfg) or sn.shape[1] != 3
+                or (has_t and tin.shape != (n, t_dim))):
+            raise ValueError("inputs of other widths than the field's")
+        lib = _build.load("field_eval_general")
+        _launch(lib, _declare_general(lib), (
+            _ptr(xin), _ptr(sn), _ptr(tin), _ptr(packed.w_all),
+            _ptr(packed.b_all), prog.ctypes.data, len(prog), cfg.fc_units,
+            xin.shape[1], packed.k0_pad, t_dim, t_pad, n,
+            int(packed.compute_dtype == torch.bfloat16),
+            *(_ptr(res.get(k)) for k in OUTPUTS)), x_in.device,
+            "field_eval_general")
+        FusedField.launches += 1
+        FusedField.route_launches["general"] += 1
     res["sigma"] = res["sigma"][:, 0]
     return res
 
 
 class FusedField:
     """Forward-only field callable, `(xyz, sun_d, t_emb, sem_labels, heads)`
-    -> dict, over packed weights. CUDA inputs go through the kernel, CPU
-    inputs through its plain version.
+    -> dict, over packed weights. CUDA inputs go through the kernel the
+    weights are packed for (`pack_params`: by default `route(cfg,
+    compute_dtype)`'s), CPU inputs through the plain version.
 
-    `FusedField.launches` counts kernel launches, process-wide.
+    `FusedField.launches` counts kernel launches of both routes,
+    process-wide; `FusedField.route_launches[route]` each route's.
     """
 
     launches = 0
+    route_launches = dict.fromkeys(ROUTES, 0)
 
     def __init__(self, packed: PackedField, compute_dtype="bfloat16"):
         self.packed = packed
@@ -460,15 +643,21 @@ class FusedField:
         if unknown:
             raise ValueError(f"unknown heads {sorted(unknown)}")
         x_in, sun, t_in = self.inputs(xyz, sun_d, t_emb, sem_labels)
-        if xyz.is_cuda:
-            if as_dtype(self.compute_dtype) != torch.bfloat16:
-                # a float32 render on CUDA takes the module
-                # (uses_fused_kernel), never this kernel
-                raise NotImplementedError(
-                    "the CUDA field kernel computes in bfloat16 only")
-            return fused_field_kernel(self.packed, x_in, sun, t_in, heads)
-        return fused_field_plain(self.packed, x_in, sun, t_in, heads,
-                                 self.compute_dtype)
+        if not xyz.is_cuda:
+            return fused_field_plain(self.packed, x_in, sun, t_in, heads,
+                                     self.compute_dtype)
+        r, cd = self.packed.route, as_dtype(self.compute_dtype)
+        if r is None:
+            raise ValueError("no CUDA field kernel takes this field: render "
+                             "through the module (uses_fused_kernel)")
+        if r == "wgmma" and cd != torch.bfloat16:
+            raise ValueError(f"the wgmma kernel computes in bfloat16, not "
+                             f"{cd}: pack_params(model, compute_dtype)")
+        if r == "general" and self.packed.compute_dtype != cd:
+            raise ValueError(f"weights packed at {self.packed.compute_dtype},"
+                             f" not {cd}")
+        launch = fused_field_kernel if r == "wgmma" else fused_field_general
+        return launch(self.packed, x_in, sun, t_in, heads)
 
 
 class PlainField(FusedField):

@@ -3,10 +3,13 @@
 
 Rays are rendered in chunks of at most `MAX_POINTS // samples_per_ray` rays
 (at least 1024), the last chunk padded by repeating the last ray. The field
-runs through the fused CUDA kernel whenever the configuration is covered and
-the model lies on a CUDA device, as the JAX package uses its fused kernel on
-every accelerator; a configuration with a fine pass or a proposal sampler
-renders through the modules, as the JAX package's does. With the occupancy
+runs through a fused CUDA kernel whenever `ops.field_eval.route` names one
+for the configuration at the render's compute dtype and the model lies on a
+CUDA device, as the JAX package uses its fused kernel on every accelerator:
+the wgmma kernel for bf16 fields within its envelope, the general kernel
+for float32 renders and the other bf16 widths up to W_MAX. Wider fields
+render through the module; so does a configuration with a fine pass or a
+proposal sampler, as the JAX package's does. With the occupancy
 grid the trained grid places the samples (a uniform grid where none is
 given). Lean outputs composite the per-sample sun, albedo, sky
 and beta on the device and drop the per-sample tensors.
@@ -103,11 +106,12 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
     the fine field `fine` (rc.n_importance > 0) and the proposal field
     `proposal` (rc.proposal).
 
-    field: None evaluates the field through the fused kernel where
-    `uses_fused_kernel` says so (CUDA, a covered configuration, bfloat16)
-    and through the module at `rc.compute_dtype` elsewhere; "plain" uses
-    the fused field's plain version on any device. A configuration with a
-    fine pass or a proposal sampler renders through the modules either way.
+    field: None evaluates the field through the fused kernel of its route
+    where `uses_fused_kernel` says so (CUDA, a configuration `route` takes
+    at `rc.compute_dtype`) and through the module at `rc.compute_dtype`
+    elsewhere; "plain" uses the fused field's plain version on any device.
+    A configuration with a fine pass or a proposal sampler renders through
+    the modules either way.
 
     mesh: a `parallel.DataMesh`; every rank calls render_image on the same
     rays and renders its share of each chunk.
@@ -132,7 +136,8 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
         # pack the current weights once per image
         if fused:
             cls = PlainField if field == "plain" else FusedField
-            field_apply = cls(pack_params(model), rc.compute_dtype)
+            field_apply = cls(pack_params(model, rc.compute_dtype),
+                              rc.compute_dtype)
         else:
             field_apply = module_at(model, rc.compute_dtype)
         fine_apply = (None if fine is None

@@ -5,9 +5,11 @@ no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: the field kernel, bf16, 2e-2 absolute (the kernel and the plain
-version sum in different orders, which can move an activation by one bf16
-ulp); the table-gradient kernels, float32, 1e-5 of the largest entry (sums of
+Tolerances: the field kernels in bf16, 2e-2 absolute (the kernel and the
+plain version sum in different orders, which can move an activation by one
+bf16 ulp); the general field kernel in float32, 1e-4 absolute (the same
+float32 products in another sum order, through eight layers); the
+table-gradient kernels, float32, 1e-5 of the largest entry (sums of
 up to thousands of rows in another order), B3 bitwise equal to itself and
 two calls of B4 (float atomics) within the same bound of each other. The DSM
 splat (`index_add_` on the card) against the same splat on the CPU: empty
@@ -59,26 +61,32 @@ def field_inputs(n, cfg, device, seed=0):
             to(np.where(sems < 0, -100, sems)) if cfg.sem else None)
 
 
-def packed_field(cfg, device):
-    model = load_model(cfg, "bfloat16", device=device,
+F32_ATOL = 1e-4
+
+
+def packed_field(cfg, device, dtype="bfloat16"):
+    model = load_model(cfg, dtype, device=device,
                        generator=torch.Generator().manual_seed(0))
-    return model, fe.pack_params(model)
+    return model, fe.pack_params(model, dtype)
 
 
-def hold_kernel(p, args, heads):
-    """One launch against the plain version: the same outputs within ATOL,
-    and one launch counted."""
+def hold_kernel(p, args, heads, dtype="bfloat16"):
+    """One launch against the plain version: the same outputs within ATOL
+    (F32_ATOL in float32), and one launch counted on the packed route."""
     before = fe.FusedField.launches
-    out = fe.FusedField(p)(*args, heads=heads)
+    on_route = fe.FusedField.route_launches[p.route]
+    out = fe.FusedField(p, dtype)(*args, heads=heads)
     torch.cuda.synchronize()
     assert fe.FusedField.launches == before + 1
-    ref = fe.PlainField(p)(*args, heads=heads)
+    assert fe.FusedField.route_launches[p.route] == on_route + 1
+    ref = fe.PlainField(p, dtype)(*args, heads=heads)
     assert set(out) == set(ref), heads
+    atol = F32_ATOL if dtype == "float32" else ATOL
     for k in ref:
         assert out[k].shape == ref[k].shape
         assert torch.isfinite(out[k]).all(), (heads, k)
         err = (out[k] - ref[k]).abs().max().item()
-        assert err <= ATOL, (heads, k, err)
+        assert err <= atol, (heads, k, err)
 
 
 @pytest.mark.cuda
@@ -135,10 +143,82 @@ def test_ring_stages_match_the_kernel(device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_float32_compute(device):
+    """The wgmma kernel computes in bf16 only: a field packed for it
+    refuses float32 compute on the card (a float32 field is packed for the
+    general route, `pack_params(model, "float32")`)."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=64)
     _, p = packed_field(cfg, device)
-    with pytest.raises(NotImplementedError):
+    assert p.route == "wgmma"
+    with pytest.raises(ValueError):
         fe.FusedField(p, "float32")(*field_inputs(16, cfg, device))
+
+
+GENERAL_CASES = [
+    ("float32", dict(sem=True, num_sem_classes=3, fc_units=512), 1000),
+    ("float32", dict(sem=True, beta=True, num_sem_classes=3, fc_units=96),
+     65),
+    ("float32", dict(beta=True, fc_units=160), 3 * 64 + 5),
+    ("float32", dict(sem=True, num_sem_classes=20, fc_units=256), 1),
+    ("float32", dict(sem=True, beta=True, num_sem_classes=3, fc_units=768),
+     200),
+    ("float32", dict(fc_units=1024), 33),
+    ("bfloat16", dict(sem=True, num_sem_classes=3, fc_units=80), 130),
+    ("bfloat16", dict(sem=True, beta=True, num_sem_classes=3, fc_units=768),
+     200),
+    ("bfloat16", dict(sem=True, beta=True, num_sem_classes=3,
+                      fc_units=800), 17),
+    ("bfloat16", dict(beta=True, t_embedding_dims=32, fc_units=128), 63),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw,n", GENERAL_CASES)
+def test_general_kernel_matches_plain_every_head_subset(device, dtype, kw, n):
+    """The general kernel against the plain version, every head subset: in
+    float32 at the flagship width (32-point tiles), at 96 to 256 (64-point
+    tiles), 768 and 1024 (16-point tiles); in bf16 at the widths and shapes
+    the wgmma kernel does not take (80, 768, 800 with a beta head, a
+    transient code of 32); n of 1, 17, 33, 63, 65, a ragged tile count and
+    more."""
+    cfg = ModelConfig(mapping=True, fc_units=kw.pop("fc_units"), **kw)
+    assert fe.route(cfg, dtype) == "general"
+    _, p = packed_field(cfg, device, dtype)
+    args = field_inputs(n, cfg, device)
+    for r in range(len(fe.ALL_HEADS) + 1):
+        for heads in itertools.combinations(fe.ALL_HEADS, r):
+            hold_kernel(p, args, heads, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 4000, 300_001])
+def test_general_kernel_ragged_tile_counts(device, n):
+    """The flagship in float32 (32-point tiles): one tile, one ragged, two,
+    more tiles than the grid has CTAs, each with a ragged last tile."""
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3)
+    _, p = packed_field(cfg, device, "float32")
+    args = field_inputs(n, cfg, device, seed=n)
+    hold_kernel(p, args, fe.ALL_HEADS, "float32")
+    hold_kernel(p, args, ("sun",), "float32")
+
+
+@pytest.mark.cuda
+def test_general_tile_matches_the_kernel(device):
+    """The wrapper's tile and shared-memory reckoning
+    (`general_tile_rows`, `general_smem_bytes`, which `route` reads) are
+    the general kernel's own."""
+    from spnerf_torch.ops import _build
+
+    lib = _build.load("field_eval_general")
+    for width, k0_pad, t_pad in itertools.product(
+            list(range(16, 1057, 16)) + [1, 80, 100],
+            (16, 64, 80, 128), (0, 16, 32)):
+        bm = fe.general_tile_rows(width, k0_pad, t_pad)
+        assert (lib.spnerf_field_eval_general_tile(width, k0_pad, t_pad)
+                == bm), (width, k0_pad, t_pad)
+        if bm:
+            assert (lib.spnerf_field_eval_general_smem(bm, width, k0_pad,
+                                                       t_pad)
+                    == fe.general_smem_bytes(bm, width, k0_pad, t_pad))
 
 
 @pytest.mark.cuda
@@ -165,8 +245,9 @@ def test_render_image_uses_kernel(device):
 
 @pytest.mark.cuda
 def test_float32_render_takes_the_module(device):
-    """A float32 render on CUDA launches no field kernel: it goes through
-    the module in float32 and agrees with the plain float32 render within
+    """A float32 render on CUDA (which took the module before the general
+    kernel was ported) launches the general kernel three times a chunk and
+    no wgmma kernel, and agrees with the plain float32 render within
     1e-4."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=128)
     rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
@@ -174,26 +255,31 @@ def test_float32_render_takes_the_module(device):
     model, _ = packed_field(cfg, device)
     batch = fake_batch(np.random.default_rng(0), 1500)
     fe.FusedField.launches = 0
+    fe.FusedField.route_launches.update(wgmma=0, general=0)
     out = build_render_fn(model, rc, chunk=1024)(batch["rays"], 0,
                                                  batch["sems"])
     torch.cuda.synchronize()
-    assert fe.FusedField.launches == 0
+    launches = 3 * -(-1500 // chunk_size(rc, 1024))
+    assert fe.FusedField.launches == launches
+    assert fe.FusedField.route_launches == {"wgmma": 0, "general": launches}
     ref = build_render_fn(model, rc, chunk=1024, field="plain")(
         batch["rays"], 0, batch["sems"])
     for k in ref:
         assert torch.isfinite(out[k]).all(), k
-        assert (out[k] - ref[k]).abs().max().item() <= 1e-4, k
+        assert (out[k] - ref[k]).abs().max().item() <= F32_ATOL, k
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("beta", [False, True])
 def test_wide_render_takes_the_module(device, beta):
-    """A bf16 render of a field wider than the kernel takes (768) goes
-    through the module, launches no field kernel and agrees with the
-    render through the plain field."""
+    """A bf16 render of a field wider than the wgmma kernel takes (768;
+    it took the module before the general kernel was ported) launches the
+    general kernel three times a chunk and agrees with the render through
+    the plain field (per-ray p99 within 2e-2)."""
     cfg = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
                       fc_units=768)
     assert not fe.supports_config(cfg)
+    assert fe.route(cfg, "bfloat16") == "general"
     rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
                       sem=True, compute_dtype="bfloat16")
     model, _ = packed_field(cfg, device)
@@ -202,10 +288,12 @@ def test_wide_render_takes_the_module(device, beta):
                if beta else None)
     batch = fake_batch(np.random.default_rng(0), 1500)
     fe.FusedField.launches = 0
+    fe.FusedField.route_launches.update(wgmma=0, general=0)
     out = build_render_fn(model, rc, t_embed, chunk=1024)(
         batch["rays"], 2, batch["sems"])
     torch.cuda.synchronize()
-    assert fe.FusedField.launches == 0
+    launches = 3 * -(-1500 // chunk_size(rc, 1024))
+    assert fe.FusedField.route_launches == {"wgmma": 0, "general": launches}
     ref = build_render_fn(model, rc, t_embed, chunk=1024, field="plain")(
         batch["rays"], 2, batch["sems"])
     assert set(out) == set(ref)

@@ -60,7 +60,7 @@ def jax_fused(params, jcfg, inputs, dtype, heads):
 
 def port_fused(model, inputs, dtype, heads):
     xyz, sun, sems, t_emb = inputs
-    field = tfe.FusedField(tfe.pack_params(model), dtype)
+    field = tfe.FusedField(tfe.pack_params(model, dtype), dtype)
     as_t = lambda a: None if a is None else torch.from_numpy(a)
     out = field(as_t(xyz), as_t(sun), as_t(t_emb), as_t(sems), heads=heads)
     return {k: v.numpy() for k, v in out.items()}
@@ -256,25 +256,29 @@ def test_program_stream_and_smem():
     (736, False, False), (768, False, False), (800, True, False),
     (100, False, False)])
 def test_wide_fields_route_to_the_module(width, beta, want):
-    """The kernel takes fc_units that are multiples of 32 up to 704 (640
-    with a beta head); a bf16 render of any other width on CUDA goes
-    through the module, and the weights still pack for the plain field."""
+    """The wgmma kernel takes fc_units that are multiples of 32 up to 704
+    (640 with a beta head); a bf16 render of any other width up to W_MAX on
+    CUDA takes the general kernel (these widths took the module before it
+    was ported; only fields wider than W_MAX still do), and the weights
+    pack for its route."""
     cfg = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
                       fc_units=width)
     assert tfe.supports_config(cfg) is want
-    assert tfe.uses_fused_kernel("cuda", cfg, "bfloat16") is want
+    assert tfe.route(cfg, "bfloat16") == ("wgmma" if want else "general")
+    assert tfe.uses_fused_kernel("cuda", cfg, "bfloat16")
     p = tfe.pack_params(SPNeRF(cfg, "bfloat16"))
+    assert p.route == tfe.route(cfg, "bfloat16")
     assert p.layers["trunk1"].nreal == width
 
 
 @pytest.mark.parametrize("device,dtype,want", [
     ("cuda", "bfloat16", True), ("cuda", torch.bfloat16, True),
-    ("cuda", "float32", False), ("cpu", "bfloat16", False),
+    ("cuda", "float32", True), ("cpu", "bfloat16", False),
     ("cpu", "float32", False)])
 def test_uses_fused_kernel(device, dtype, want):
-    """Renders take the kernel on CUDA in bf16 only: float32 goes through
-    the module, and the CPU never takes it; nor does an uncovered
-    configuration."""
+    """Renders take a kernel on CUDA in both dtypes (bf16 the wgmma kernel,
+    float32 the general one), and the CPU never takes one; nor does an
+    uncovered configuration."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3)
     assert tfe.uses_fused_kernel(device, cfg, dtype) is want
     relu = ModelConfig(mapping=True, siren=False)

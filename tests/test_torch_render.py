@@ -24,6 +24,7 @@ from spnerf_torch.config import ModelConfig, RenderConfig
 from spnerf_torch.convert import field_state_dict, transient_state_dict
 from spnerf_torch.models import SPNeRF, TransientEmbedding
 from spnerf_torch.ops import render_rays
+from spnerf_torch.ops.field_eval import route
 from spnerf_torch.render import build_render_fn, chunk_size
 from spnerf_torch.utils.synth import fake_batch
 
@@ -70,15 +71,21 @@ def test_render_rays_matches_jax(train, rng):
 
 @pytest.mark.parametrize("dtype,field", [("float32", "sem"),
                                          ("bfloat16", "sem"),
-                                         ("float32", "beta")])
+                                         ("float32", "beta"),
+                                         ("float32", "wide"),
+                                         ("bfloat16", "wide")])
 def test_render_image_matches_trainer(dtype, field, monkeypatch):
     """The slice end to end: whole-image eval rendering. The beta case also
-    carries the transient embedding of image t."""
+    carries the transient embedding of image t; the wide case is a field of
+    fc_units 768, which the port renders through its general kernel on the
+    card (the wgmma kernel takes at most 704) and the JAX package through
+    its Pallas kernel."""
     from spnerf_tpu.train.loop import Trainer
 
     monkeypatch.setenv("SPNERF_EVAL_GROUP", "1")
-    mc = MC if field == "sem" else dict(MC, sem=False, beta=True)
-    rcd = RC if field == "sem" else dict(RC, sem=False, beta=True)
+    mc = (dict(MC, sem=False, beta=True) if field == "beta"
+          else dict(MC, fc_units=768) if field == "wide" else MC)
+    rcd = RC if field != "beta" else dict(RC, sem=False, beta=True)
     jrc = jconfig.RenderConfig(**rcd, compute_dtype=dtype, use_pallas=True)
     tr = Trainer(jconfig.ModelConfig(**mc), jrc,
                  jconfig.LossConfig(sc_lambda=0.1, sem=mc["sem"]), t_vocab=5)
@@ -90,6 +97,8 @@ def test_render_image_matches_trainer(dtype, field, monkeypatch):
     rc = RenderConfig(**rcd, compute_dtype=dtype)
     assert chunk_size(rc, 1024) == 1024
     model = SPNeRF(ModelConfig(**mc), compute_dtype=dtype)
+    if field == "wide":
+        assert route(model.cfg, dtype) == "general"
     model.load_state_dict(field_state_dict(params["coarse"]))
     t_embed = None
     if field == "beta":
