@@ -6,19 +6,25 @@ an NVIDIA H100 and the CUDA toolkit)
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the path from spnerf_torch/csrc with nvcc, the
-     three sources in parallel;
+     four sources in parallel;
   3. hold the fused-field kernel (B1) against its plain PyTorch version at
      the flagship width (8x512 Siren, bf16) on a ragged 131,195-point batch
      for every head subset, on n = 1, 63, 65 and 187 (three tiles, the last
      ragged), and at widths 96, 160 and 256 (semantic and beta heads) for
-     every head subset; then B1's general route
-     (`csrc/field_eval_general.cu`) against the plain version (F32_ATOL in
-     float32 with TF32 off, KERNEL_ATOL in bf16): float32 at the flagship
-     width, every head subset on the 131,195 points and n = 1, 63, 65,
-     187; both dtypes, every head subset, at widths 96, 160 and 256 (bf16
-     packed for the general kernel) and 736, 768, 800 and 1024, with and
-     without a beta head; bf16 at fc_units 80 and with a transient code of
-     32;
+     every head subset; then B1's float32 route
+     (`csrc/field_eval_f32.cu`, "wgmma_f32", 3xTF32 on wgmma) against the
+     plain float32 version with TF32 off (F32_ATOL): the flagship width,
+     every head subset on the 131,195 points and n = 1, 63, 65, 187; every
+     head subset at widths 32, 80, 96, 160, 256, 480 and 512 with and
+     without a beta head (96 with a transient code of 20), n = 1,000; then
+     B1's general route (`csrc/field_eval_general.cu`, FFMA) against the
+     plain version (F32_ATOL in float32, KERNEL_ATOL in bf16): float32 at
+     the flagship width packed for it (the parent's route), all heads and
+     the solar pass on the 131,195 points; every head subset in float32 at
+     736, 768, 800 and 1024 (the widths the float32 route refuses) and in
+     bf16 at 96, 160 and 256 (packed for the general kernel) and 736, 768,
+     800 and 1024, with and without a beta head; bf16 at fc_units 80 and
+     with a transient code of 32;
   4. render a synthetic 256x256 view (65,536 rays) through the eval renderer
      at the flagship configuration with random weights from seed 0: outputs
      finite and in range, every chunk's three field passes launched the
@@ -28,10 +34,12 @@ Phases, each fatal on failure:
      as a control: the size of a change of the rounding policy, which the
      render limits must sit below. The bf16 view launches the wgmma kernel
      only. The subset rendered with compute_dtype="float32" on the card
-     launches the general kernel 3 times a chunk (no wgmma) and agrees with
-     that plain float32 render within F32_ATOL; the float32 view is timed
-     (median of 3 after a warm-up) through the general kernel and through
-     the module (the parent's float32 route, a yardstick), in turns;
+     launches the wgmma_f32 kernel 3 times a chunk (no other) and agrees
+     with that plain float32 render within F32_ATOL; the float32 view
+     launches it 3 times a chunk and no other, and is timed (median of 3
+     after a warm-up) through it, through the general kernel (weights
+     packed for it: the parent's route) and through the module (the float32
+     route before that, a yardstick), in turns;
   5. at the main path's shapes (chunk x n_samples points for the coarse and
      guided passes, chunk x the merged samples per ray for the solar pass),
      hold each launch against its plain version and time both (CUDA events,
@@ -40,12 +48,14 @@ Phases, each fatal on failure:
      (`gemm_ms`, a yardstick the port never calls); the log line also gives
      the weight bytes the launch reads from L2 as the design reckons them
      (every tile streams every weight stage; a reckoning, not a
-     measurement); then the general route in float32 at the same two
-     shapes: held within F32_ATOL, timed (events, profiler device time)
-     beside its bound at the float32 units' 67 TFLOP/s, the plain version,
-     the same products as float32 `torch.matmul` with TF32 off
-     (`gemm_ms_f32`) and the `SPNeRF` module in float32 on the same
-     inputs (`module_ms`; yardsticks the port never calls on this path);
+     measurement); then both float32 kernels (wgmma_f32 and the general
+     route) at the same two shapes: each held within F32_ATOL and timed
+     (events, profiler device time) beside the bound of three TF32
+     products at 495 TFLOP/s and of FFMA at the float32 units' 67 TFLOP/s,
+     the plain version, the same products as float32 `torch.matmul` with
+     TF32 off (`gemm_ms_f32`) and the `SPNeRF` module in float32 on the
+     same inputs (`module_ms`; yardsticks the port never calls on this
+     path);
   6. the table-gradient kernels B2 (dtab_dense) and B3 (dtab_sorted) on the
      inputs of the hash train step: one backward of the hash configuration
      (L8 F4 T=2^19, batch 1024, 64 + 64 + 128 samples) through the plain
@@ -225,27 +235,29 @@ Phases, each fatal on failure:
      printed. Its numbers on one `{"prep": ...}` line;
  17. the float32 CLI on phase 12's AOI: phase 13's flagship flags plus
      `--precision fp32`, 10 steps (the module trains), its final
-     validation through the general kernel (launches counted per route,
-     held to views x chunks x 3, no wgmma launch), each launch of the test
+     validation through the wgmma_f32 kernel (launches counted per route,
+     held to views x chunks x 3, no other route), each launch of the test
      view's first and ragged last chunk held against the plain float32
      version (F32_ATOL), a finite MAE; `tools render --step best` (the
      logged PSNR and SSIM again, the same launches) and `eval_torch.py
      --skip_lpips` on its outputs; then a bf16 field of fc_units 768
      (random weights, seed 768) renders the test view's first and ragged
-     last chunk through the general kernel, held at RENDER_P99/RENDER_MAX
-     against the plain bf16 render (the plain float32 control beside it)
-     and each launch at KERNEL_ATOL. Its numbers on one `{"fp32": ...}`
-     line;
+     last chunk through the general kernel (its launches counted), held
+     at RENDER_P99/RENDER_MAX against the plain bf16 render (the plain
+     float32 control beside it) and each launch at KERNEL_ATOL. Its
+     numbers on one `{"fp32": ...}` line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
   `launches_proposal` and their `max_abs_err_*`; phase 15's under
   `launches_dp`, `launches_batch_sc`, `launches_batch_solar`,
   `launches_no_merge`, `launches_no_prune` and their `max_abs_err_*`;
-  phase 16's under `launches_prep` and `max_abs_err_prep`; the general
+  phase 16's under `launches_prep` and `max_abs_err_prep`; the float32
+  route's entry `field_eval_f32`: phase 5's times, its launches at phase
+  17's validation, `launches_view` of phase 4's float32 view; the general
   route's entry `field_eval_general`: phase 5's float32 times, its
-  launches at phase 17's validation, `launches_view` of phase 4's
-  float32 view, its errors in float32 and bf16).
+  launches on phase 17's 768-wide bf16 field, its errors in float32 and
+  bf16).
   The env of phases 10, 11 and 15 (d) is set around its use only and
   restored after.
 
@@ -269,8 +281,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 KERNEL_ATOL = 2e-2  # bf16: sum order may flip one bf16 ulp of an activation
-# float32 (the general route against the plain version with TF32 off): the
-# same float32 products summed in another order, through eight layers
+# float32 (the wgmma_f32 and general routes against the plain version with
+# TF32 off): the same float32 products summed in another order, or as three
+# TF32 products without lo x lo (2^-22 of each), through eight layers
 F32_ATOL = 1e-4
 # per-ray outputs, kernel vs plain field: 99th percentile and max. The sound
 # render reads at most 3.1e-4 and 6.1e-4; the plain float32 render of the
@@ -290,6 +303,7 @@ STEP_LOSS_RTOL = 1e-6
 BATCH = 1024
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 PEAK_F32 = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 N_CHECK = 131_072 + 123
 N_VIEW = 256 * 256
@@ -433,7 +447,7 @@ def gemm_fn(cfg, heads, n, device, dtype=torch.bfloat16):
 
 def module_render_fn(model, rc, *args):
     """`build_render_fn` with the field through the `SPNeRF` module, as the
-    parent rendered float32 (a yardstick of the general kernel)."""
+    float32 route before the general kernel rendered (a yardstick)."""
     import spnerf_torch.render as rmod
 
     real = rmod.uses_fused_kernel
@@ -442,6 +456,25 @@ def module_render_fn(model, rc, *args):
         return rmod.build_render_fn(model, rc, *args)
     finally:
         rmod.uses_fused_kernel = real
+
+
+def general_render_fn(model, rc, *args):
+    """`build_render_fn` whose renders pack the field for the general
+    kernel, as the parent rendered float32 (a yardstick of the wgmma_f32
+    kernel): each render swaps the packing in for its own duration."""
+    import spnerf_torch.render as rmod
+
+    render = rmod.build_render_fn(model, rc, *args)
+    real = rmod.pack_params
+
+    def run(*a, **kw):
+        rmod.pack_params = lambda m, cd: real(m, cd, kernel="general")
+        try:
+            return render(*a, **kw)
+        finally:
+            rmod.pack_params = real
+
+    return run
 
 
 def reset_b1():
@@ -928,8 +961,9 @@ def cli_pass(device, card, project, hold_hash, n_view=813 * 793):
     return rec
 
 
-# phase 17's run: the flagship of phase 13 in float32, and the width of the
-# bf16 field rendered through the general kernel beside it
+# phase 17's run: the flagship of phase 13 in float32 (the wgmma_f32
+# kernel), and the width of the bf16 field rendered through the general
+# kernel beside it
 FP32_EXP = "flagship_fp32"
 FP32_ARGS = ["--precision", "fp32", "--max_train_steps", "10"]
 WIDE_UNITS = 768
@@ -938,7 +972,7 @@ WIDE_UNITS = 768
 def fp32_pass(device, card, project, n_view=813 * 793):
     """Phase 17: the float32 CLI on phase 12's AOI under `project` (its
     ray cache): 10 flagship steps at --precision fp32, the final validation
-    through the general kernel, each launch of the test view's first and
+    through the wgmma_f32 kernel, each launch of the test view's first and
     last chunk held, `tools render --step best` and `eval_torch.py
     --skip_lpips` on its outputs; then a bf16 field of fc_units WIDE_UNITS
     on the test view's first and last chunk. Returns the record it
@@ -982,13 +1016,16 @@ def fp32_pass(device, card, project, n_view=813 * 793):
     args = finalize_args(build_train_parser().parse_args(argv),
                          make_dirs=False)
     mc, rc = model_config_from_args(args), render_config_from_args(args)
-    if rc.compute_dtype != "float32" or fe.route(mc, "float32") != "general":
+    if (rc.compute_dtype != "float32"
+            or fe.route(mc, "float32") != "wgmma_f32"):
         fail(f"--precision fp32: compute_dtype {rc.compute_dtype}, route "
              f"{fe.route(mc, rc.compute_dtype)}")
     chunk = chunk_size(rc, args.chunk)
     expect = 3 * -(-n_view // chunk) * 2
+    routes = {"wgmma": 0, "general": 0, "wgmma_f32": expect}
 
-    # (a) 10 steps at --precision fp32, validated through the general kernel
+    # (a) 10 steps at --precision fp32, validated through the wgmma_f32
+    #     kernel
     state = run("run", lambda: cli_train.main(argv))
     r = rec["run"]
     with open(os.path.join(project, "output", FP32_EXP, "logs",
@@ -999,9 +1036,9 @@ def fp32_pass(device, card, project, n_view=813 * 793):
     r["steps_per_s"] = [x["rays_per_sec"] / args.batch_size for x in rows
                         if x["split"] == "train"]
     r["loss"] = [x["loss"] for x in rows if x["split"] == "train"]
-    if r["b1_routes"] != {"wgmma": 0, "general": expect} or r["b2"] or r["b3"]:
+    if r["b1_routes"] != routes or r["b2"] or r["b3"]:
         fail(f"the float32 run launched B1 {r['b1_routes']} (expected "
-             f"{expect} general), B2 {r['b2']}, B3 {r['b3']}")
+             f"{expect} wgmma_f32), B2 {r['b2']}, B3 {r['b3']}")
     if not np.isfinite(r["val"]["val"]["mae"]):
         fail(f"the float32 run's MAE: {r['val']}")
 
@@ -1019,7 +1056,7 @@ def fp32_pass(device, card, project, n_view=813 * 793):
     for tag, sl in slices.items():
         r["held"][tag] = hold_b1_launches(
             lambda: render(rays[sl], 0, sems[sl]), f"float32 run, {tag} chunk")
-        if r["held"][tag]["routes"] != ["general"]:
+        if r["held"][tag]["routes"] != ["wgmma_f32"]:
             fail(f"float32 run, {tag} chunk: routes {r['held'][tag]}")
     r["launch_max_abs_err"] = max(h["max_abs_err"] for h in r["held"].values())
     log(f"float32 run: 10 steps in {r['s']:.1f} s, MAE "
@@ -1040,7 +1077,7 @@ def fp32_pass(device, card, project, n_view=813 * 793):
     if (out["step"] != best
             or not abs(out["psnr"] - logged["psnr"]) <= RENDER_PSNR_ATOL
             or not abs(out["ssim"] - logged["ssim"]) <= RENDER_SSIM_ATOL
-            or r["b1_routes"] != {"wgmma": 0, "general": expect}):
+            or r["b1_routes"] != routes):
         fail(f"render --step best of the float32 run: {json.dumps(r)}")
     means = run("eval", lambda: eval_main([
         "--project_dir", project, "--exp_name", FP32_EXP, "--dataset_dir",
@@ -1052,7 +1089,9 @@ def fp32_pass(device, card, project, n_view=813 * 793):
                             for k, v in means.items()}
 
     # (c) a bf16 field of fc_units WIDE_UNITS (random weights) through the
-    #     general kernel on the test view's first and last chunk
+    #     general kernel on the test view's first and last chunk, its
+    #     launches counted (counts set to 0 just before each render and read
+    #     just after, before the launches that hold it)
     wc = replace(mc, fc_units=WIDE_UNITS)
     wrc = replace(rc, compute_dtype="bfloat16")
     if fe.route(wc, "bfloat16") != "general":
@@ -1064,13 +1103,20 @@ def fp32_pass(device, card, project, n_view=813 * 793):
     plain32 = build_render_fn(wide, rc, chunk=args.chunk, field="plain")
     w = rec["wide"] = {"fc_units": WIDE_UNITS, "launches": 0}
     for tag, sl in slices.items():
-        outs = []
-        held = hold_b1_launches(lambda: outs.append(render(rays[sl], 0,
-                                                           sems[sl])),
+        outs, counts = [], []
+
+        def wide_render():
+            reset_b1()
+            outs.append(render(rays[sl], 0, sems[sl]))
+            counts.append(dict(fe.FusedField.route_launches))
+
+        held = hold_b1_launches(wide_render,
                                 f"bf16 fc_units {WIDE_UNITS}, {tag} chunk")
-        if held["routes"] != ["general"] or held["launches_held"] != 3:
-            fail(f"bf16 fc_units {WIDE_UNITS}, {tag} chunk: B1 {held}")
-        w["launches"] += held["launches_held"]
+        if (held["routes"] != ["general"] or held["launches_held"] != 3
+                or counts[0] != {"wgmma": 0, "general": 3, "wgmma_f32": 0}):
+            fail(f"bf16 fc_units {WIDE_UNITS}, {tag} chunk: B1 {held}, "
+                 f"launches {counts}")
+        w["launches"] += counts[0]["general"]
         out, ref, ctl = (outs[0], plain(rays[sl], 0, sems[sl]),
                          plain32(rays[sl], 0, sems[sl]))
         errs = {"launch_max_abs_err": held["max_abs_err"]}
@@ -2246,7 +2292,8 @@ def main():
     log(f"-- phase 2 at {time.time() - t_start:.1f} s")
     # 2. build the path's kernel sources, one nvcc each, in parallel
     t0 = time.time()
-    texts = _build.build_all(["field_eval", "field_eval_general", "dtab"])
+    texts = _build.build_all(["field_eval", "field_eval_general",
+                              "field_eval_f32", "dtab"])
     log(f"build: {time.time() - t0:.1f} s")
     for name, text in texts.items():
         for line in text.splitlines():
@@ -2320,38 +2367,74 @@ def main():
         f"max abs err {json.dumps(widths)}")
     kernel_err = max([kernel_err, *widths.values()])
 
-    # the general route against the plain version: float32 at the flagship
-    # width, then both dtypes at the wgmma widths (bf16 packed for the
-    # general kernel) and past the wgmma kernel's envelope
-    gen_err = {"float32": 0.0, "bfloat16": 0.0}
+    # the float32 route against the plain float32 version: the flagship
+    # width, every head subset, then across its envelope
+    f32_err = 0.0
     packed32 = fe.pack_params(model, "float32")
-    if packed32.route != "general":
+    if packed32.route != "wgmma_f32":
         fail(f"the float32 flagship packs for {packed32.route}")
     xyz, sun, sems = field_inputs(N_CHECK, 1, device, mc.num_sem_classes)
-    gen_err["float32"] = max(hold_field(
-        packed32, (xyz, sun, None, sems), h, f"n={N_CHECK}", "float32")
-        for h in subsets)
+    f32_err = max(hold_field(packed32, (xyz, sun, None, sems), h,
+                             f"n={N_CHECK}", "float32") for h in subsets)
     for heads in (fe.ALL_HEADS, ("sun",)):
         field = fe.FusedField(packed32, "float32")
         ms = cuda_ms(lambda: field(xyz, sun, None, sems, heads=heads), 3)
-        log(f"  general kernel, float32, at n={N_CHECK}, heads={heads}: "
+        log(f"  wgmma_f32 kernel at n={N_CHECK}, heads={heads}: "
             f"{ms:.3f} ms, "
             f"{fe.flops_per_point(mc, heads) * N_CHECK / ms / 1e9:.1f} "
             f"TFLOP/s")
-    del xyz, sun, sems
     for n in (1, 63, 65, 187):
         args = field_inputs(n, n, device, mc.num_sem_classes)
         for heads in (fe.ALL_HEADS, ("sun",)):
-            gen_err["float32"] = max(gen_err["float32"], hold_field(
+            f32_err = max(f32_err, hold_field(
                 packed32, (args[0], args[1], None, args[2]), heads, f"n={n}",
                 "float32"))
-    log(f"general kernel vs plain, float32, flagship, n={N_CHECK} every head "
-        f"subset and n = 1, 63, 65, 187: max abs err {gen_err['float32']}")
+    log(f"wgmma_f32 kernel vs plain float32, flagship, n={N_CHECK} every "
+        f"head subset and n = 1, 63, 65, 187: max abs err {f32_err}")
+    f32_widths = {}
+    f32_cases = [(width, beta, 20 if width == 96 else 16)
+                 for width in (32, 80, 96, 160, 256, 480, 512)
+                 for beta in (False, True)]
+    for width, beta, t_dims in f32_cases:
+        wc = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
+                         fc_units=width, t_embedding_dims=t_dims)
+        wp = fe.pack_params(load_model(
+            wc, "float32", device=device,
+            generator=torch.Generator().manual_seed(width)), "float32")
+        if wp.route != "wgmma_f32":
+            fail(f"float32 fc_units {width} packs for {wp.route}")
+        xyz, sun, sems = field_inputs(1000, width, device, 3)
+        t_emb = (torch.from_numpy(np.random.default_rng(width).normal(
+            size=(1000, t_dims)).astype(np.float32)).to(device)
+            if beta else None)
+        tag = f"w{width}{' beta' if beta else ''} t{t_dims}"
+        f32_widths[tag] = max(hold_field(wp, (xyz, sun, t_emb, sems), h,
+                                         f"wgmma_f32 {tag}", "float32")
+                              for h in subsets)
+        del wp
+    f32_err = max([f32_err, *f32_widths.values()])
+    log(f"wgmma_f32 kernel vs plain float32, every head subset, n=1000: max "
+        f"abs err {json.dumps(f32_widths)}")
+
+    # the general route against the plain version: float32 at the flagship
+    # width packed for it (the parent's route) and at the widths the
+    # float32 route refuses; bf16 at the wgmma widths (packed for the
+    # general kernel) and past the wgmma kernel's envelope
+    gen_err = {"float32": 0.0, "bfloat16": 0.0}
+    packed_gen = fe.pack_params(model, "float32", kernel="general")
+    xyz, sun, sems = field_inputs(N_CHECK, 1, device, mc.num_sem_classes)
+    gen_err["float32"] = max(hold_field(
+        packed_gen, (xyz, sun, None, sems), h, f"n={N_CHECK}", "float32")
+        for h in (fe.ALL_HEADS, ("sun",)))
+    del xyz, sun, sems
+    log(f"general kernel vs plain, float32, flagship, n={N_CHECK}, all heads "
+        f"and the solar pass: max abs err {gen_err['float32']}")
     gen_widths = {}
     gen_cases = [(dtype, width, beta, 16)
                  for width in (96, 160, 256, 736, 768, 800, 1024)
                  for beta in (False, True)
-                 for dtype in ("float32", "bfloat16")]
+                 for dtype in ("float32", "bfloat16")
+                 if dtype == "bfloat16" or width > fe.F32_W_MAX]
     gen_cases += [("bfloat16", 80, True, 16), ("bfloat16", 512, True, 32)]
     for dtype, width, beta, t_dims in gen_cases:
         wc = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
@@ -2407,22 +2490,22 @@ def main():
     plain32 = build_render_fn(model, replace(rc, compute_dtype="float32"),
                               field="plain")(*sub)
 
-    # a float32 render on the card takes the general kernel, 3 a chunk
+    # a float32 render on the card takes the wgmma_f32 kernel, 3 a chunk
     rc32 = replace(rc, compute_dtype="float32")
     render32 = build_render_fn(model, rc32)
     reset_b1()
     kernel32 = render32(*sub)
     torch.cuda.synchronize()
     routes32 = dict(fe.FusedField.route_launches)
-    if routes32 != {"wgmma": 0, "general": 3}:
-        fail(f"the float32 subset launched {routes32}, expected 3 general")
-    f32_err = max((kernel32[k] - plain32[k]).abs().max().item()
-                  for k in plain32)
+    if routes32 != {"wgmma": 0, "general": 0, "wgmma_f32": 3}:
+        fail(f"the float32 subset launched {routes32}, expected 3 wgmma_f32")
+    render32_err = max((kernel32[k] - plain32[k]).abs().max().item()
+                       for k in plain32)
     log(f"  float32 render on the card: B1 launches {json.dumps(routes32)}, "
-        f"max abs err against the plain float32 render {f32_err:.3g}")
-    if not f32_err <= F32_ATOL:
+        f"max abs err against the plain float32 render {render32_err:.3g}")
+    if not render32_err <= F32_ATOL:
         fail(f"float32 render disagrees with the plain float32 render: "
-             f"{f32_err}")
+             f"{render32_err}")
     del kernel32
     for k, v in plain.items():
         p99, mx = p99_max(view[k][:1024], v)
@@ -2445,22 +2528,33 @@ def main():
     log(json.dumps({"view_ms": view_ms, "rays_per_s": N_VIEW / view_ms * 1e3,
                     "view_ms_runs": times[1:], "card": card}))
 
-    # the float32 view through the general kernel and through the module
-    # (the parent's float32 route), in turns: one warm-up round, 3 timed
+    # the float32 view through the wgmma_f32 kernel, through the general
+    # kernel (the parent's route) and through the module (the route before
+    # it), in turns: one warm-up round, 3 timed
     module32 = module_render_fn(model, rc32)
+    general32 = general_render_fn(model, rc32)
     reset_b1()
     view32 = render32(rays, 0, vsems)
     torch.cuda.synchronize()
-    launches32 = fe.FusedField.route_launches["general"]
+    launches32 = fe.FusedField.route_launches["wgmma_f32"]
     if (launches32 != 3 * n_chunks
             or fe.FusedField.launches != launches32):
         fail(f"the float32 view launched {fe.FusedField.route_launches}")
     ref32 = module32(rays, 0, vsems)
     vs_module = max((view32[k] - ref32[k]).abs().max().item() for k in ref32)
+    reset_b1()
+    ref32 = general32(rays, 0, vsems)
+    torch.cuda.synchronize()
+    if fe.FusedField.route_launches["general"] != launches32:
+        fail(f"the float32 view packed for the general kernel launched "
+             f"{fe.FusedField.route_launches}")
+    vs_general = max((view32[k] - ref32[k]).abs().max().item()
+                     for k in ref32)
     del view32, ref32
-    runs32 = {"kernel": [], "module": []}
+    runs32 = {"kernel": [], "general": [], "module": []}
     for _ in range(4):
-        for tag, fn in (("kernel", render32), ("module", module32)):
+        for tag, fn in (("kernel", render32), ("general", general32),
+                        ("module", module32)):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2469,12 +2563,15 @@ def main():
             torch.cuda.synchronize()
             runs32[tag].append(start.elapsed_time(end))
     view32_rec = {"view_ms_f32": float(np.median(runs32["kernel"][1:])),
+                  "view_ms_f32_general":
+                      float(np.median(runs32["general"][1:])),
                   "view_ms_f32_module": float(np.median(runs32["module"][1:])),
                   "runs": {k: v[1:] for k, v in runs32.items()},
                   "launches": launches32,
-                  "max_abs_diff_vs_module": vs_module, "card": card}
+                  "max_abs_diff_vs_module": vs_module,
+                  "max_abs_diff_vs_general": vs_general, "card": card}
     log(json.dumps(view32_rec))
-    del render32, module32
+    del render32, module32, general32
 
     log(f"-- phase 5 at {time.time() - t_start:.1f} s")
     # 5. each launch of the path at its shapes: the coarse and guided passes
@@ -2528,92 +2625,138 @@ def main():
     log(f"field kernel time per view (from the per-launch times): "
         f"{kernel_view_ms:.1f} ms of {view_ms:.1f} ms; "
         f"bound {bound_view_ms:.1f} ms")
-    # the general route in float32 at the same shapes, beside its bound at
-    # the float32 units' rate, float32 `torch.matmul` and the module
+    # both float32 kernels at the same shapes, beside the bounds of three
+    # TF32 products and of FFMA, float32 `torch.matmul` and the module
     from spnerf_torch.render import module_at
 
-    field32, plainf32 = (fe.FusedField(packed32, "float32"),
-                         fe.PlainField(packed32, "float32"))
+    fields32 = {"wgmma_f32": fe.FusedField(packed32, "float32"),
+                "general": fe.FusedField(packed_gen, "float32")}
+    keys32 = {"wgmma_f32": ("field_eval_f32",),
+              "general": ("field_eval_general",)}
+    plainf32 = fe.PlainField(packed32, "float32")
     module = module_at(model, "float32")
     rec32 = {}
     for tag, (heads, n_pts) in launch_shapes(rc, chunk,
                                              fe.ALL_HEADS).items():
         xyz, sun, sems = field_inputs(n_pts, 2, device, mc.num_sem_classes)
-        call = lambda: field32(xyz, sun, None, sems, heads=heads)
-        out, ref = call(), plainf32(xyz, sun, None, sems, heads=heads)
-        errs = {k: (out[k] - ref[k]).abs().max().item() for k in ref}
-        log(f"general kernel vs plain, float32, heads={tag}, n={n_pts}: max "
-            f"abs err " + json.dumps({k: float(f"{v:.3g}")
-                                      for k, v in errs.items()}))
-        for k, v in errs.items():
-            if not (v <= F32_ATOL) or not torch.isfinite(out[k]).all():
-                fail(f"general kernel {k}: max abs err {v} > {F32_ATOL}")
-        gen_err["float32"] = max(gen_err["float32"], max(errs.values()))
-        del out, ref
-        ms = cuda_ms(call, 5)
-        plain_ms = cuda_ms(lambda: plainf32(xyz, sun, None, sems,
-                                            heads=heads), 2)
+        ref = plainf32(xyz, sun, None, sems, heads=heads)
+        r = rec32[tag] = {"n": n_pts}
+        for name, f32_field in fields32.items():
+            call = lambda: f32_field(xyz, sun, None, sems, heads=heads)
+            out = call()
+            errs = {k: (out[k] - ref[k]).abs().max().item() for k in ref}
+            log(f"{name} kernel vs plain, float32, heads={tag}, n={n_pts}: "
+                f"max abs err " + json.dumps({k: float(f"{v:.3g}")
+                                              for k, v in errs.items()}))
+            for k, v in errs.items():
+                if not (v <= F32_ATOL) or not torch.isfinite(out[k]).all():
+                    fail(f"{name} kernel {k}: max abs err {v} > {F32_ATOL}")
+            if name == "wgmma_f32":
+                f32_err = max(f32_err, max(errs.values()))
+            else:
+                gen_err["float32"] = max(gen_err["float32"],
+                                         max(errs.values()))
+            del out
+            r[name] = {"ms": cuda_ms(call, 5),
+                       "device_ms": device_ms(call, 1,
+                                              keys=keys32[name])["kernel"]}
+        del ref
+        r["plain_ms"] = cuda_ms(lambda: plainf32(xyz, sun, None, sems,
+                                                 heads=heads), 2)
         with torch.no_grad():
-            module_ms = cuda_ms(lambda: module(xyz, sun, None, sems,
-                                               heads=heads), 2)
-        dev = device_ms(call, 1, keys=("field_eval_general",))["kernel"]
+            r["module_ms"] = cuda_ms(lambda: module(xyz, sun, None, sems,
+                                                    heads=heads), 2)
         gemm = gemm_fn(mc, heads, n_pts, device, torch.float32)
-        gemm_ms_f32 = cuda_ms(gemm, 3)
+        r["gemm_ms_f32"] = cuda_ms(gemm, 3)
         del gemm
         flops = fe.flops_per_point(mc, heads) * n_pts
         outs = sum(w for _, w in fe.active_outputs(mc, heads))
         nbytes = 4 * (n_pts * (fe.in_width(mc) + 3 + outs)
-                      + packed32.w_all.numel() + packed32.b_all.numel())
-        rec32[tag] = dict(
-            n=n_pts, ms=ms, plain_ms=plain_ms, device_ms=dev,
-            gemm_ms_f32=gemm_ms_f32, module_ms=module_ms,
-            bound_ms=max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
-            bound_by=("operations" if flops / PEAK_F32 >= nbytes / PEAK_BYTES
-                      else "bytes"))
-        log(f"field_eval_general float32 heads={tag}: {n_pts} points, kernel "
-            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), device {dev} ms, "
-            f"plain {plain_ms:.3f} ms, module {module_ms:.3f} ms, bound "
-            f"{rec32[tag]['bound_ms']:.3f} ms, float32 matmuls alone "
-            f"{gemm_ms_f32:.3f} ms ({card})")
+                      + sum(w.numel() for w in packed32.ws)
+                      + sum(b.numel() for b in packed32.bs))
+        # the least time: three TF32 products on the tensor cores, or the
+        # float32 products on the FFMA units; either way above the bytes
+        r["bound_ms"] = max(3 * flops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+        r["bound_ms_ffma"] = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+        r["bound_by"] = ("operations" if 3 * flops / PEAK_TF32
+                         >= nbytes / PEAK_BYTES else "bytes")
+        for name, bound in (("wgmma_f32", r["bound_ms"]),
+                            ("general", r["bound_ms_ffma"])):
+            ms = r[name]["ms"]
+            log(f"field_eval {name} float32 heads={tag}: {n_pts} points, "
+                f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bound / ms:.1%} of its bound {bound:.3f} ms), device "
+                f"{r[name]['device_ms']} ms ({card})")
+        log(f"  float32 heads={tag}: plain {r['plain_ms']:.3f} ms, module "
+            f"{r['module_ms']:.3f} ms, float32 matmuls alone "
+            f"{r['gemm_ms_f32']:.3f} ms; bounds 3xTF32 {r['bound_ms']:.3f} ms,"
+            f" FFMA {r['bound_ms_ffma']:.3f} ms ({card})")
         del xyz, sun, sems
-    gen_view_ms = sum(per_view[t] * rec32[t]["ms"] for t in rec32)
-    gen_bound_view_ms = sum(per_view[t] * rec32[t]["bound_ms"] for t in rec32)
-    log(f"general kernel time per float32 view (from the per-launch times): "
-        f"{gen_view_ms:.1f} ms of {view32_rec['view_ms_f32']:.1f} ms; bound "
-        f"{gen_bound_view_ms:.1f} ms")
-    g = rec32["all"]
+    view_ms32 = {name: sum(per_view[t] * rec32[t][name]["ms"] for t in rec32)
+                 for name in fields32}
+    bound_view32 = {k: sum(per_view[t] * rec32[t][k] for t in rec32)
+                    for k in ("bound_ms", "bound_ms_ffma")}
+    log(f"float32 kernel time per view (from the per-launch times): "
+        f"wgmma_f32 {view_ms32['wgmma_f32']:.1f} ms (bound "
+        f"{bound_view32['bound_ms']:.1f} ms), general "
+        f"{view_ms32['general']:.1f} ms (bound "
+        f"{bound_view32['bound_ms_ffma']:.1f} ms); the view "
+        f"{view32_rec['view_ms_f32']:.1f} ms")
+
+    def f32_fields(name, bound_key):
+        """One float32 kernel's numbers of phase 5 at both launch shapes."""
+        a32, s32 = rec32["all"], rec32["sun"]
+        return {
+            "ms": a32[name]["ms"],
+            "plain_ms": a32["plain_ms"],
+            "device_ms": a32[name]["device_ms"],
+            "bound_ms": a32[bound_key],
+            "bound_by": a32["bound_by"],
+            "library_ms": None,
+            "gemm_ms_f32": a32["gemm_ms_f32"],
+            "module_ms": a32["module_ms"],
+            "points_per_launch": {t: rec32[t]["n"] for t in rec32},
+            "heads": "all",
+            "ms_sun": s32[name]["ms"],
+            "device_ms_sun": s32[name]["device_ms"],
+            "plain_ms_sun": s32["plain_ms"],
+            "bound_ms_sun": s32[bound_key],
+            "gemm_ms_f32_sun": s32["gemm_ms_f32"],
+            "module_ms_sun": s32["module_ms"],
+            "launches_per_view": per_view,
+            "ms_per_view": view_ms32[name],
+            "bound_ms_per_view": bound_view32[bound_key],
+            "card": card,
+        }
+
+    f32_entry = {
+        "name": "field_eval_f32",
+        "route": "cuda",
+        "source": "spnerf_torch/csrc/field_eval_f32.cu",
+        "replaces": "spnerf_tpu/ops/pallas/field_eval.py:104",
+        "compute_dtype": "float32",
+        "launches_view": launches32,
+        **f32_fields("wgmma_f32", "bound_ms"),
+        "bound_ms_ffma": rec32["all"]["bound_ms_ffma"],
+        "general_ms": rec32["all"]["general"]["ms"],
+        "general_ms_sun": rec32["sun"]["general"]["ms"],
+        "view_ms": view32_rec["view_ms_f32"],
+        "view_ms_general": view32_rec["view_ms_f32_general"],
+        "view_ms_module": view32_rec["view_ms_f32_module"],
+    }
     general_entry = {
         "name": "field_eval_general",
         "route": "cuda",
         "source": "spnerf_torch/csrc/field_eval_general.cu",
         "replaces": "spnerf_tpu/ops/pallas/field_eval.py:104",
-        "compute_dtype": "float32",
-        "launches_view": launches32,
-        "ms": g["ms"],
-        "plain_ms": g["plain_ms"],
-        "device_ms": g["device_ms"],
-        "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"],
-        "library_ms": None,
-        "gemm_ms_f32": g["gemm_ms_f32"],
-        "module_ms": g["module_ms"],
-        "points_per_launch": {t: rec32[t]["n"] for t in rec32},
-        "tile_points": fe.general_tile_rows(mc.fc_units, packed32.k0_pad, 0),
-        "heads": "all",
-        "ms_sun": rec32["sun"]["ms"],
-        "device_ms_sun": rec32["sun"]["device_ms"],
-        "plain_ms_sun": rec32["sun"]["plain_ms"],
-        "bound_ms_sun": rec32["sun"]["bound_ms"],
-        "gemm_ms_f32_sun": rec32["sun"]["gemm_ms_f32"],
-        "module_ms_sun": rec32["sun"]["module_ms"],
-        "launches_per_view": per_view,
-        "ms_per_view": gen_view_ms,
-        "bound_ms_per_view": gen_bound_view_ms,
-        "view_ms": view32_rec["view_ms_f32"],
-        "view_ms_module": view32_rec["view_ms_f32_module"],
-        "card": card,
+        "compute_dtype": "float32 (phase 5; bfloat16 on phase 17's wide "
+                         "field)",
+        **f32_fields("general", "bound_ms_ffma"),
+        "tile_points": fe.general_tile_rows(mc.fc_units, packed_gen.k0_pad,
+                                            0),
+        "view_ms_packed_for_it": view32_rec["view_ms_f32_general"],
     }
-    del field32, plainf32, module, packed32
+    del fields32, plainf32, module, packed32, packed_gen
     a = rec["all"]
     field_entry = {
         "name": "field_eval",
@@ -3121,8 +3264,8 @@ def main():
         torch.cuda.empty_cache()
 
         log(f"-- phase 17 at {time.time() - t_start:.1f} s")
-        # 17. the float32 CLI through the general kernel, and a bf16 field
-        #     wider than the wgmma kernel takes
+        # 17. the float32 CLI through the wgmma_f32 kernel, and a bf16 field
+        #     wider than the wgmma kernel takes through the general one
         t17 = time.time()
         fp32_rec = fp32_pass(device, card, project)
         fp32_rec["phase_s"] = time.time() - t17
@@ -3150,12 +3293,17 @@ def main():
         launches_prep=prep_rec["flagship"]["b1"],
         max_abs_err_prep=prep_rec["flagship"]["launch_max_abs_err"])
     wide = fp32_rec["wide"]
+    f32_entry.update(
+        launches=fp32_rec["run"]["b1_routes"]["wgmma_f32"],
+        launches_render_best=fp32_rec["render_best"]["b1_routes"][
+            "wgmma_f32"],
+        max_abs_err=max(f32_err, fp32_rec["run"]["launch_max_abs_err"]),
+        max_abs_err_cli=fp32_rec["run"]["launch_max_abs_err"])
     general_entry.update(
-        launches=fp32_rec["run"]["b1_routes"]["general"],
-        launches_render_best=fp32_rec["render_best"]["b1_routes"]["general"],
-        max_abs_err=max(gen_err["float32"],
-                        fp32_rec["run"]["launch_max_abs_err"]),
-        max_abs_err_cli=fp32_rec["run"]["launch_max_abs_err"],
+        launches=wide["launches"],
+        max_abs_err=max(gen_err["float32"], gen_err["bfloat16"],
+                        wide["launch_max_abs_err"]),
+        max_abs_err_f32=gen_err["float32"],
         max_abs_err_bf16=max(gen_err["bfloat16"], wide["launch_max_abs_err"]),
         launches_wide_bf16=wide["launches"])
 
@@ -3261,8 +3409,8 @@ def main():
     print(json.dumps({"paths": paths_rec}), flush=True)
     print(json.dumps({"fp32": fp32_rec, "view_f32": view32_rec}), flush=True)
     print(json.dumps({
-        "kernels": [field_entry, general_entry, dense, sorted_, partials,
-                    batched],
+        "kernels": [field_entry, f32_entry, general_entry, dense, sorted_,
+                    partials, batched],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,
                         "hash_tlf": tlf_rec, "hash_sw_acc0": acc0_rec,
                         "hash_tlf_batched": bat_rec},

@@ -33,7 +33,9 @@
 // 16 at the flagship's 32-point tile, so L2 sits close behind at the widest
 // fields (BM = 16).
 //
-// Design (simple first; 3xTF32 on wgmma is the later redesign).
+// Design (simple; float32 fields up to 512 wide render through
+// field_eval_f32.cu, 3xTF32 on wgmma, and this kernel keeps the wider ones
+// and the bf16 fields outside the wgmma kernel's envelope).
 // - A persistent grid, one CTA of 256 threads per SM, each CTA one tile of
 //   BM points at a time. BM (64, 32 or 16) is the largest that lets the
 //   tile's float32 activations (two ping-pong buffers, K-major: column k of
@@ -60,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "field_epilogue.cuh"
+
 #define THREADS 256
 #define KS 16        // rows of a weight slab; padding of every segment
 #define MICRO_M 4    // points a thread sums
@@ -68,10 +72,6 @@
 #define MAX_OPS 32
 #define OP_INTS 11
 #define W_MAX 1024   // the widest field the route takes
-
-enum { EPI_SIN30, EPI_SIN, EPI_RELU, EPI_NONE, EPI_SOFTPLUS, EPI_ALBEDO,
-       EPI_SIGMOID };
-enum { SRC_BUF0, SRC_BUF1, SRC_X, SRC_SUN, SRC_T };
 
 // One dense layer of the program (ops/field_eval.py `program`), in the order
 // the kernel runs them. w_off: float offset of its (k1 + k2, npad) weight
@@ -98,49 +98,6 @@ struct GeneralDesc {
 // output columns of one pass of a layer at tile BM
 __host__ __device__ constexpr int pass_cols(int bm) {
   return THREADS * MICRO_M * MICRO_N / bm;
-}
-
-// ------------------------------------------------------ the plain epilogues
-
-#define INV_PI 0.318309886183790671538f  // float32(1 / pi)
-#define PI_F 3.14159265358979323846f     // float32(pi)
-#define SIN_C1 0.9999966f
-#define SIN_C3 -0.16664824f
-#define SIN_C5 0.00830629f
-#define SIN_C7 -0.00018363f
-
-// fast_sin as models/spnerf.py computes it, op for op: k = rint(x / pi)
-// (half to even), r = x - k pi, sign from k's parity, the odd polynomial.
-__device__ __forceinline__ float fast_sin(float x) {
-  const float k = rintf(__fmul_rn(x, INV_PI));
-  const float r = __fsub_rn(x, __fmul_rn(k, PI_F));
-  const float odd = __fsub_rn(k, __fmul_rn(2.0f, floorf(__fmul_rn(k, 0.5f))));
-  const float sign = __fsub_rn(1.0f, __fmul_rn(2.0f, fabsf(odd)));
-  const float r2 = __fmul_rn(r, r);
-  float p = __fadd_rn(SIN_C5, __fmul_rn(r2, SIN_C7));
-  p = __fadd_rn(SIN_C3, __fmul_rn(r2, p));
-  p = __fadd_rn(SIN_C1, __fmul_rn(r2, p));
-  return __fmul_rn(sign, __fmul_rn(r, p));
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.0f), log1pf(expf(-fabsf(x))));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-template <int EPI>
-__device__ __forceinline__ float activate(float v) {
-  if (EPI == EPI_SIN30) return fast_sin(__fmul_rn(30.0f, v));
-  if (EPI == EPI_SIN) return fast_sin(v);
-  if (EPI == EPI_RELU) return fmaxf(v, 0.0f);
-  if (EPI == EPI_SOFTPLUS) return softplus(v);
-  if (EPI == EPI_ALBEDO)
-    return __fsub_rn(__fmul_rn(sigmoid(v), 1.002f), 0.001f);
-  if (EPI == EPI_SIGMOID) return sigmoid(v);
-  return v;
 }
 
 template <bool BF16>

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes`. Libraries go to
-`spnerf_torch/_build/` under a name that carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+`spnerf_torch/_build/` under a name that carries a hash of the source, the
+shared headers and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.
 Nothing here runs at import time.
 """
 
@@ -34,9 +35,14 @@ def nvcc_path():
 
 
 def library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{tag}.so"
+    """The library of `csrc/<name>.cu`, named by a hash of the source, of
+    every shared header in csrc/ (`*.cuh`, which a source may include) and
+    of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name):

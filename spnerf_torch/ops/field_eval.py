@@ -2,22 +2,25 @@
 version, and the wrapper that chooses between them by the device of its
 input.
 
-Two kernels replace the JAX package's Pallas field kernel
+Three kernels replace the JAX package's Pallas field kernel
 (`spnerf_tpu/ops/pallas/field_eval.py`, `_make_kernel` and `_fused_apply`),
-one route each (`route`). Both evaluate the Siren trunk with its skip and any
-subset of the heads on a tile of points with the activations in shared
-memory, walking the same layer program (`program`); only the inputs and the
-head outputs touch device memory.
+one route each (`route`). Each evaluates the Siren trunk with its skip and
+any subset of the heads on a tile of points with the activations in shared
+memory, walking the layer program (`program`); only the inputs and the head
+outputs touch device memory.
 
 - "wgmma" (`csrc/field_eval.cu`): bf16 operands on the tensor cores, for the
   flagship family at fc_units a multiple of 32 up to 704 (640 with a beta
   head) and t_embedding_dims <= 16 (`supports_config`). Every use of an
   activation is a matmul operand, so it keeps activations in bf16.
+- "wgmma_f32" (`csrc/field_eval_f32.cu`): compute_dtype "float32" (the
+  Pallas kernel's float32 dots) on the tensor cores by the 3xTF32 split,
+  float32 activations in one buffer, for the family up to F32_W_MAX = 512
+  wide (`supports_f32`).
 - "general" (`csrc/field_eval_general.cu`): float32 activations and FFMA
-  sums, the operands either float32 (compute_dtype "float32", the Pallas
-  kernel's float32 dots) or rounded to bf16 at the product; every width up
-  to W_MAX, for float32 renders and the bf16 fields the wgmma kernel does
-  not take.
+  sums, the operands either float32 or rounded to bf16 at the product; every
+  width up to W_MAX, for the float32 fields wider than the wgmma_f32
+  kernel takes and the bf16 fields the wgmma kernel does not take.
 
 Numerics, as in the Pallas kernel: every matmul takes compute-dtype
 operands (the activation and the weight, both rounded from float32) and
@@ -55,7 +58,22 @@ MAX_STAGES = 6  # the weight ring's depth where shared memory holds it
 GKS = 16
 GEN_THREADS = 256
 W_MAX = 1024
-ROUTES = ("wgmma", "general")
+# the wgmma_f32 route (csrc/field_eval_f32.cu KS, NCH, STAGE_BYTES,
+# MAX_STAGES, W_MAX_F32, TAIL_N, WGS, RED_FLOATS): weight stages of F32_KS K
+# rows of one F32_NCH-wide chunk, hi and lo; every head output at most
+# TAIL_N wide, summed over F32_WGS consumer warpgroups' partial sums
+F32_KS = 16
+F32_NCH = 64
+F32_STAGE_BYTES = F32_NCH * 128
+F32_MAX_STAGES = 12
+F32_W_MAX = 512
+TAIL_N = 16
+F32_WGS = 3
+F32_RED_BYTES = F32_WGS * 64 * TAIL_N * 4
+# the layers whose output is a head output: on the wgmma_f32 route each runs
+# on the registers of the layer before it
+TAILS = ("sigma", "rgb1", "sun3", "sky1", "beta1", "sem1")
+ROUTES = ("wgmma", "general", "wgmma_f32")
 OUTPUTS = ("sigma", "rgb", "sun_v", "sky", "beta", "sem_logits")
 # the kernel's epilogues and operand sources (csrc/field_eval.cu EPI_*, SRC_*)
 EPI = {n: i for i, n in enumerate(("sin30", "sin", "relu", "none",
@@ -83,21 +101,39 @@ def supports_config(cfg: ModelConfig) -> bool:
             and ring_stages(cfg.fc_units, _ceil(in_width(cfg)), has_t) > 0)
 
 
+def supports_f32(cfg: ModelConfig) -> bool:
+    """Whether the wgmma_f32 kernel takes the configuration: the family at
+    fc_units 2 to F32_W_MAX (the ring at least a slab's chunks deep beside
+    the buffer, `f32_stages`), at most TAIL_N semantic classes; any
+    t_embedding_dims and trunk input width."""
+    return (in_family(cfg) and cfg.fc_units >= 2
+            and f32_stages(cfg.fc_units) > 0
+            and not (cfg.sem and cfg.num_sem_classes > TAIL_N))
+
+
+def takes_general(cfg: ModelConfig) -> bool:
+    """Whether the general kernel takes the configuration (any dtype): the
+    family at a width whose tiles fit (up to W_MAX)."""
+    t_pad = _ceil(cfg.t_embedding_dims, GKS) if cfg.beta else 0
+    return in_family(cfg) and general_tile_rows(
+        cfg.fc_units, _ceil(in_width(cfg), GKS), t_pad) > 0
+
+
 def route(cfg: ModelConfig, compute_dtype):
     """Which CUDA kernel evaluates the field at `compute_dtype`: "wgmma" for
-    bf16 within `supports_config`; "general" for float32 at any width up to
-    W_MAX and for bf16 outside the wgmma kernel's envelope (wider fields,
-    fc_units not a multiple of 32, t_embedding_dims > 16); None outside the
-    family, wider than W_MAX, or at another dtype."""
+    bf16 within `supports_config`; "wgmma_f32" for float32 within
+    `supports_f32`; "general" for float32 wider than that (up to W_MAX) and
+    for bf16 outside the wgmma kernel's envelope (wider fields, fc_units not
+    a multiple of 32, t_embedding_dims > 16); None outside the family,
+    wider than W_MAX, or at another dtype."""
     cd = as_dtype(compute_dtype)
     if not in_family(cfg) or cd not in (torch.bfloat16, torch.float32):
         return None
     if cd == torch.bfloat16 and supports_config(cfg):
         return "wgmma"
-    t_pad = _ceil(cfg.t_embedding_dims, GKS) if cfg.beta else 0
-    if general_tile_rows(cfg.fc_units, _ceil(in_width(cfg), GKS), t_pad):
-        return "general"
-    return None
+    if cd == torch.float32 and supports_f32(cfg):
+        return "wgmma_f32"
+    return "general" if takes_general(cfg) else None
 
 
 def uses_fused_kernel(device, cfg: ModelConfig, compute_dtype) -> bool:
@@ -130,11 +166,28 @@ def swizzle_index(rows):
     return n * SLAB + ((k // 8) ^ (n % 8)) * 8 + k % 8
 
 
+def tf32_rna(x):
+    """float32 to TF32, round to nearest with ties away from zero (PTX's
+    cvt.rna.tf32.f32): the low 13 bits of the significand cleared, after
+    adding half of their range to the magnitude."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def f32_k_order(k):
+    """The wgmma_f32 layout's K order: the physical row (input column) of
+    each of the k logical rows a weight stage holds. Within every group of
+    8, logical rows t and t + 4 are physical 2 t and 2 t + 1: the two k a
+    thread's TF32 A fragment holds are adjacent columns of the buffer."""
+    m = np.arange(k)
+    return 8 * (m // 8) + 2 * (m % 4) + (m % 8) // 4
+
+
 @dataclass
 class LayerPack:
     """Where a layer lives in a kernel's layout: the offset of its weights
-    (in bytes, of its first weight stage, in the wgmma layout; in floats in
-    the general one), the float offset of its bias, the padded depths of
+    (in bytes, of its first weight stage, in the wgmma and wgmma_f32
+    layouts; in floats in the general one), the float offset of its bias, the padded depths of
     its two input segments (k2 = 0 for one), its padded and real output
     widths. `slabs` and `stages` describe the wgmma layout."""
 
@@ -179,6 +232,17 @@ class PackedField:
     segment and the output zero-padded to multiples of GKS, layer after
     layer in `w_all` (`w_off` in floats); in bf16 each weight is rounded to
     bf16 when packed (`compute_dtype`).
+
+    "wgmma_f32" (float32 `w_all`, `w_off` in bytes): a layer of TAILS, its
+    (K, TAIL_N) row-major float32 weight, K the padded width of the layer
+    before it. Any other layer: its transposed weight (npad = ceil32(N)
+    rows; the buffer's input segment padded to 32, an input's to F32_KS),
+    its K rows in `f32_k_order`, split into hi = tf32_rna(w) and lo =
+    tf32_rna(w - hi), cut into stages of one F32_KS-deep slab of one
+    F32_NCH-wide chunk (the last may be 32 wide): each row a column's
+    F32_KS hi then F32_KS lo values, its 16-byte chunks in the 128-byte
+    swizzle (chunk c of row n at c ^ (n % 8)); stage (s, j) at byte
+    w_off + (s * npad + F32_NCH * j) * 128.
     """
 
     cfg: ModelConfig
@@ -217,20 +281,71 @@ def _pack_general(specs, ws, bs, cd):
     return torch.cat(w_parts), torch.cat(b_parts), layers
 
 
+def _f32_pads(name, segs):
+    """The wgmma_f32 layout's padded input segments of a layer: the
+    buffer's (the first, but for trunk0 and sky0) to 32, as the layer before
+    pads its output; an input's (trunk input, sun, transient code) to
+    F32_KS."""
+    return [_ceil(s, 32) if i == 0 and name not in ("trunk0", "sky0")
+            else _ceil(s, F32_KS) for i, s in enumerate(segs)]
+
+
+def _pack_f32(specs, ws, bs):
+    """The wgmma_f32 route's layout of the layers: (w_all, b_all, layers)."""
+    w_parts, b_parts, layers = [], [], {}
+    w_off = b_off = 0
+    for (name, segs, out, _), w, b in zip(specs, ws, bs):
+        kp = _f32_pads(name, segs)
+        if name in TAILS:
+            npad = TAIL_N
+            wt = torch.zeros(kp[0], npad, dtype=torch.float32,
+                             device=w.device)
+            wt[:segs[0], :out] = w
+            flat = wt.reshape(-1)
+        else:
+            npad, ktot = _ceil(out, 32), sum(kp)
+            wt = torch.zeros(npad, ktot, dtype=torch.float32, device=w.device)
+            src = dst = 0
+            for sw, p in zip(segs, kp):
+                wt[:out, dst:dst + sw] = w[src:src + sw].t()
+                src, dst = src + sw, dst + p
+            wt = wt[:, torch.from_numpy(f32_k_order(ktot)).to(w.device)]
+            hi = tf32_rna(wt)
+            lo = tf32_rna(wt - hi)
+            ns = ktot // F32_KS
+            blk = torch.cat([hi.reshape(npad, ns, F32_KS),
+                             lo.reshape(npad, ns, F32_KS)], dim=2)
+            blk = blk.permute(1, 0, 2).reshape(ns, npad, 8, 4)
+            n = torch.arange(npad, device=w.device)[:, None]
+            c = torch.arange(8, device=w.device)[None, :]
+            flat = blk[:, n, c ^ (n % 8), :].reshape(-1)
+        w_parts.append(flat)
+        bp = torch.zeros(npad, dtype=torch.float32, device=b.device)
+        bp[:out] = b
+        b_parts.append(bp)
+        layers[name] = LayerPack(4 * w_off, b_off, kp[0],
+                                 kp[1] if len(kp) > 1 else 0, npad, out)
+        w_off += flat.numel()
+        b_off += npad
+    return torch.cat(w_parts), torch.cat(b_parts), layers
+
+
 def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     """Pack an `SPNeRF` module's weights for the fused field at
-    `compute_dtype`, in the layout of `kernel` ("wgmma" or "general"; None:
-    `route(cfg, compute_dtype)`'s, the wgmma kernel's where there is none).
-    The packed layout decides which kernel a `FusedField` launches on CUDA;
-    `kernel="general"` puts a bf16 field the wgmma kernel takes on the
-    general kernel instead (to hold the two against each other)."""
+    `compute_dtype`, in the layout of `kernel` ("wgmma", "general" or
+    "wgmma_f32"; None: `route(cfg, compute_dtype)`'s, the wgmma kernel's
+    where there is none). The packed layout decides which kernel a
+    `FusedField` launches on CUDA; `kernel="general"` puts a field another
+    kernel takes on the general kernel instead (to hold the two against
+    each other)."""
     cfg = model.cfg
     if not in_family(cfg):
         raise ValueError("configuration not covered by the fused field")
     cd = as_dtype(compute_dtype)
     r = route(cfg, cd) if kernel is None else kernel
     takes = {"wgmma": supports_config(cfg) and cd == torch.bfloat16,
-             "general": route(cfg, torch.float32) == "general"}
+             "wgmma_f32": supports_f32(cfg) and cd == torch.float32,
+             "general": takes_general(cfg)}
     if kernel is not None and not takes.get(kernel, False):
         raise ValueError(f"kernel {kernel!r} does not take this field at "
                          f"{cd}")
@@ -240,8 +355,10 @@ def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     bs = [model.layer(n).bias.detach().float() for n in names]
     sem_table = (model.semantic_embedding.detach().float()
                  if cfg.sem else None)
-    if r == "general":
-        w_all, b_all, layers = _pack_general(specs, ws, bs, cd)
+    if r in ("general", "wgmma_f32"):
+        w_all, b_all, layers = (_pack_general(specs, ws, bs, cd)
+                                if r == "general" else
+                                _pack_f32(specs, ws, bs))
         return PackedField(cfg=cfg, names=names, ws=ws, bs=bs,
                            sem_table=sem_table, w_all=w_all, b_all=b_all,
                            layers=layers, k0_pad=_ceil(in_width(cfg), GKS),
@@ -287,7 +404,10 @@ def program(packed: PackedField, heads):
     dst: the activation buffer written (0, 1), or -1 for a head output, out:
     its index in OUTPUTS. The trunk ping-pongs between buf0 and buf1; the
     heads run on its output X and the other buffer Y, the solar head last
-    because it overwrites the features in Y."""
+    because it overwrites the features in Y. On the wgmma_f32 route see
+    `_program_f32`."""
+    if packed.route == "wgmma_f32":
+        return _program_f32(packed, heads)
     cfg = packed.cfg
     outs = dict(active_outputs(cfg, heads))
     rows = []
@@ -329,6 +449,51 @@ def program(packed: PackedField, heads):
     return np.asarray(rows, np.int32)
 
 
+def _program_f32(packed: PackedField, heads):
+    """`program` on the wgmma_f32 route, one activation buffer (buf0): the
+    trunk overwrites it layer by layer; a head output (out >= 0, a1 = -1)
+    runs on the registers of the layer before it; dst -1 keeps a layer's
+    output in registers for its head output. So sem0, rgb0 and beta0 leave
+    X or feats in place, feats overwrites X once sigma and sem0 have run,
+    and the solar head overwrites feats last."""
+    cfg = packed.cfg
+    outs = dict(active_outputs(cfg, heads))
+    rows = []
+
+    def op(name, a1, dst, epi, a2=None):
+        lp = packed.layers[name]
+        out = OUTPUTS.index(dst) if dst in OUTPUTS else -1
+        rows.append((lp.w_off, lp.b_off, lp.k1, lp.k2, lp.npad, lp.nreal,
+                     SRC[a1] if a1 else -1, SRC[a2] if a2 else -1,
+                     SRC[dst] if dst == "buf0" else -1, EPI[epi], out))
+
+    op("trunk0", "x", "buf0", "sin30")
+    for i in range(1, cfg.fc_layers):
+        op(f"trunk{i}", "buf0", "buf0", "sin",
+           a2="x" if i == cfg.skips[0] else None)
+    op("sigma", None, "sigma", "softplus")
+    if "sem_logits" in outs:
+        op("sem0", "buf0", None, "sin")
+        op("sem1", None, "sem_logits", "none")
+    if {"rgb", "sun_v", "beta"} & set(outs):
+        op("feats", "buf0", "buf0", "none")
+        if "rgb" in outs:
+            op("rgb0", "buf0", None, "sin")
+            op("rgb1", None, "rgb", "albedo")
+        if "beta" in outs:
+            op("beta0", "buf0", None, "sin", a2="t")
+            op("beta1", None, "beta", "softplus")
+        if "sun_v" in outs:
+            op("sun0", "buf0", "buf0", "sin", a2="sun")
+            op("sun1", "buf0", "buf0", "sin")
+            op("sun2", "buf0", None, "sin")
+            op("sun3", None, "sun_v", "sigmoid")
+    if "sky" in outs:
+        op("sky0", "sun", None, "relu")
+        op("sky1", None, "sky", "sigmoid")
+    return np.asarray(rows, np.int32)
+
+
 def stream_bytes(packed: PackedField, heads):
     """Weight bytes the kernel streams for one tile of points: every stage
     of every layer the program runs (the L2 reads a tile costs, as the
@@ -346,6 +511,29 @@ def smem_bytes(width, k0_pad, has_t, stages):
     blocks = 2 * _ceil(width, SLAB) // SLAB + _ceil(k0_pad, SLAB) // SLAB
     return (1024 + (blocks + 1 + int(has_t)) * BLOCK_BYTES
             + stages * (STAGE_BYTES + 16))
+
+
+def f32_smem_bytes(width, stages):
+    """The wgmma_f32 kernel's dynamic shared memory
+    (spnerf_field_eval_f32_smem): 1 KB of alignment slack, the ring of
+    `stages` with its barriers, the activation buffer of 64 x ceil32(width)
+    floats and the head outputs' partial sums."""
+    return (1024 + stages * (F32_STAGE_BYTES + 16) + 64 * _ceil(width, 32) * 4
+            + F32_RED_BYTES)
+
+
+def f32_stages(width):
+    """The wgmma_f32 kernel's ring depth (spnerf_field_eval_f32_stages):
+    F32_MAX_STAGES, or as many stages as fit beside the buffer; 0 where
+    fewer than a slab's chunks (ceil32(width) / 64) fit or width is outside
+    1 .. F32_W_MAX."""
+    if not 1 <= width <= F32_W_MAX:
+        return 0
+    least = -(-_ceil(width, 32) // F32_NCH)
+    for stages in range(F32_MAX_STAGES, max(least, 2) - 1, -1):
+        if f32_smem_bytes(width, stages) <= SMEM_LIMIT:
+            return stages
+    return 0
 
 
 def general_pass_cols(bm):
@@ -468,9 +656,11 @@ def fused_field_plain(packed: PackedField, x_in, sun, t_in=None,
     return res
 
 
-def _declare(lib):
-    f = lib.spnerf_field_eval
-    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+def _declare(lib, name="spnerf_field_eval", n_ints=5):
+    """The C entry `name` of a field kernel: six input pointers, `n_ints`
+    ints, six output pointers and the stream."""
+    f = getattr(lib, name)
+    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
                   + [ctypes.c_void_p] * 7)
     f.restype = ctypes.c_int
     lib.spnerf_cuda_error_string.argtypes = [ctypes.c_int]
@@ -497,7 +687,7 @@ def ring_stages(width, k0_pad, has_t):
 
 
 def _check_launch(packed: PackedField, want, x_in, sun, t_in, heads):
-    """The checks both routes' wrappers make: CUDA tensors on one device,
+    """The checks every route's wrapper makes: CUDA tensors on one device,
     weights packed for route `want`, a program the kernels take. Returns
     the program."""
     if packed.route != want:
@@ -513,6 +703,19 @@ def _check_launch(packed: PackedField, want, x_in, sun, t_in, heads):
     if len(prog) > MAX_OPS:
         raise ValueError(f"the kernels run at most {MAX_OPS} layers")
     return prog
+
+
+def _float32_inputs(cfg, x_in, sun, t_in, has_t):
+    """The float32 routes' inputs as the kernels read them: contiguous
+    float32 (N, K0), (N, 3) and (N, T) (None without the beta head), at
+    the field's widths."""
+    xin = x_in.float().contiguous()
+    sn = sun.float().contiguous()
+    tin = t_in.float().contiguous() if has_t else None
+    if (xin.shape[1] != in_width(cfg) or sn.shape[1] != 3
+            or (has_t and tin.shape != (xin.shape[0], cfg.t_embedding_dims))):
+        raise ValueError("inputs of other widths than the field's")
+    return xin, sn, tin
 
 
 def _launch(lib, fn, args, dev, tag):
@@ -559,16 +762,6 @@ def fused_field_kernel(packed: PackedField, x_in, sun, t_in=None,
     return res
 
 
-def _declare_general(lib):
-    f = lib.spnerf_field_eval_general
-    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                  + [ctypes.c_void_p] * 7)
-    f.restype = ctypes.c_int
-    lib.spnerf_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.spnerf_cuda_error_string.restype = ctypes.c_char_p
-    return f
-
-
 def fused_field_general(packed: PackedField, x_in, sun, t_in=None,
                         heads=ALL_HEADS):
     """Launch the general route's kernel on CUDA tensors; same contract as
@@ -588,14 +781,9 @@ def fused_field_general(packed: PackedField, x_in, sun, t_in=None,
     res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
            for nm, wd in outs}
     if n:
-        xin = x_in.float().contiguous()
-        sn = sun.float().contiguous()
-        tin = t_in.float().contiguous() if has_t else None
-        if (xin.shape[1] != in_width(cfg) or sn.shape[1] != 3
-                or (has_t and tin.shape != (n, t_dim))):
-            raise ValueError("inputs of other widths than the field's")
+        xin, sn, tin = _float32_inputs(cfg, x_in, sun, t_in, has_t)
         lib = _build.load("field_eval_general")
-        _launch(lib, _declare_general(lib), (
+        _launch(lib, _declare(lib, "spnerf_field_eval_general", 8), (
             _ptr(xin), _ptr(sn), _ptr(tin), _ptr(packed.w_all),
             _ptr(packed.b_all), prog.ctypes.data, len(prog), cfg.fc_units,
             xin.shape[1], packed.k0_pad, t_dim, t_pad, n,
@@ -608,13 +796,45 @@ def fused_field_general(packed: PackedField, x_in, sun, t_in=None,
     return res
 
 
+def fused_field_f32(packed: PackedField, x_in, sun, t_in=None,
+                    heads=ALL_HEADS):
+    """Launch the wgmma_f32 kernel on CUDA tensors; same contract as
+    `fused_field_plain` in float32."""
+    from . import _build
+
+    cfg = packed.cfg
+    prog = _check_launch(packed, "wgmma_f32", x_in, sun, t_in, heads)
+    if not supports_f32(cfg):
+        raise ValueError(f"fc_units {cfg.fc_units}: outside the wgmma_f32 "
+                         f"kernel's envelope (supports_f32)")
+    has_t = cfg.beta and "beta" in heads
+    t_dim = cfg.t_embedding_dims if has_t else 0
+    outs = active_outputs(cfg, heads)
+    n = x_in.shape[0]
+    res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
+           for nm, wd in outs}
+    if n:
+        xin, sn, tin = _float32_inputs(cfg, x_in, sun, t_in, has_t)
+        lib = _build.load("field_eval_f32")
+        _launch(lib, _declare(lib, "spnerf_field_eval_f32"), (
+            _ptr(xin), _ptr(sn), _ptr(tin), _ptr(packed.w_all),
+            _ptr(packed.b_all), prog.ctypes.data, len(prog), cfg.fc_units,
+            xin.shape[1], t_dim, n,
+            *(_ptr(res.get(k)) for k in OUTPUTS)), x_in.device,
+            "field_eval_f32")
+        FusedField.launches += 1
+        FusedField.route_launches["wgmma_f32"] += 1
+    res["sigma"] = res["sigma"][:, 0]
+    return res
+
+
 class FusedField:
     """Forward-only field callable, `(xyz, sun_d, t_emb, sem_labels, heads)`
     -> dict, over packed weights. CUDA inputs go through the kernel the
     weights are packed for (`pack_params`: by default `route(cfg,
     compute_dtype)`'s), CPU inputs through the plain version.
 
-    `FusedField.launches` counts kernel launches of both routes,
+    `FusedField.launches` counts kernel launches of every route,
     process-wide; `FusedField.route_launches[route]` each route's.
     """
 
@@ -653,10 +873,14 @@ class FusedField:
         if r == "wgmma" and cd != torch.bfloat16:
             raise ValueError(f"the wgmma kernel computes in bfloat16, not "
                              f"{cd}: pack_params(model, compute_dtype)")
+        if r == "wgmma_f32" and cd != torch.float32:
+            raise ValueError(f"the wgmma_f32 kernel computes in float32, not "
+                             f"{cd}: pack_params(model, compute_dtype)")
         if r == "general" and self.packed.compute_dtype != cd:
             raise ValueError(f"weights packed at {self.packed.compute_dtype},"
                              f" not {cd}")
-        launch = fused_field_kernel if r == "wgmma" else fused_field_general
+        launch = {"wgmma": fused_field_kernel, "general": fused_field_general,
+                  "wgmma_f32": fused_field_f32}[r]
         return launch(self.packed, x_in, sun, t_in, heads)
 
 

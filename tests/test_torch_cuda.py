@@ -7,8 +7,9 @@ no JAX, so it also runs where JAX is not installed:
 
 Tolerances: the field kernels in bf16, 2e-2 absolute (the kernel and the
 plain version sum in different orders, which can move an activation by one
-bf16 ulp); the general field kernel in float32, 1e-4 absolute (the same
-float32 products in another sum order, through eight layers); the
+bf16 ulp); the general and wgmma_f32 field kernels in float32, 1e-4
+absolute (the same float32 products in another sum order, or as three TF32
+products without lo x lo, through eight layers); the
 table-gradient kernels, float32, 1e-5 of the largest entry (sums of
 up to thousands of rows in another order), B3 bitwise equal to itself and
 two calls of B4 (float atomics) within the same bound of each other. The DSM
@@ -64,10 +65,10 @@ def field_inputs(n, cfg, device, seed=0):
 F32_ATOL = 1e-4
 
 
-def packed_field(cfg, device, dtype="bfloat16"):
+def packed_field(cfg, device, dtype="bfloat16", kernel=None):
     model = load_model(cfg, dtype, device=device,
                        generator=torch.Generator().manual_seed(0))
-    return model, fe.pack_params(model, dtype)
+    return model, fe.pack_params(model, dtype, kernel=kernel)
 
 
 def hold_kernel(p, args, heads, dtype="bfloat16"):
@@ -145,7 +146,7 @@ def test_ring_stages_match_the_kernel(device):
 def test_kernel_refuses_float32_compute(device):
     """The wgmma kernel computes in bf16 only: a field packed for it
     refuses float32 compute on the card (a float32 field is packed for the
-    general route, `pack_params(model, "float32")`)."""
+    wgmma_f32 or the general route, `pack_params(model, "float32")`)."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=64)
     _, p = packed_field(cfg, device)
     assert p.route == "wgmma"
@@ -179,10 +180,13 @@ def test_general_kernel_matches_plain_every_head_subset(device, dtype, kw, n):
     tiles), 768 and 1024 (16-point tiles); in bf16 at the widths and shapes
     the wgmma kernel does not take (80, 768, 800 with a beta head, a
     transient code of 32); n of 1, 17, 33, 63, 65, a ragged tile count and
-    more."""
+    more. Float32 fields up to 512 wide route to wgmma_f32 and are packed
+    for the general kernel here, as the parent's route."""
     cfg = ModelConfig(mapping=True, fc_units=kw.pop("fc_units"), **kw)
-    assert fe.route(cfg, dtype) == "general"
-    _, p = packed_field(cfg, device, dtype)
+    assert fe.route(cfg, dtype) == (
+        "wgmma_f32" if fe.supports_f32(cfg) and dtype == "float32"
+        else "general")
+    _, p = packed_field(cfg, device, dtype, kernel="general")
     args = field_inputs(n, cfg, device)
     for r in range(len(fe.ALL_HEADS) + 1):
         for heads in itertools.combinations(fe.ALL_HEADS, r):
@@ -192,10 +196,11 @@ def test_general_kernel_matches_plain_every_head_subset(device, dtype, kw, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 33, 4000, 300_001])
 def test_general_kernel_ragged_tile_counts(device, n):
-    """The flagship in float32 (32-point tiles): one tile, one ragged, two,
-    more tiles than the grid has CTAs, each with a ragged last tile."""
+    """The flagship in float32 (32-point tiles) packed for the general
+    kernel: one tile, one ragged, two, more tiles than the grid has CTAs,
+    each with a ragged last tile."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3)
-    _, p = packed_field(cfg, device, "float32")
+    _, p = packed_field(cfg, device, "float32", kernel="general")
     args = field_inputs(n, cfg, device, seed=n)
     hold_kernel(p, args, fe.ALL_HEADS, "float32")
     hold_kernel(p, args, ("sun",), "float32")
@@ -219,6 +224,87 @@ def test_general_tile_matches_the_kernel(device):
             assert (lib.spnerf_field_eval_general_smem(bm, width, k0_pad,
                                                        t_pad)
                     == fe.general_smem_bytes(bm, width, k0_pad, t_pad))
+
+
+F32_CASES = [
+    (dict(sem=True, num_sem_classes=3, fc_units=512), 1000),
+    (dict(sem=True, beta=True, num_sem_classes=3, fc_units=512,
+          t_embedding_dims=16), 130),
+    (dict(sem=True, beta=True, num_sem_classes=3, fc_units=96,
+          t_embedding_dims=20), 65),
+    (dict(beta=True, fc_units=80), 3 * 64 + 5),
+    (dict(sem=True, num_sem_classes=16, fc_units=256), 1),
+    (dict(sem=True, num_sem_classes=3, fc_units=480), 63),
+    (dict(fc_units=32), 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,n", F32_CASES)
+def test_f32_kernel_matches_plain_every_head_subset(device, kw, n):
+    """The wgmma_f32 kernel against the plain float32 version (TF32 off),
+    every head subset, within F32_ATOL: the flagship width with and without
+    a beta head, 96 with a transient code of 20, 80 and 480 (a 32-wide last
+    chunk), 16 semantic classes, 32; n of 1, 63, 64, 65, a ragged tile count
+    and more."""
+    cfg = ModelConfig(mapping=True, fc_units=kw.pop("fc_units"), **kw)
+    assert fe.route(cfg, "float32") == "wgmma_f32"
+    _, p = packed_field(cfg, device, "float32")
+    args = field_inputs(n, cfg, device)
+    for r in range(len(fe.ALL_HEADS) + 1):
+        for heads in itertools.combinations(fe.ALL_HEADS, r):
+            hold_kernel(p, args, heads, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 65, 3 * 64, 4000, 300_001])
+def test_f32_kernel_ragged_tile_counts(device, n):
+    """The flagship in float32 on the wgmma_f32 kernel: one tile, two, three,
+    more tiles than the grid has CTAs, the last ragged."""
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3)
+    _, p = packed_field(cfg, device, "float32")
+    assert p.route == "wgmma_f32"
+    args = field_inputs(n, cfg, device, seed=n)
+    hold_kernel(p, args, fe.ALL_HEADS, "float32")
+    hold_kernel(p, args, ("sun",), "float32")
+
+
+@pytest.mark.cuda
+def test_f32_stages_match_the_kernel(device):
+    """The wrapper's ring depth and shared-memory reckoning (`f32_stages`,
+    `f32_smem_bytes`, which `supports_f32` reads) are the kernel's own."""
+    from spnerf_torch.ops import _build
+
+    lib = _build.load("field_eval_f32")
+    for width in range(0, 1057):
+        stages = fe.f32_stages(width)
+        assert lib.spnerf_field_eval_f32_stages(width) == stages, width
+        if stages:
+            assert (lib.spnerf_field_eval_f32_smem(width, stages)
+                    == fe.f32_smem_bytes(width, stages))
+
+
+@pytest.mark.cuda
+def test_f32_kernel_never_falls_back(device, monkeypatch):
+    """A float32 field on the wgmma_f32 route refuses bf16 compute, and when
+    its kernel cannot be had the call raises: no launch of the general
+    kernel, the module or the plain version takes its place."""
+    from spnerf_torch.ops import _build
+
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=64)
+    _, p = packed_field(cfg, device, "float32")
+    args = field_inputs(16, cfg, device)
+    with pytest.raises(ValueError):
+        fe.FusedField(p, "bfloat16")(*args)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(_build, "load", broken)
+    before = dict(fe.FusedField.route_launches)
+    with pytest.raises(RuntimeError, match="field_eval_f32"):
+        fe.FusedField(p, "float32")(*args)
+    assert fe.FusedField.route_launches == before
 
 
 @pytest.mark.cuda
@@ -246,22 +332,23 @@ def test_render_image_uses_kernel(device):
 @pytest.mark.cuda
 def test_float32_render_takes_the_module(device):
     """A float32 render on CUDA (which took the module before the general
-    kernel was ported) launches the general kernel three times a chunk and
-    no wgmma kernel, and agrees with the plain float32 render within
-    1e-4."""
+    kernel was ported, then the general kernel) launches the wgmma_f32
+    kernel three times a chunk and no other, and agrees with the plain
+    float32 render within 1e-4."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=128)
     rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
                       sem=True, compute_dtype="float32")
     model, _ = packed_field(cfg, device)
     batch = fake_batch(np.random.default_rng(0), 1500)
     fe.FusedField.launches = 0
-    fe.FusedField.route_launches.update(wgmma=0, general=0)
+    fe.FusedField.route_launches.update(wgmma=0, general=0, wgmma_f32=0)
     out = build_render_fn(model, rc, chunk=1024)(batch["rays"], 0,
                                                  batch["sems"])
     torch.cuda.synchronize()
     launches = 3 * -(-1500 // chunk_size(rc, 1024))
     assert fe.FusedField.launches == launches
-    assert fe.FusedField.route_launches == {"wgmma": 0, "general": launches}
+    assert fe.FusedField.route_launches == {"wgmma": 0, "general": 0,
+                                            "wgmma_f32": launches}
     ref = build_render_fn(model, rc, chunk=1024, field="plain")(
         batch["rays"], 0, batch["sems"])
     for k in ref:
@@ -288,12 +375,13 @@ def test_wide_render_takes_the_module(device, beta):
                if beta else None)
     batch = fake_batch(np.random.default_rng(0), 1500)
     fe.FusedField.launches = 0
-    fe.FusedField.route_launches.update(wgmma=0, general=0)
+    fe.FusedField.route_launches.update(wgmma=0, general=0, wgmma_f32=0)
     out = build_render_fn(model, rc, t_embed, chunk=1024)(
         batch["rays"], 2, batch["sems"])
     torch.cuda.synchronize()
     launches = 3 * -(-1500 // chunk_size(rc, 1024))
-    assert fe.FusedField.route_launches == {"wgmma": 0, "general": launches}
+    assert fe.FusedField.route_launches == {"wgmma": 0, "general": launches,
+                                            "wgmma_f32": 0}
     ref = build_render_fn(model, rc, t_embed, chunk=1024, field="plain")(
         batch["rays"], 2, batch["sems"])
     assert set(out) == set(ref)

@@ -79,10 +79,10 @@ def emulate_general(p, prog, x_in, sun, t_in):
     return res
 
 
-def general_pack(width, dtype, seed=0, **kw):
+def general_pack(width, dtype, seed=0, kernel=None, **kw):
     cfg = ModelConfig(fc_units=width, **{**FLAGSHIP, **kw})
     model = SPNeRF(cfg, generator=torch.Generator().manual_seed(seed))
-    return tfe.pack_params(model, dtype)
+    return tfe.pack_params(model, dtype, kernel=kernel)
 
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-6),
@@ -96,9 +96,11 @@ def test_schedule_matches_plain(dtype, atol, width, kw, heads, rng):
     """The general kernel's schedule (`emulate_general`: its tiles, passes
     and slabs on the packed layout, its operand rounding) computes the
     plain version's outputs for the head subset, in both policies at
-    widths the wgmma kernel does not take; tiles of 64 points (two tiles
-    and a ragged third) and, at 400, of 32 points."""
-    p = general_pack(width, dtype, **kw)
+    widths the wgmma kernel does not take (float32 packed for the general
+    kernel, which the wgmma_f32 route leaves these widths to only when
+    asked); tiles of 64 points (two tiles and a ragged third) and, at 400,
+    of 32 points."""
+    p = general_pack(width, dtype, kernel="general", **kw)
     assert p.route == "general"
     field = tfe.FusedField(p, dtype)
     xyz, sun, sems, t_emb = make_inputs(rng, 130, p.cfg)
@@ -124,7 +126,8 @@ def test_pack_general_layout(dtype, width):
     place in the general layout's row-major (k1 + k2, npad) matrices, each
     segment from a multiple of 16; everything else in `w_all` is zero, the
     layers tile it exactly, and the biases are float32 as the module's."""
-    p = general_pack(width, dtype, beta=True, t_embedding_dims=20)
+    p = general_pack(width, dtype, kernel="general", beta=True,
+                     t_embedding_dims=20)
     cd = tfe.as_dtype(dtype)
     assert p.route == "general" and p.compute_dtype == cd
     assert p.k0_pad == 64 and len(p.layers) == len(p.names) == 22
@@ -187,20 +190,24 @@ def test_tile_and_smem_reckoning():
 def test_route(device, dtype, width, beta, t_dims):
     """`route` and `uses_fused_kernel` over device x dtype x width x beta x
     transient width: bf16 within the wgmma envelope takes "wgmma" (the
-    flagship among them), float32 at any width up to W_MAX and bf16 outside
-    the envelope "general", wider fields no kernel; only CUDA renders take
-    a kernel. The weights pack for the route, and for the plain field
-    where there is none."""
+    flagship among them), float32 up to F32_W_MAX "wgmma_f32" (the
+    flagship among them), float32 above it up to W_MAX and bf16 outside the
+    envelope "general", wider fields no kernel; only CUDA renders take a
+    kernel. The weights pack for the route, and for the plain field where
+    there is none."""
     cfg = ModelConfig(fc_units=width, beta=beta, t_embedding_dims=t_dims,
                       **FLAGSHIP)
     if width > tfe.W_MAX:
         want = None
     elif dtype == "bfloat16" and tfe.supports_config(cfg):
         want = "wgmma"
+    elif dtype == "float32" and width <= tfe.F32_W_MAX:
+        want = "wgmma_f32"
     else:
         want = "general"
-    if dtype == "bfloat16" and (width, beta, t_dims) == (512, False, 16):
-        assert want == "wgmma"  # the flagship bf16 render
+    if (width, beta, t_dims) == (512, False, 16):
+        # the flagship renders
+        assert want == ("wgmma" if dtype == "bfloat16" else "wgmma_f32")
     if (width % 32 or (beta and t_dims > 16) or width > 704
             or (beta and width > 640)):
         assert not tfe.supports_config(cfg)
@@ -237,9 +244,12 @@ def test_plain_matches_pallas_outside_the_wgmma_envelope(dtype, atol, width,
     card, against the Pallas kernel in interpret mode at fc_units 768 and
     800 with and without a beta head, at 80 (not a multiple of 32) and at a
     transient code of 32, in both dtypes; the field packs for the general
-    route and, on the CPU, launches nothing."""
+    route (for the wgmma_f32 route in float32 up to 512) and, on the CPU,
+    launches nothing."""
     params, jcfg, model = make_pair(width=width, **kw)
-    assert tfe.route(model.cfg, dtype) == "general"
+    assert tfe.route(model.cfg, dtype) == (
+        "wgmma_f32" if dtype == "float32" and width <= tfe.F32_W_MAX
+        else "general")
     inputs = make_inputs(rng, 100, model.cfg)
     before = tfe.FusedField.launches
     out = port_fused(model, inputs, dtype, ALL)
@@ -268,7 +278,7 @@ def test_pack_for_a_kernel():
 def test_general_kernel_refuses_cpu_tensors_and_other_packs():
     """Each route's wrapper takes CUDA tensors and weights packed for its
     route only."""
-    p = general_pack(64, "float32")
+    p = general_pack(64, "float32", kernel="general")
     x, sun = torch.zeros(4, 63), torch.zeros(4, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tfe.fused_field_general(p, x, sun)

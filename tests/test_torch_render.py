@@ -78,8 +78,9 @@ def test_render_image_matches_trainer(dtype, field, monkeypatch):
     """The slice end to end: whole-image eval rendering. The beta case also
     carries the transient embedding of image t; the wide case is a field of
     fc_units 768, which the port renders through its general kernel on the
-    card (the wgmma kernel takes at most 704) and the JAX package through
-    its Pallas kernel."""
+    card (the wgmma kernel takes at most 704, the wgmma_f32 kernel 512) and
+    the JAX package through its Pallas kernel; the card renders the other
+    float32 cases through the wgmma_f32 kernel."""
     from spnerf_tpu.train.loop import Trainer
 
     monkeypatch.setenv("SPNERF_EVAL_GROUP", "1")
@@ -99,6 +100,8 @@ def test_render_image_matches_trainer(dtype, field, monkeypatch):
     model = SPNeRF(ModelConfig(**mc), compute_dtype=dtype)
     if field == "wide":
         assert route(model.cfg, dtype) == "general"
+    elif dtype == "float32":
+        assert route(model.cfg, dtype) == "wgmma_f32"
     model.load_state_dict(field_state_dict(params["coarse"]))
     t_embed = None
     if field == "beta":
