@@ -246,6 +246,13 @@ Phases, each fatal on failure:
      at RENDER_P99/RENDER_MAX against the plain bf16 render (the plain
      float32 control beside it) and each launch at KERNEL_ATOL. Its
      numbers on one `{"fp32": ...}` line;
+ 18. `python3 bench_torch.py` as a user runs it, a subprocess from the
+     repository root (the bench's program: the flagship step at batch
+     1024, a warm-up window of 100 steps, then two timed windows of 100;
+     no kernel): it must exit 0 within BENCH_TIMEOUT_S with a last line
+     under BENCH_METRIC, a finite value > 0 and this card's name. Its
+     record, with phase 8's ms/step beside it, on one `{"bench": ...}`
+     line and under `train_steps` on the `kernels` line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
@@ -2258,11 +2265,47 @@ def prep_pass(device, card, hold_hash):
     return rec
 
 
+# ---------------------------------------------------------------- phase 18
+BENCH_TIMEOUT_S = 300
+BENCH_METRIC = "flagship_train_rays_per_sec_per_gpu"
+
+
+def bench_pass():
+    """Phase 18: `python3 bench_torch.py` as a user runs it, a subprocess
+    from the repository root. It must exit 0 with a last line that parses,
+    under BENCH_METRIC, a finite value > 0 and this card's name; returns
+    that record with the phase's seconds."""
+    t0 = time.time()
+    try:
+        proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=HERE,
+                              capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"bench_torch.py ran past {BENCH_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"bench_torch.py exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        rec = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"bench_torch.py's last line is not JSON: {proc.stdout[-500:]}")
+    value = rec.get("value")
+    if (rec.get("metric") != BENCH_METRIC
+            or not isinstance(value, (int, float))
+            or not np.isfinite(value) or value <= 0
+            or rec.get("device") != torch.cuda.get_device_name(0)):
+        fail(f"bench_torch.py's record: {json.dumps(rec)}")
+    rec["phase_s"] = time.time() - t0
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
         from spnerf_torch.config import ModelConfig
+        from spnerf_torch.device import card_info
         from spnerf_torch.models import load_model
         from spnerf_torch.ops import _build
         from spnerf_torch.ops import field_eval as fe
@@ -2281,10 +2324,10 @@ def main():
     t_start = time.time()
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    info = card_info(device)
+    if info is None:
+        fail("nvidia-smi lists no card of this device's UUID")
+    card = ", ".join(info)
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -3270,6 +3313,15 @@ def main():
         fp32_rec = fp32_pass(device, card, project)
         fp32_rec["phase_s"] = time.time() - t17
         torch.cuda.empty_cache()
+
+    log(f"-- phase 18 at {time.time() - t_start:.1f} s")
+    # 18. bench_torch.py: the bench's program, beside phase 8's step
+    bench_rec = bench_pass()
+    bench_rec["phase8_siren_ms_per_step"] = siren_rec["ms_per_step"]
+    bench_rec["vs_phase8"] = (bench_rec["ms_per_step"]
+                              / siren_rec["ms_per_step"])
+    bench_rec["card"] = card
+    print(json.dumps({"bench": bench_rec}), flush=True)
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
     occ, multi = paths_rec["occgrid"], paths_rec["multi"]
     field_entry.update(
@@ -3413,7 +3465,7 @@ def main():
                     partials, batched],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,
                         "hash_tlf": tlf_rec, "hash_sw_acc0": acc0_rec,
-                        "hash_tlf_batched": bat_rec},
+                        "hash_tlf_batched": bat_rec, "bench": bench_rec},
         "launches_per_step": {"hash": launches7, "hash_tlf": launches9,
                               "hash_sw_acc0": launches10,
                               "hash_tlf_batched": launches11}}), flush=True)

@@ -25,7 +25,6 @@ records none, they are printed as null ("not measured").
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -76,11 +75,10 @@ def main(argv=None):
         sys.exit("profile_step needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
+    from ..device import card_info
     from .synth import train_setup
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = ", ".join(card_info())
     tr, data = train_setup(args.family, device="cuda",
                            flat_table=not args.no_flat_table)
     state = tr.init_state(torch.Generator().manual_seed(0))

@@ -1,5 +1,6 @@
-"""The flagship and hash configurations, synthetic scenes in numpy, and the
-train-step setup the chip smoke test drives."""
+"""The flagship and hash configurations, synthetic scenes in numpy, the
+train-step setup the chip smoke test drives and the program
+`bench_torch.py` times (`bench_setup`)."""
 
 from dataclasses import replace
 
@@ -59,6 +60,30 @@ def train_setup(encoding="siren", n_rays=65536, device=None, seed=0,
                       max_steps=30000, mesh=mesh, device=device)
     data = trainer.shard_data(fake_batch(np.random.default_rng(seed), n_rays))
     return trainer, data
+
+
+def bench_setup(batch_size=1024, n_inner=100, n_rays=65536, device=None):
+    """(trainer, state, data, run): the program `bench_torch.py` times, the
+    JAX package's `bench_setup`. The flagship train step of
+    `train_setup("siren")` (lr 5e-4, 1000 steps an epoch, 30,000 steps) on
+    its n_rays-row synthetic scene of seed 0 on the device and the state
+    from `trainer.init_state` with a generator of seed 0. run(state, data,
+    seed) -> (state, the last step's loss terms) is one window: n_inner
+    steps of `train_steps` on batch_size rays, in a plain loop where the
+    JAX package scans them in one program; each step draws from (seed,
+    step) with the step count advancing inside the window. Any change
+    here, or in the configs and the scene it takes from `train_setup`,
+    changes the benchmark."""
+    import torch
+
+    trainer, data = train_setup("siren", n_rays=n_rays, device=device)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+
+    def run(state, data, seed):
+        return state, trainer.train_steps(state, data, n_inner, batch_size,
+                                          seed)
+
+    return trainer, state, data, run
 
 
 def fake_batch(rng, n):

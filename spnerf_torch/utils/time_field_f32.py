@@ -20,7 +20,6 @@ says whether a fixed cost per slab or the products hold the kernel.
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -30,6 +29,7 @@ PEAK_TF32 = 495e12  # H100 SXM dense TF32 FLOP/s
 
 def main(argv=None):
     from ..config import ModelConfig
+    from ..device import card_info
     from ..models import load_model
     from ..ops import field_eval as fe
 
@@ -42,11 +42,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    card = ", ".join(card_info(dev))
     g = np.random.default_rng(0)
     n = args.points
     xyz = torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32)

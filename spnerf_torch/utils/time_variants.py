@@ -22,7 +22,6 @@ and the card's name and power limit.
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -52,12 +51,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("time_variants needs a CUDA device")
+    from ..device import card_info
     from ..ops import dtab as dt
     from .synth import train_setup
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = ", ".join(card_info())
     runs = {}
     for name, (flat, env) in VARIANTS.items():
         set_env(env)

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-`spnerf_torch/` or `chip_smoke.py`, and no quiet fallback to the CPU."""
+`spnerf_torch/`, `chip_smoke.py` or the port's root scripts, and no quiet
+fallback to the CPU."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,8 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "spnerf_tpu")
 def port_sources():
     files = sorted((ROOT / "spnerf_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "main_torch.py",
-              ROOT / "eval_torch.py", ROOT / "dryrun_torch.py"]
+              ROOT / "eval_torch.py", ROOT / "dryrun_torch.py",
+              ROOT / "bench_torch.py"]
     return files
 
 
@@ -55,6 +57,7 @@ def test_device_helper_refuses_to_pick_cpu(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    import bench_torch
     from spnerf_torch.config import ModelConfig
     from spnerf_torch.models import init_spnerf, load_model
 
@@ -64,6 +67,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         load_model(cfg)
     with pytest.raises(RuntimeError):
         init_spnerf(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_torch.main([])
     assert next(load_model(cfg, device="cpu").parameters()).device.type == "cpu"
 
 
