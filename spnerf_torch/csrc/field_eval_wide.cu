@@ -1,0 +1,934 @@
+// Fused forward of the SP-NeRF field on Hopper (sm_90a): the wide route,
+// fields wider than one CTA holds, on wgmma through a cluster of two CTAs.
+//
+// Replaces the Pallas TPU kernel `_make_kernel` / `_fused_apply` in
+// spnerf_tpu/ops/pallas/field_eval.py (its dots at field_eval.py:125-126:
+// compute-dtype operands, float32 sums) for the fields the one-CTA tensor
+// core kernels do not take: bf16 fields outside the wgmma kernel's envelope
+// (field_eval.cu: wider than 704, or 640 with a beta head; fc_units not a
+// multiple of 32; a transient code wider than 16) and float32 fields wider
+// than the wgmma_f32 kernel's 512 (field_eval_f32.cu), up to W_MAX = 1024
+// and TAIL_N = 16 semantic classes. For every point it computes the Siren
+// trunk sin(30 W0 x), the sine layers with the input concatenated back in
+// at the skip, then any subset of the heads (sigma, albedo, sun visibility,
+// sky, beta, semantic logits), walking the layer program of `program` in
+// ops/field_eval.py (the one-buffer program of the wgmma_f32 route).
+//
+// Numerics. Activations stay float32 between layers, in shared memory. The
+// product policy is a template parameter:
+// - float32: every product of a trunk or hidden head layer as three TF32
+//   products, lo_a hi_b + hi_a lo_b + hi_a hi_b (hi = tf32_rna(a), lo =
+//   tf32_rna(a - hi); the weights split when packed, the activations in
+//   registers as they are loaded; lo_a lo_b, 2^-22 of the product, is
+//   dropped), wgmma m64nNk8 into float32 accumulators, as field_eval_f32.cu;
+// - bf16: one bf16 product, wgmma m64nNk16, the activation rounded to bf16
+//   (round to nearest even) as its A fragment is loaded and the weight when
+//   packed: every use of an activation is a product operand, so this is the
+//   TPU kernel's cast at the dot.
+// The head outputs (1 to 16 columns) are float32 FFMA sums of the same
+// operands (rounded to bf16 in the bf16 policy), taken from the registers
+// of the layer before them. Bias and epilogues repeat the plain version op
+// for op (field_epilogue.cuh).
+//
+// Bound. 2 FLOP a weight a point uses: 21.25 MFLOP for all heads of an
+// 8x1024 field (19.14 for the solar pass), 12.00 at 768. On the tensor cores
+// that is 8.06 ms (bf16, 989 TFLOP/s) or 48.3 ms (three TF32 products at
+// 495 TFLOP/s) for the eval render's 374,976-point all-head launch. Every
+// 64-point tile also streams every weight it uses from L2 (2 bytes a weight
+// in bf16, 8 as hi and lo in float32): 32 or 48 FLOP a byte, so L2 sits
+// close behind the tensor cores, as in the one-CTA kernels.
+//
+// Design.
+// - Why a cluster. A 64-point tile of a 1,024-wide field holds 256 KB of
+//   float32 activations, and one layer's output is 65,536 accumulators: one
+//   CTA (227 KB of shared memory, 64K registers) holds neither, and wgmma's
+//   M of 64 does not let the tile shrink. Two CTAs on neighbouring SMs, a
+//   cluster (__cluster_dims__(2, 1, 1)), share the tile: CTA r
+//   (%cluster_ctarank) owns the output columns [r h, (r + 1) h) of every
+//   layer, h = npad / 2 (npad = ceil64(width)), and the same columns of the
+//   tile's activation buffer: 128 KB and 96 accumulators a thread at 1,024,
+//   the budget of field_eval_f32.cu at 512.
+// - A from registers, K from both CTAs. For every k step a thread loads its
+//   A fragment from the CTA that owns those K columns: its own buffer
+//   (ld.shared) or its peer's through distributed shared memory
+//   (mapa.shared::cluster + ld.shared::cluster). The next slab's fragments
+//   are loaded while the current slab's products run. Each weight's K rows
+//   are reordered within groups (`f32_k_order`, `bf16_k_order`) so that a
+//   thread's k values are adjacent columns of the buffer: one 8-byte
+//   (float32) or 16-byte (bf16) load a row. The trunk input, sun and
+//   transient code are read from device memory at the layers that use them.
+// - Each CTA streams only its half of every layer's weights through its own
+//   ring of 8 KB stages, one bulk copy (cp.async.bulk) a stage, filled by
+//   one producer thread that walks the program ahead across layers and
+//   tiles: a stage is one K slab (16 rows as hi | lo in float32, 64 rows in
+//   bf16) of one 64-wide chunk, each 128-byte row in the 128-byte swizzle
+//   wgmma reads. Three consumer warpgroups own a layer's chunks j = wg,
+//   wg + 3, wg + 6 and run the whole K, as field_eval_f32.cu.
+// - Layer boundaries. A layer's output overwrites the buffer in place, so the
+//   two CTAs meet twice a layer: once every thread of both CTAs is done
+//   reading the old activations (before any write), and once both halves of
+//   the new ones (and the head outputs' partial sums) are written (before the
+//   next layer reads them). A meeting is the CTA's consumer barrier, then
+//   one thread arrives on the peer's mbarrier (release, cluster scope) and
+//   waits on its own (acquire, cluster scope), then the consumer barrier
+//   again; each CTA has two such mbarriers, taken in turn, so that a phase
+//   cannot complete twice before its waiter sees it (`meet`); the producer thread takes no part, so the ring runs on across
+//   the boundary. The kernel opens with a cluster barrier (the barriers are
+//   initialised) and the consumers close with a meeting, so that no CTA
+//   exits while its peer can still read its shared memory.
+// - Head outputs (<= 16 columns). Each CTA sums its K half from the
+//   registers of the layer before: each thread's columns by FFMA, the four
+//   lanes of a row by shuffles, the three warpgroups into shared memory;
+//   after the second meeting CTA r writes rows [32 r, 32 r + 32) of the
+//   tile, each the six partials added in a fixed order (rank 0's warpgroups
+//   0, 1, 2, then rank 1's), so the result repeats. A layer that feeds only
+//   a head output stays in registers.
+// - A persistent grid of clusters, as many as fit on the card at once
+//   (cudaOccupancyMaxActiveClusters), each one 64-point tile at a time.
+//   512 threads a CTA: three consumer warpgroups at CONSUMER_REGS registers
+//   and a producer warpgroup at PRODUCER_REGS (setmaxnreg within the CTA's
+//   launch allocation of 512 x 128; a copy that moved 8 registers to the
+//   producer spilled more and ran slower).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "field_epilogue.cuh"
+#include "hopper.cuh"
+
+#define BM 64                      // points per tile
+#define WGS 3                      // consumer warpgroups
+#define CONSUMERS (WGS * 128)
+#define THREADS (CONSUMERS + 128)  // plus one producer warpgroup
+// registers a thread after setmaxnreg, within the launch allocation of
+// 512 x 128: 128 x PRODUCER_REGS + 384 x CONSUMER_REGS <= 65,536
+#define PRODUCER_REGS 24
+#define CONSUMER_REGS 160
+static_assert(128 * PRODUCER_REGS + CONSUMER_REGS * 384 <= 65536,
+              "setmaxnreg stays within the launch allocation");
+// WIDE_LOCAL_A 1 reads every A fragment from the CTA's own half of the
+// buffer: a wrong answer, only a floor for what the peer's half costs,
+// built by utils/time_wide_variants.py alone; the route builds it 0
+#ifndef WIDE_LOCAL_A
+#define WIDE_LOCAL_A 0
+#endif
+#define NCH 64                     // output columns of a chunk
+#define STAGE_BYTES (NCH * 128)    // 64 rows of 128 bytes
+#define MAX_STAGES 12
+#define CPW 3                      // chunks a warpgroup owns at most
+#define W_MAX 1024                 // the widest field it takes
+#define HALF_MAX (W_MAX / 2)       // columns a CTA owns at most
+static_assert(HALF_MAX <= CPW * WGS * NCH, "a CTA's chunks fit");
+#define TAIL_N 16                  // a head output's padded width
+#define RED_FLOATS (WGS * BM * TAIL_N)
+#define SMEM_LIMIT 232448
+#define MAX_OPS 32
+#define OP_INTS 11
+
+// One dense layer of the program (`_program_f32` in ops/field_eval.py), in
+// the order the kernel runs them. A layer with out >= 0 is a head output: it
+// runs on the registers of the layer before it; w_off: the byte offset of
+// its float32 (k1, TAIL_N) row-major weight, k1 the padded width of the
+// layer before; npad TAIL_N. Otherwise: npad = ceil64(width), each CTA h =
+// npad / 2 columns; w_off: the byte offset of its weight stages, CTA r's at
+// w_off + r * ns * h * 128 (ns = (k1 + k2) / KS slabs), stage (s, j) of a
+// CTA at + (s * h + 64 j) * 128; k1, k2: the input segments' padded depths
+// (k2 = 0 for one segment; the buffer's is the writing layer's npad, split
+// between the CTAs as its output was, an input's a multiple of KS); a1, a2:
+// the segments' sources (SRC_BUF0 or an input); dst: SRC_BUF0 to overwrite
+// the buffer, -1 to keep the output in registers. b_off: float offset of
+// the bias (zero-padded to npad); nreal: the real output width; epi: EPI_*.
+struct Op {
+  int w_off, b_off, k1, k2, npad, nreal, a1, a2, dst, epi, out;
+};
+
+struct WideDesc {
+  int n_ops, n_points, stages, half, k0, tdim;
+  const float* xin;  // (n_points, k0)
+  const float* sun;  // (n_points, 3)
+  const float* tin;  // (n_points, tdim) or null
+  const uint8_t* w;
+  const float* b;
+  float* out[6];
+  Op op[MAX_OPS];
+};
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of shared::cta address `addr` in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// every thread of both CTAs, once: the barriers each initialised are seen
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Waits, at cluster scope, for the phase of parity `parity` of a barrier the
+// peer CTA arrives on; traps after ~20 s as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 40000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// The consumers of both CTAs meet: every consumer thread's shared-memory
+// reads and writes before it (its own CTA's and the peer's) happen before
+// every consumer thread's after it. `peer_bar` is the peer's pair of
+// barriers as a shared::cluster address, `own_bar` this CTA's; `k` counts
+// meetings. Meeting k uses barrier k % 2 of the pair, at parity k / 2 % 2.
+// With one barrier, the peer could arrive for meeting k + 1 before this
+// CTA's waiting thread had seen meeting k's phase complete: the phase would
+// flip twice, and the wait for parity k would never end. With two, the
+// peer's next arrival on a barrier (meeting k + 2) needs this CTA's arrival
+// for meeting k + 1, which comes after its wait for meeting k.
+__device__ __forceinline__ void meet(uint32_t own_bar, uint32_t peer_bar,
+                                     uint32_t& k) {
+  named_sync(CONSUMERS);
+  if (threadIdx.x == 0) {
+    const uint32_t off = 8 * (k & 1);
+    asm volatile("fence.acq_rel.cluster;" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+        :: "r"(peer_bar + off) : "memory");
+    mbar_wait_cluster(own_bar + off, (k >> 1) & 1);
+    asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  }
+  ++k;
+  named_sync(CONSUMERS);
+}
+
+// float32 to TF32, round to nearest with ties away from zero (the host's
+// `tf32_rna` in ops/field_eval.py is the same)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// two floats rounded to bf16 (nearest even), x in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// d (64 x N, float32) += A (64 x 8, TF32 in registers) x B (8 x N, TF32
+// K-major in shared memory), N = 64 or 32
+__device__ __forceinline__ void tf32_n64(float* d, const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void tf32_n32(float* d, const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x N, float32) += A (64 x 16, bf16 in registers) x B (16 x N, bf16
+// K-major in shared memory), N = 64 or 32
+__device__ __forceinline__ void bf16_n64(float* d, const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void bf16_n32(float* d, const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------------- the kernel
+
+// The product policy: a stage's K rows (KS), one wgmma's K (KSTEP) and the
+// k steps of a stage (STEPS = KS / KSTEP).
+template <bool BF16>
+struct Policy {
+  static constexpr int KS = BF16 ? 64 : 16;
+  static constexpr int KSTEP = BF16 ? 16 : 8;
+  static constexpr int STEPS = KS / KSTEP;
+};
+
+// Where the A fragments of a k step come from: the tile's buffer (a
+// shared::cta pointer to this CTA's half and a shared::cluster address of
+// the peer's, which owns the other half) or an input in device memory.
+struct Src {
+  const float* act;   // this CTA's half of the buffer
+  uint32_t peer_act;  // the peer's half, a shared::cluster address
+  uint32_t rank;
+};
+
+// The A fragment of the k step at column kb of source src (the segment's
+// column, logical order = the weights' K order) for the thread's rows r
+// and r + 8 of the tile, in wgmma's register order: float32 (TF32 k8: a0
+// row r k t0, a1 row r + 8 k t0, a2 row r k t0 + 4, a3 row r + 8 k t0 + 4;
+// `f32_k_order` puts k t0 and t0 + 4 at columns 2 t0 and 2 t0 + 1) as raw
+// floats; bf16 (k16: a0 row r k 2 t0, 2 t0 + 1; a1 row r + 8; a2 row r k
+// 2 t0 + 8, 2 t0 + 9; a3 row r + 8; `bf16_k_order` puts these at columns
+// 4 t0 .. 4 t0 + 3) as bf16 pairs. Rows past n_points and columns past an
+// input's width are zero. `half_in` is the columns of the buffer segment
+// each CTA owns.
+template <bool BF16>
+__device__ __forceinline__ void load_frag(const WideDesc& d, const Src& s,
+                                          int src, int kb, int half_in,
+                                          int r, int row0,
+                                          uint32_t (&a)[4]) {
+  const int t0 = threadIdx.x & 3;
+  const int c = kb + (BF16 ? 4 : 2) * t0;
+  if (src == SRC_BUF0) {
+    const int owner = c >= half_in;
+    const int lc = (c - owner * half_in) ^ ((r & 3) << 3);
+    const int o0 = r * d.half + lc, o1 = (r + 8) * d.half + lc;
+    if (BF16) {
+      float4 v0, v1;
+      if (WIDE_LOCAL_A || owner == (int)s.rank) {
+        v0 = *reinterpret_cast<const float4*>(s.act + o0);
+        v1 = *reinterpret_cast<const float4*>(s.act + o1);
+      } else {
+        v0 = ld_cluster4(s.peer_act + 4 * o0);
+        v1 = ld_cluster4(s.peer_act + 4 * o1);
+      }
+      a[0] = pack_bf16(v0.x, v0.y);
+      a[1] = pack_bf16(v1.x, v1.y);
+      a[2] = pack_bf16(v0.z, v0.w);
+      a[3] = pack_bf16(v1.z, v1.w);
+    } else {
+      float2 v0, v1;
+      if (WIDE_LOCAL_A || owner == (int)s.rank) {
+        v0 = *reinterpret_cast<const float2*>(s.act + o0);
+        v1 = *reinterpret_cast<const float2*>(s.act + o1);
+      } else {
+        v0 = ld_cluster2(s.peer_act + 4 * o0);
+        v1 = ld_cluster2(s.peer_act + 4 * o1);
+      }
+      a[0] = __float_as_uint(v0.x);
+      a[1] = __float_as_uint(v1.x);
+      a[2] = __float_as_uint(v0.y);
+      a[3] = __float_as_uint(v1.y);
+    }
+    return;
+  }
+  const float* g = src == SRC_X ? d.xin : src == SRC_SUN ? d.sun : d.tin;
+  const int w = src == SRC_X ? d.k0 : src == SRC_SUN ? 3 : d.tdim;
+  constexpr int NV = BF16 ? 4 : 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r + 8 * h;
+    float x[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) x[e] = 0.0f;
+    if (row < d.n_points) {
+      const float* p = g + (size_t)row * w;
+#pragma unroll
+      for (int e = 0; e < NV; ++e)
+        if (c + e < w) x[e] = __ldg(p + c + e);
+    }
+    if (BF16) {
+      a[h] = pack_bf16(x[0], x[1]);
+      a[2 + h] = pack_bf16(x[NV - 2], x[NV - 1]);
+    } else {
+      a[h] = __float_as_uint(x[0]);
+      a[2 + h] = __float_as_uint(x[NV - 1]);
+    }
+  }
+}
+
+// The products of k step kk of a stage on one chunk of NC columns. float32:
+// the fragment's hi and lo parts against the stage's hi half (bytes 0-63 of
+// every row) and lo half (64-127), the small terms first, then hi x hi.
+// bf16: one product, the step's 32 bytes of every row.
+template <bool BF16, int NC>
+__device__ __forceinline__ void step_mma(float* acc, const uint32_t (&hi)[4],
+                                         const uint32_t (&lo)[4],
+                                         uint32_t stage, int kk) {
+  if (BF16) {
+    const uint64_t b = sdesc(stage + 32 * kk);
+    if (NC == 64) bf16_n64(acc, hi, b);
+    else bf16_n32(acc, hi, b);
+  } else {
+    const uint64_t bh = sdesc(stage + 32 * kk);
+    const uint64_t bl = sdesc(stage + 64 + 32 * kk);
+    if (NC == 64) {
+      tf32_n64(acc, lo, bh);
+      tf32_n64(acc, hi, bl);
+      tf32_n64(acc, hi, bh);
+    } else {
+      tf32_n32(acc, lo, bh);
+      tf32_n32(acc, hi, bl);
+      tf32_n32(acc, hi, bh);
+    }
+  }
+}
+
+// bias and activation of the warpgroup's chunks in place: accumulator
+// 4 i + 2 h + e is row r + 8 h, this CTA's column (wg + WGS c) * 64 + 8 i +
+// 2 t0 + e; `bias` points at this CTA's first column's bias
+template <int EPI>
+__device__ __forceinline__ void apply(float (&acc)[CPW][32],
+                                      const float* __restrict__ bias,
+                                      int wg, const int (&nc)[CPW], int t0) {
+#pragma unroll
+  for (int c = 0; c < CPW; ++c) {
+    const int cb = (wg + WGS * c) * NCH + 2 * t0;
+#pragma unroll
+    for (int i = 0; i < NCH / 8; ++i) {
+      if (8 * i < nc[c]) {
+        const float2 bb =
+            __ldg(reinterpret_cast<const float2*>(bias + cb + 8 * i));
+        acc[c][4 * i] = activate<EPI>(__fadd_rn(acc[c][4 * i], bb.x));
+        acc[c][4 * i + 1] = activate<EPI>(__fadd_rn(acc[c][4 * i + 1], bb.y));
+        acc[c][4 * i + 2] = activate<EPI>(__fadd_rn(acc[c][4 * i + 2], bb.x));
+        acc[c][4 * i + 3] = activate<EPI>(__fadd_rn(acc[c][4 * i + 3], bb.y));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void apply_rt(int epi, float (&acc)[CPW][32],
+                                         const float* __restrict__ bias,
+                                         int wg, const int (&nc)[CPW],
+                                         int t0) {
+  switch (epi) {
+#define EPI_CASE(E) \
+  case E:           \
+    apply<E>(acc, bias, wg, nc, t0); \
+    break;
+    EPI_CASE(EPI_SIN30)
+    EPI_CASE(EPI_SIN)
+    EPI_CASE(EPI_RELU)
+    EPI_CASE(EPI_SOFTPLUS)
+    EPI_CASE(EPI_ALBEDO)
+    EPI_CASE(EPI_SIGMOID)
+    default: apply<EPI_NONE>(acc, bias, wg, nc, t0);
+#undef EPI_CASE
+  }
+}
+
+template <bool BF16>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
+  using P = Policy<BF16>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const uint32_t ring = smem_u32(smem);
+  float* act = reinterpret_cast<float*>(smem + d.stages * STAGE_BYTES);
+  float* red = act + BM * d.half;
+  const uint32_t full = smem_u32(red + RED_FLOATS);
+  const uint32_t empty = full + 8 * d.stages;
+  const uint32_t xbar = empty + 8 * d.stages;
+  const uint32_t rank = cluster_rank();
+  const int n_tiles = (d.n_points + BM - 1) / BM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < d.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * WGS);  // every consumer warp
+    }
+    mbar_init(xbar, 1);      // the peer's thread 0, at even meetings
+    mbar_init(xbar + 8, 1);  // and at odd ones
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync_all();
+
+  // the role, warp-uniform as the compiler sees it: warpgroups 0 .. WGS - 1
+  // consume, the warp after them produces
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == WGS) {
+    // producer: one thread walks the program and fills the ring with this
+    // CTA's half of every layer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == CONSUMERS) {
+      int it = 0;
+      for (int t = cluster_id(); t < n_tiles; t += cluster_count()) {
+        for (int i = 0; i < d.n_ops; ++i) {
+          const Op& o = d.op[i];
+          if (o.out >= 0) continue;
+          const int ns = (o.k1 + o.k2) / P::KS;
+          const int h = o.npad / 2;
+          const uint8_t* base =
+              d.w + o.w_off + (size_t)rank * ns * h * 128;
+          for (int s = 0; s < ns; ++s) {
+            for (int n0 = 0; n0 < h; n0 += NCH, ++it) {
+              const int slot = it % d.stages;
+              const uint32_t bytes = min(NCH, h - n0) * 128;
+              mbar_wait(empty + 8 * slot, ((it / d.stages) & 1) ^ 1);
+              mbar_expect_tx(full + 8 * slot, bytes);
+              bulk_copy(ring + slot * STAGE_BYTES,
+                        base + ((size_t)s * h + n0) * 128, bytes,
+                        full + 8 * slot);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
+
+  const uint32_t peer = rank ^ 1;
+  const uint32_t peer_xbar = map_rank(xbar, peer);
+  const Src src_of{act, map_rank(smem_u32(act), peer), rank};
+  // the head outputs' partial sums of rank 0 and rank 1
+  const uint32_t red0 = map_rank(smem_u32(red), 0);
+  const uint32_t red1 = map_rank(smem_u32(red), 1);
+  const int lane = threadIdx.x & 31;
+  const int t0 = lane & 3;
+  const int r = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int sw = (r & 3) << 3;  // the row's swizzle (r + 8 has the same)
+  uint32_t meetings = 0;
+  int it = 0;
+  for (int t = cluster_id(); t < n_tiles; t += cluster_count()) {
+    const int row0 = t * BM;
+    for (int i = 0; i < d.n_ops; ++i) {
+      const Op& o = d.op[i];
+      const int h = o.npad / 2;  // this CTA's columns of the layer
+      const int nch = (h + NCH - 1) / NCH;
+      const int ns = (o.k1 + o.k2) / P::KS;
+      int nc[CPW];
+#pragma unroll
+      for (int c = 0; c < CPW; ++c) {
+        const int j = wg + WGS * c;
+        nc[c] = j < nch ? min(NCH, h - j * NCH) : 0;
+      }
+      float acc[CPW][32];
+#pragma unroll
+      for (int c = 0; c < CPW; ++c) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc[c][k] = 0.0f;
+        fence_operands(acc[c]);
+      }
+      // the slab's A fragments; the next slab's are loaded while this
+      // slab's products run. float32: raw floats, split at the products
+      // (the wgmmas read the split registers only); bf16: the bf16 pairs
+      // the wgmmas read, so the next slab's go to their own registers.
+      uint32_t a[P::STEPS][4], an[P::STEPS][4];
+      auto load_slab = [&](int s, uint32_t (&f)[P::STEPS][4]) {
+#pragma unroll
+        for (int kk = 0; kk < P::STEPS; ++kk) {
+          const int kc = s * P::KS + kk * P::KSTEP;
+          const bool seg2 = kc >= o.k1;
+          load_frag<BF16>(d, src_of, seg2 ? o.a2 : o.a1,
+                          seg2 ? kc - o.k1 : kc, o.k1 / 2, r, row0, f[kk]);
+        }
+      };
+      if (nc[0]) load_slab(0, a);
+      for (int s = 0; s < ns; ++s) {
+        // every stage of the slab has landed; the others' go back at once
+        int own[CPW];
+#pragma unroll
+        for (int c = 0; c < CPW; ++c) own[c] = -1;
+        for (int j = 0; j < nch; ++j, ++it) {
+          const int slot = it % d.stages;
+          mbar_wait(full + 8 * slot, (it / d.stages) & 1);
+          bool mine = false;
+#pragma unroll
+          for (int c = 0; c < CPW; ++c) {
+            if (j == wg + WGS * c) {
+              own[c] = slot;
+              mine = true;
+            }
+          }
+          if (!mine && lane == 0) mbar_arrive(empty + 8 * slot);
+        }
+        if (!nc[0]) continue;
+#pragma unroll
+        for (int kk = 0; kk < P::STEPS; ++kk) {
+          uint32_t hi[4], lo[4];
+          if constexpr (BF16) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hi[e] = lo[e] = a[kk][e];
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = __uint_as_float(a[kk][e]);
+              hi[e] = tf32_rna(v);
+              lo[e] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[e])));
+            }
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int c = 0; c < CPW; ++c) {
+            const uint32_t st = ring + max(own[c], 0) * STAGE_BYTES;
+            if (nc[c] == NCH) step_mma<BF16, 64>(acc[c], hi, lo, st, kk);
+            else if (nc[c]) step_mma<BF16, 32>(acc[c], hi, lo, st, kk);
+          }
+        }
+        wgmma_commit();
+        if (s + 1 < ns) load_slab(s + 1, BF16 ? an : a);
+        wgmma_wait<0>();
+        if constexpr (BF16) {
+#pragma unroll
+          for (int kk = 0; kk < P::STEPS; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[kk][e] = an[kk][e];
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < CPW; ++c)
+            if (own[c] >= 0) mbar_arrive(empty + 8 * own[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CPW; ++c) fence_operands(acc[c]);
+
+      apply_rt(o.epi, acc, d.b + o.b_off + rank * h, wg, nc, t0);
+      // every thread of both CTAs is done reading the buffer halves and
+      // the last head output's partial sums
+      meet(xbar, peer_xbar, meetings);
+      if (o.dst == SRC_BUF0) {
+#pragma unroll
+        for (int c = 0; c < CPW; ++c) {
+          const int cb = (wg + WGS * c) * NCH + 2 * t0;
+#pragma unroll
+          for (int k = 0; k < NCH / 8; ++k) {
+            if (8 * k < nc[c]) {
+              const int col = (cb + 8 * k) ^ sw;
+              *reinterpret_cast<float2*>(act + r * d.half + col) =
+                  make_float2(acc[c][4 * k], acc[c][4 * k + 1]);
+              *reinterpret_cast<float2*>(act + (r + 8) * d.half + col) =
+                  make_float2(acc[c][4 * k + 2], acc[c][4 * k + 3]);
+            }
+          }
+        }
+      }
+      const bool tail = i + 1 < d.n_ops && d.op[i + 1].out >= 0;
+      if (tail) {
+        // the head output's partial sums over this warpgroup's columns
+        const Op& hd = d.op[i + 1];
+        const float* tw = reinterpret_cast<const float*>(d.w + hd.w_off)
+                          + (size_t)rank * h * TAIL_N;
+        for (int q = 0; q < hd.nreal; ++q) {
+          float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+          for (int c = 0; c < CPW; ++c) {
+            const int cb = (wg + WGS * c) * NCH + 2 * t0;
+#pragma unroll
+            for (int k = 0; k < NCH / 8; ++k) {
+              if (8 * k < nc[c]) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float wv = __ldg(tw + (cb + 8 * k + e) * TAIL_N + q);
+                  float x0 = acc[c][4 * k + e], x1 = acc[c][4 * k + 2 + e];
+                  if (BF16) {
+                    x0 = round_bf16(x0);
+                    x1 = round_bf16(x1);
+                  }
+                  p0 = fmaf(x0, wv, p0);
+                  p1 = fmaf(x1, wv, p1);
+                }
+              }
+            }
+          }
+          p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 1));
+          p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 1));
+          p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 2));
+          p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 2));
+          if (t0 == 0) {
+            red[(wg * BM + r) * TAIL_N + q] = p0;
+            red[(wg * BM + r + 8) * TAIL_N + q] = p1;
+          }
+        }
+      }
+      // both halves of the buffer and both CTAs' partial sums are written
+      meet(xbar, peer_xbar, meetings);
+      if (tail) {
+        // rows [32 rank, 32 rank + 32) of the tile, the partials of rank 0
+        // then rank 1, each CTA's warpgroups in order
+        const Op& hd = d.op[++i];
+        float* out = d.out[hd.out];
+        const int half_rows = BM / 2;
+        for (int idx = threadIdx.x; idx < half_rows * hd.nreal;
+             idx += CONSUMERS) {
+          const int row = rank * half_rows + idx / hd.nreal;
+          const int q = idx % hd.nreal;
+          float v = 0.0f;
+#pragma unroll
+          for (int g = 0; g < 2 * WGS; ++g) {
+            const uint32_t off =
+                4 * (((g % WGS) * BM + row) * TAIL_N + q);
+            const float p = ld_cluster((g < WGS ? red0 : red1) + off);
+            v = g ? __fadd_rn(v, p) : p;
+          }
+          v = activate_rt(hd.epi, __fadd_rn(v, d.b[hd.b_off + q]));
+          if (row0 + row < d.n_points)
+            out[(size_t)(row0 + row) * hd.nreal + q] = v;
+        }
+      }
+    }
+  }
+  // no CTA leaves while its peer may still read its shared memory
+  meet(xbar, peer_xbar, meetings);
+}
+
+// ------------------------------------------------------------------- host
+
+static int ceil64(int x) { return (x + 63) / 64 * 64; }
+
+// the buffer columns a CTA owns at `width`
+static int half_cols(int width) { return ceil64(width) / 2; }
+
+// Dynamic shared memory of a launch: 1 KB of slack for the 1,024-byte
+// alignment of the stages, the ring with its barriers, the two meeting
+// barriers (16 bytes), the CTA's half of the activation buffer (64 x ceil64(width) /
+// 2 floats) and the head outputs' partial sums.
+static int smem_bytes(int width, int stages) {
+  return 1024 + stages * (STAGE_BYTES + 16) + 16 + BM * half_cols(width) * 4
+         + RED_FLOATS * 4;
+}
+
+// whether the program rows fit the launch's buffer, ring and inputs
+template <bool BF16>
+static bool ops_ok(const WideDesc& d) {
+  const int ks = Policy<BF16>::KS;
+  for (int i = 0; i < d.n_ops; ++i) {
+    const Op& o = d.op[i];
+    if (o.b_off < 0 || o.b_off % 2 || o.nreal <= 0 || o.nreal > o.npad
+        || o.epi < EPI_SIN30 || o.epi > EPI_SIGMOID || o.w_off < 0)
+      return false;
+    if (o.out >= 0) {
+      if (i == 0 || d.op[i - 1].out >= 0 || o.out > 5 || !d.out[o.out]
+          || o.npad != TAIL_N || o.k1 != d.op[i - 1].npad || o.w_off % 16)
+        return false;
+      continue;
+    }
+    const int srcs[2] = {o.a1, o.a2};
+    const int depth[2] = {o.k1, o.k2};
+    for (int g = 0; g < 2; ++g) {
+      if (g == 1 && depth[g] == 0) continue;
+      const int s = srcs[g];
+      if (depth[g] <= 0 || depth[g] % ks) return false;
+      if (s == SRC_BUF0 ? g == 1 || depth[g] % 64 || depth[g] / 2 > d.half
+          : s == SRC_X ? d.k0 < 1
+          : s == SRC_SUN ? false
+          : s == SRC_T ? d.tdim < 1 || !d.tin : true)
+        return false;
+    }
+    if (o.npad <= 0 || o.npad % 64 || o.npad / 2 > d.half
+        || (o.npad / 2 + NCH - 1) / NCH > d.stages || o.w_off % 16
+        || (o.dst != SRC_BUF0 && o.dst != -1))
+      return false;
+  }
+  return d.n_ops > 0 && d.op[0].out < 0;
+}
+
+template <bool BF16>
+static cudaError_t opt_in() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      field_eval_wide_kernel<BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (err == cudaSuccess) done = true;
+  return err;
+}
+
+// clusters of the kernel that fit on the card at once at `smem` bytes
+template <bool BF16>
+static cudaError_t max_clusters(int smem, int* n) {
+  cudaError_t err = opt_in<BF16>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  return cudaOccupancyMaxActiveClusters(n, field_eval_wide_kernel<BF16>,
+                                        &cfg);
+}
+
+extern "C" {
+
+// The weight ring's depth of a launch at `width`: MAX_STAGES, or as many
+// stages as fit in shared memory beside the buffer half; 0 where fewer than
+// a CTA's chunks of a layer fit or the field is outside 2 .. W_MAX, a width
+// the route does not take.
+int spnerf_field_eval_wide_stages(int width) {
+  if (width < 2 || width > W_MAX) return 0;
+  const int least = (half_cols(width) + NCH - 1) / NCH;
+  for (int s = MAX_STAGES; s >= 2 && s >= least; --s)
+    if (smem_bytes(width, s) <= SMEM_LIMIT) return s;
+  return 0;
+}
+
+int spnerf_field_eval_wide_smem(int width, int stages) {
+  return smem_bytes(width, stages);
+}
+
+// Clusters of two CTAs that fit on the card at once at `width` in the
+// policy (cudaOccupancyMaxActiveClusters), or -(cudaError_t) on an error.
+int spnerf_field_eval_wide_clusters(int width, int bf16) {
+  const int stages = spnerf_field_eval_wide_stages(width);
+  if (stages == 0) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err =
+      bf16 ? max_clusters<true>(smem_bytes(width, stages), &n)
+           : max_clusters<false>(smem_bytes(width, stages), &n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// op_rows: host array of n_ops x OP_INTS ints, the fields of Op in order.
+// xin (n_points, k0), sun (n_points, 3), tin (n_points, tdim) float32,
+// row-major; tdim = 0 without a transient input; bf16 selects the bf16
+// policy (else 3xTF32). Launches on `stream` and returns a cudaError_t (0
+// on success); does not synchronise.
+int spnerf_field_eval_wide(const void* xin, const void* sun, const void* tin,
+                           const void* w, const void* b, const void* op_rows,
+                           int n_ops, int width, int k0, int tdim,
+                           int n_points, int bf16, void* o_sigma, void* o_rgb,
+                           void* o_sun, void* o_sky, void* o_beta,
+                           void* o_sem, void* stream) {
+  const int stages = spnerf_field_eval_wide_stages(width);
+  if (n_ops < 1 || n_ops > MAX_OPS || n_points <= 0 || stages == 0
+      || k0 < 1 || tdim < 0)
+    return (int)cudaErrorInvalidValue;
+  WideDesc d;
+  d.n_ops = n_ops;
+  d.n_points = n_points;
+  d.stages = stages;
+  d.half = half_cols(width);
+  d.k0 = k0;
+  d.tdim = tdim;
+  d.xin = (const float*)xin;
+  d.sun = (const float*)sun;
+  d.tin = (const float*)tin;
+  d.w = (const uint8_t*)w;
+  d.b = (const float*)b;
+  void* outs[6] = {o_sigma, o_rgb, o_sun, o_sky, o_beta, o_sem};
+  for (int i = 0; i < 6; ++i) d.out[i] = (float*)outs[i];
+  const int* rows = static_cast<const int*>(op_rows);
+  for (int i = 0; i < n_ops; ++i) {
+    const int* q = rows + OP_INTS * i;
+    d.op[i] = Op{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9],
+                 q[10]};
+  }
+  if (!(bf16 ? ops_ok<true>(d) : ops_ok<false>(d)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(width, stages);
+  // the persistent grid: as many clusters as fit on the card at once
+  int clusters = 0;
+  cudaError_t err = bf16 ? max_clusters<true>(smem, &clusters)
+                         : max_clusters<false>(smem, &clusters);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = (n_points + BM - 1) / BM;
+  const int grid = 2 * (n_tiles < clusters ? n_tiles : clusters);
+  if (bf16)
+    field_eval_wide_kernel<true>
+        <<<grid, THREADS, smem, (cudaStream_t)stream>>>(d);
+  else
+    field_eval_wide_kernel<false>
+        <<<grid, THREADS, smem, (cudaStream_t)stream>>>(d);
+  return (int)cudaGetLastError();
+}
+
+const char* spnerf_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

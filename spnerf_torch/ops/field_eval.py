@@ -2,7 +2,7 @@
 version, and the wrapper that chooses between them by the device of its
 input.
 
-Three kernels replace the JAX package's Pallas field kernel
+Four kernels replace the JAX package's Pallas field kernel
 (`spnerf_tpu/ops/pallas/field_eval.py`, `_make_kernel` and `_fused_apply`),
 one route each (`route`). Each evaluates the Siren trunk with its skip and
 any subset of the heads on a tile of points with the activations in shared
@@ -17,10 +17,15 @@ outputs touch device memory.
   Pallas kernel's float32 dots) on the tensor cores by the 3xTF32 split,
   float32 activations in one buffer, for the family up to F32_W_MAX = 512
   wide (`supports_f32`).
+- "wgmma_wide" (`csrc/field_eval_wide.cu`): the fields neither takes, up
+  to W_MAX = 1024 wide and TAIL_N semantic classes (`supports_wide`), on the
+  tensor cores with a 64-point tile split across a cluster of two CTAs,
+  each holding half of every layer's columns: bf16 products, or float32 as
+  three TF32 products.
 - "general" (`csrc/field_eval_general.cu`): float32 activations and FFMA
   sums, the operands either float32 or rounded to bf16 at the product; every
-  width up to W_MAX, for the float32 fields wider than the wgmma_f32
-  kernel takes and the bf16 fields the wgmma kernel does not take.
+  width up to W_MAX, for what the others leave (more than TAIL_N semantic
+  classes), and on request (`pack_params(..., kernel="general")`).
 
 Numerics, as in the Pallas kernel: every matmul takes compute-dtype
 operands (the activation and the weight, both rounded from float32) and
@@ -73,7 +78,14 @@ F32_RED_BYTES = F32_WGS * 64 * TAIL_N * 4
 # the layers whose output is a head output: on the wgmma_f32 route each runs
 # on the registers of the layer before it
 TAILS = ("sigma", "rgb1", "sun3", "sky1", "beta1", "sem1")
-ROUTES = ("wgmma", "general", "wgmma_f32")
+# the wgmma_wide route (csrc/field_eval_wide.cu NCH, MAX_STAGES, W_MAX, the
+# policies' KS): every layer's output padded to WIDE_NPAD, half of it on each
+# CTA of the cluster; weight stages of one K slab (F32_KS rows as hi | lo in
+# float32, WIDE_KS_BF16 rows in bf16) of one 64-wide chunk
+WIDE_NPAD = 64
+WIDE_KS_BF16 = 64
+WIDE_MAX_STAGES = 12
+ROUTES = ("wgmma", "general", "wgmma_f32", "wgmma_wide")
 OUTPUTS = ("sigma", "rgb", "sun_v", "sky", "beta", "sem_logits")
 # the kernel's epilogues and operand sources (csrc/field_eval.cu EPI_*, SRC_*)
 EPI = {n: i for i, n in enumerate(("sin30", "sin", "relu", "none",
@@ -111,6 +123,16 @@ def supports_f32(cfg: ModelConfig) -> bool:
             and not (cfg.sem and cfg.num_sem_classes > TAIL_N))
 
 
+def supports_wide(cfg: ModelConfig) -> bool:
+    """Whether the wgmma_wide kernel takes the configuration (any dtype):
+    the family at fc_units 2 to W_MAX (the ring at least a CTA's chunks deep
+    beside its half of the buffer, `wide_stages`), at most TAIL_N semantic
+    classes; any t_embedding_dims and trunk input width."""
+    return (in_family(cfg) and cfg.fc_units >= 2
+            and wide_stages(cfg.fc_units) > 0
+            and not (cfg.sem and cfg.num_sem_classes > TAIL_N))
+
+
 def takes_general(cfg: ModelConfig) -> bool:
     """Whether the general kernel takes the configuration (any dtype): the
     family at a width whose tiles fit (up to W_MAX)."""
@@ -122,10 +144,12 @@ def takes_general(cfg: ModelConfig) -> bool:
 def route(cfg: ModelConfig, compute_dtype):
     """Which CUDA kernel evaluates the field at `compute_dtype`: "wgmma" for
     bf16 within `supports_config`; "wgmma_f32" for float32 within
-    `supports_f32`; "general" for float32 wider than that (up to W_MAX) and
-    for bf16 outside the wgmma kernel's envelope (wider fields, fc_units not
-    a multiple of 32, t_embedding_dims > 16); None outside the family,
-    wider than W_MAX, or at another dtype."""
+    `supports_f32`; "wgmma_wide" for what neither takes within
+    `supports_wide` (float32 wider than 512 up to W_MAX; bf16 outside the
+    wgmma kernel's envelope: wider fields, fc_units not a multiple of 32,
+    t_embedding_dims > 16); "general" for the rest up to W_MAX (more than
+    TAIL_N semantic classes); None outside the family, wider than W_MAX, or
+    at another dtype."""
     cd = as_dtype(compute_dtype)
     if not in_family(cfg) or cd not in (torch.bfloat16, torch.float32):
         return None
@@ -133,6 +157,8 @@ def route(cfg: ModelConfig, compute_dtype):
         return "wgmma"
     if cd == torch.float32 and supports_f32(cfg):
         return "wgmma_f32"
+    if supports_wide(cfg):
+        return "wgmma_wide"
     return "general" if takes_general(cfg) else None
 
 
@@ -183,13 +209,23 @@ def f32_k_order(k):
     return 8 * (m // 8) + 2 * (m % 4) + (m % 8) // 4
 
 
+def bf16_k_order(k):
+    """The wgmma_wide layout's K order in bf16, as `f32_k_order`: within
+    every group of 16, logical rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9 (the k
+    of a thread's bf16 A fragment of a k16 step, t = lane % 4) are physical
+    4 t .. 4 t + 3, so the thread loads them as one float4 a row."""
+    m = np.arange(k)
+    return 16 * (m // 16) + 4 * ((m % 8) // 2) + 2 * ((m % 16) // 8) + m % 2
+
+
 @dataclass
 class LayerPack:
     """Where a layer lives in a kernel's layout: the offset of its weights
-    (in bytes, of its first weight stage, in the wgmma and wgmma_f32
-    layouts; in floats in the general one), the float offset of its bias, the padded depths of
-    its two input segments (k2 = 0 for one), its padded and real output
-    widths. `slabs` and `stages` describe the wgmma layout."""
+    (in bytes, of its first weight stage, in the wgmma, wgmma_f32 and
+    wgmma_wide layouts; in floats in the general one), the float offset of
+    its bias, the padded depths of its two input segments (k2 = 0 for
+    one), its padded and real output widths. `slabs` and `stages` describe
+    the wgmma layout."""
 
     w_off: int
     b_off: int
@@ -232,6 +268,17 @@ class PackedField:
     segment and the output zero-padded to multiples of GKS, layer after
     layer in `w_all` (`w_off` in floats); in bf16 each weight is rounded to
     bf16 when packed (`compute_dtype`).
+
+    "wgmma_wide" (float32 `w_all` words, `w_off` in bytes; `_pack_wide`): a
+    layer of TAILS as on wgmma_f32 (its weight rounded to bf16 in bf16).
+    Any other layer: its transposed weight, npad = ceil64(N) rows, the
+    buffer's input segment padded to 64 and an input's to the policy's slab
+    (F32_KS, WIDE_KS_BF16), its K rows in `f32_k_order` / `bf16_k_order`;
+    rows [r npad / 2, (r + 1) npad / 2) are CTA r's, which streams them as
+    stages of one slab of one 64-wide chunk, each row a column's slab (hi
+    then lo float32; or bf16) in the 128-byte swizzle: CTA r's stage (s,
+    j) at byte w_off + r * ns * (npad / 2) * 128 + (s * npad / 2 + 64 j) *
+    128, ns the layer's slabs.
 
     "wgmma_f32" (float32 `w_all`, `w_off` in bytes): a layer of TAILS, its
     (K, TAIL_N) row-major float32 weight, K the padded width of the layer
@@ -330,10 +377,81 @@ def _pack_f32(specs, ws, bs):
     return torch.cat(w_parts), torch.cat(b_parts), layers
 
 
+def _wide_pads(name, segs, ks):
+    """The wgmma_wide layout's padded input segments of a layer: the
+    buffer's (the first, but for trunk0 and sky0) to WIDE_NPAD, the writing
+    layer's npad; an input's (trunk input, sun, transient code) to the
+    policy's slab `ks`."""
+    return [_ceil(s, WIDE_NPAD) if i == 0 and name not in ("trunk0", "sky0")
+            else _ceil(s, ks) for i, s in enumerate(segs)]
+
+
+def wide_ks(compute_dtype):
+    """The K rows of a wgmma_wide weight stage in the policy of
+    `compute_dtype`."""
+    return WIDE_KS_BF16 if as_dtype(compute_dtype) == torch.bfloat16 else F32_KS
+
+
+def _swizzle_rows(blk):
+    """(ns, rows, 8, e) stage rows with their 16-byte chunks in the 128-byte
+    swizzle: chunk c of row n stored at c ^ (n % 8)."""
+    n = torch.arange(blk.shape[1], device=blk.device)[:, None]
+    c = torch.arange(8, device=blk.device)[None, :]
+    return blk[:, n, c ^ (n % 8), :]
+
+
+def _pack_wide(specs, ws, bs, cd):
+    """The wgmma_wide route's layout of the layers: (w_all, b_all, layers)."""
+    bf16 = cd == torch.bfloat16
+    ks = wide_ks(cd)
+    w_parts, b_parts, layers = [], [], {}
+    w_off = b_off = 0
+    for (name, segs, out, _), w, b in zip(specs, ws, bs):
+        kp = _wide_pads(name, segs, ks)
+        if name in TAILS:
+            npad = TAIL_N
+            wt = torch.zeros(kp[0], npad, dtype=torch.float32,
+                             device=w.device)
+            wt[:segs[0], :out] = w.to(cd).float()
+            flat = wt.reshape(-1)
+        else:
+            npad, ktot = _ceil(out, WIDE_NPAD), sum(kp)
+            h, ns = npad // 2, ktot // ks
+            wt = torch.zeros(npad, ktot, dtype=torch.float32, device=w.device)
+            src = dst = 0
+            for sw, p in zip(segs, kp):
+                wt[:out, dst:dst + sw] = w[src:src + sw].t()
+                src, dst = src + sw, dst + p
+            order = bf16_k_order(ktot) if bf16 else f32_k_order(ktot)
+            wt = wt[:, torch.from_numpy(order).to(w.device)]
+            if bf16:
+                rows = wt.to(torch.bfloat16).reshape(npad, ns, ks)
+            else:
+                hi = tf32_rna(wt)
+                lo = tf32_rna(wt - hi)
+                rows = torch.cat([hi.reshape(npad, ns, ks),
+                                  lo.reshape(npad, ns, ks)], dim=2)
+            halves = [_swizzle_rows(rows[r * h:(r + 1) * h].permute(
+                1, 0, 2).reshape(ns, h, 8, -1)).reshape(-1) for r in (0, 1)]
+            flat = torch.cat(halves)
+            if bf16:
+                flat = flat.view(torch.float32)
+        w_parts.append(flat)
+        bp = torch.zeros(npad, dtype=torch.float32, device=b.device)
+        bp[:out] = b
+        b_parts.append(bp)
+        layers[name] = LayerPack(4 * w_off, b_off, kp[0],
+                                 kp[1] if len(kp) > 1 else 0, npad, out)
+        w_off += flat.numel()
+        b_off += npad
+    return torch.cat(w_parts), torch.cat(b_parts), layers
+
+
 def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     """Pack an `SPNeRF` module's weights for the fused field at
-    `compute_dtype`, in the layout of `kernel` ("wgmma", "general" or
-    "wgmma_f32"; None: `route(cfg, compute_dtype)`'s, the wgmma kernel's
+    `compute_dtype`, in the layout of `kernel` ("wgmma", "general",
+    "wgmma_f32" or "wgmma_wide"; None: `route(cfg, compute_dtype)`'s, the
+    wgmma kernel's
     where there is none). The packed layout decides which kernel a
     `FusedField` launches on CUDA; `kernel="general"` puts a field another
     kernel takes on the general kernel instead (to hold the two against
@@ -345,6 +463,7 @@ def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     r = route(cfg, cd) if kernel is None else kernel
     takes = {"wgmma": supports_config(cfg) and cd == torch.bfloat16,
              "wgmma_f32": supports_f32(cfg) and cd == torch.float32,
+             "wgmma_wide": supports_wide(cfg),
              "general": takes_general(cfg)}
     if kernel is not None and not takes.get(kernel, False):
         raise ValueError(f"kernel {kernel!r} does not take this field at "
@@ -355,13 +474,15 @@ def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     bs = [model.layer(n).bias.detach().float() for n in names]
     sem_table = (model.semantic_embedding.detach().float()
                  if cfg.sem else None)
-    if r in ("general", "wgmma_f32"):
-        w_all, b_all, layers = (_pack_general(specs, ws, bs, cd)
-                                if r == "general" else
-                                _pack_f32(specs, ws, bs))
+    if r in ("general", "wgmma_f32", "wgmma_wide"):
+        pack = {"general": lambda: _pack_general(specs, ws, bs, cd),
+                "wgmma_f32": lambda: _pack_f32(specs, ws, bs),
+                "wgmma_wide": lambda: _pack_wide(specs, ws, bs, cd)}[r]
+        w_all, b_all, layers = pack()
+        k_pad = wide_ks(cd) if r == "wgmma_wide" else GKS
         return PackedField(cfg=cfg, names=names, ws=ws, bs=bs,
                            sem_table=sem_table, w_all=w_all, b_all=b_all,
-                           layers=layers, k0_pad=_ceil(in_width(cfg), GKS),
+                           layers=layers, k0_pad=_ceil(in_width(cfg), k_pad),
                            route=r, compute_dtype=cd)
     w_parts, b_parts, layers = [], [], {}
     w_off = b_off = 0
@@ -404,9 +525,9 @@ def program(packed: PackedField, heads):
     dst: the activation buffer written (0, 1), or -1 for a head output, out:
     its index in OUTPUTS. The trunk ping-pongs between buf0 and buf1; the
     heads run on its output X and the other buffer Y, the solar head last
-    because it overwrites the features in Y. On the wgmma_f32 route see
-    `_program_f32`."""
-    if packed.route == "wgmma_f32":
+    because it overwrites the features in Y. On the wgmma_f32 and
+    wgmma_wide routes see `_program_f32`."""
+    if packed.route in ("wgmma_f32", "wgmma_wide"):
         return _program_f32(packed, heads)
     cfg = packed.cfg
     outs = dict(active_outputs(cfg, heads))
@@ -450,7 +571,8 @@ def program(packed: PackedField, heads):
 
 
 def _program_f32(packed: PackedField, heads):
-    """`program` on the wgmma_f32 route, one activation buffer (buf0): the
+    """`program` on the wgmma_f32 and wgmma_wide routes, one activation
+    buffer (buf0; on wgmma_wide split between the cluster's CTAs): the
     trunk overwrites it layer by layer; a head output (out >= 0, a1 = -1)
     runs on the registers of the layer before it; dst -1 keeps a layer's
     output in registers for its head output. So sem0, rgb0 and beta0 leave
@@ -534,6 +656,49 @@ def f32_stages(width):
         if f32_smem_bytes(width, stages) <= SMEM_LIMIT:
             return stages
     return 0
+
+
+def wide_smem_bytes(width, stages):
+    """The wgmma_wide kernel's dynamic shared memory a CTA
+    (spnerf_field_eval_wide_smem): 1 KB of alignment slack, the ring of
+    `stages` with its barriers, the meeting barrier (16 bytes), the CTA's
+    half of the activation buffer (64 x ceil64(width) / 2 floats) and the
+    head outputs' partial sums."""
+    return (1024 + stages * (F32_STAGE_BYTES + 16) + 16
+            + 64 * _ceil(width, WIDE_NPAD) // 2 * 4 + F32_RED_BYTES)
+
+
+def wide_stages(width):
+    """The wgmma_wide kernel's ring depth (spnerf_field_eval_wide_stages):
+    WIDE_MAX_STAGES, or as many stages as fit beside the buffer half; 0
+    where fewer than a CTA's chunks of a layer (ceil64(width) / 2 / 64) fit
+    or width is outside 2 .. W_MAX."""
+    if not 2 <= width <= W_MAX:
+        return 0
+    least = -(-(_ceil(width, WIDE_NPAD) // 2) // F32_NCH)
+    for stages in range(WIDE_MAX_STAGES, max(least, 2) - 1, -1):
+        if wide_smem_bytes(width, stages) <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
+def wide_clusters(width, compute_dtype):
+    """Clusters of two CTAs of the wgmma_wide kernel at `width` that fit on
+    the current CUDA device at once (cudaOccupancyMaxActiveClusters): the
+    persistent grid the kernel launches. Builds the kernel if needed."""
+    from . import _build
+
+    lib = _build.load("field_eval_wide")
+    f = lib.spnerf_field_eval_wide_clusters
+    f.argtypes = [ctypes.c_int, ctypes.c_int]
+    f.restype = ctypes.c_int
+    lib.spnerf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.spnerf_cuda_error_string.restype = ctypes.c_char_p
+    n = f(width, int(as_dtype(compute_dtype) == torch.bfloat16))
+    if n < 0:
+        raise RuntimeError("cudaOccupancyMaxActiveClusters failed: "
+                           + lib.spnerf_cuda_error_string(-n).decode())
+    return n
 
 
 def general_pass_cols(bm):
@@ -828,6 +993,39 @@ def fused_field_f32(packed: PackedField, x_in, sun, t_in=None,
     return res
 
 
+def fused_field_wide(packed: PackedField, x_in, sun, t_in=None,
+                     heads=ALL_HEADS):
+    """Launch the wgmma_wide kernel on CUDA tensors; same contract as
+    `fused_field_plain` at `packed.compute_dtype`."""
+    from . import _build
+
+    cfg = packed.cfg
+    prog = _check_launch(packed, "wgmma_wide", x_in, sun, t_in, heads)
+    if not supports_wide(cfg):
+        raise ValueError(f"fc_units {cfg.fc_units}: outside the wgmma_wide "
+                         f"kernel's envelope (supports_wide)")
+    has_t = cfg.beta and "beta" in heads
+    t_dim = cfg.t_embedding_dims if has_t else 0
+    outs = active_outputs(cfg, heads)
+    n = x_in.shape[0]
+    res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
+           for nm, wd in outs}
+    if n:
+        xin, sn, tin = _float32_inputs(cfg, x_in, sun, t_in, has_t)
+        lib = _build.load("field_eval_wide")
+        _launch(lib, _declare(lib, "spnerf_field_eval_wide", 6), (
+            _ptr(xin), _ptr(sn), _ptr(tin), _ptr(packed.w_all),
+            _ptr(packed.b_all), prog.ctypes.data, len(prog), cfg.fc_units,
+            xin.shape[1], t_dim, n,
+            int(packed.compute_dtype == torch.bfloat16),
+            *(_ptr(res.get(k)) for k in OUTPUTS)), x_in.device,
+            "field_eval_wide")
+        FusedField.launches += 1
+        FusedField.route_launches["wgmma_wide"] += 1
+    res["sigma"] = res["sigma"][:, 0]
+    return res
+
+
 class FusedField:
     """Forward-only field callable, `(xyz, sun_d, t_emb, sem_labels, heads)`
     -> dict, over packed weights. CUDA inputs go through the kernel the
@@ -876,11 +1074,13 @@ class FusedField:
         if r == "wgmma_f32" and cd != torch.float32:
             raise ValueError(f"the wgmma_f32 kernel computes in float32, not "
                              f"{cd}: pack_params(model, compute_dtype)")
-        if r == "general" and self.packed.compute_dtype != cd:
+        if (r in ("general", "wgmma_wide")
+                and self.packed.compute_dtype != cd):
             raise ValueError(f"weights packed at {self.packed.compute_dtype},"
                              f" not {cd}")
         launch = {"wgmma": fused_field_kernel, "general": fused_field_general,
-                  "wgmma_f32": fused_field_f32}[r]
+                  "wgmma_f32": fused_field_f32,
+                  "wgmma_wide": fused_field_wide}[r]
         return launch(self.packed, x_in, sun, t_in, heads)
 
 

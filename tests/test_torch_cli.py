@@ -166,21 +166,26 @@ def test_watchdog_relaunches_a_hung_run(project, tmp_path):
     env = dict(os.environ, SPNERF_TEST_HANG_ONCE=str(marker),
                OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(ROOT), str(stub.parent)]))
+    # --watchdog 20, as the JAX twin (tests/test_train.py): start-up (the
+    # imports, the scene and the first window) gets 3 x 20 s, so a machine
+    # loaded by other test workers is not taken for a hang
     cmd = [sys.executable, str(ROOT / "main_torch.py"),
            *argv(proj, "wd", "--batch_size", "64", "--log_every", "2",
                  "--max_train_steps", "4", "--device", "cpu",
-                 "--watchdog", "5")]
+                 "--watchdog", "20")]
     # from outside the repo: the child must import the package by the
     # PYTHONPATH the watchdog gives it
     proc = subprocess.Popen(cmd, cwd=tmp_path, env=env,
                             start_new_session=True, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     try:
-        out, _ = proc.communicate(timeout=90)
+        # two start-ups of up to 60 s each and the 20 s the hang takes to
+        # be noticed
+        out, _ = proc.communicate(timeout=240)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
-        pytest.fail(f"the watchdog run did not finish in 90 s:\n{out}")
+        pytest.fail(f"the watchdog run did not finish in 240 s:\n{out}")
     assert proc.returncode == 0, out
     assert marker.exists() and "[test-hook] simulating hang" in out
     assert "[watchdog] relaunch 1/" in out and "training complete" in out

@@ -7,7 +7,8 @@ no JAX, so it also runs where JAX is not installed:
 
 Tolerances: the field kernels in bf16, 2e-2 absolute (the kernel and the
 plain version sum in different orders, which can move an activation by one
-bf16 ulp); the general and wgmma_f32 field kernels in float32, 1e-4
+bf16 ulp); the general, wgmma_f32 and wgmma_wide field kernels in
+float32, 1e-4
 absolute (the same float32 products in another sum order, or as three TF32
 products without lo x lo, through eight layers); the
 table-gradient kernels, float32, 1e-5 of the largest entry (sums of
@@ -180,12 +181,13 @@ def test_general_kernel_matches_plain_every_head_subset(device, dtype, kw, n):
     tiles), 768 and 1024 (16-point tiles); in bf16 at the widths and shapes
     the wgmma kernel does not take (80, 768, 800 with a beta head, a
     transient code of 32); n of 1, 17, 33, 63, 65, a ragged tile count and
-    more. Float32 fields up to 512 wide route to wgmma_f32 and are packed
-    for the general kernel here, as the parent's route."""
+    more. Float32 fields up to 512 wide route to wgmma_f32, the others but
+    20 semantic classes to wgmma_wide; all are packed for the general
+    kernel here, as the parent's route."""
     cfg = ModelConfig(mapping=True, fc_units=kw.pop("fc_units"), **kw)
     assert fe.route(cfg, dtype) == (
         "wgmma_f32" if fe.supports_f32(cfg) and dtype == "float32"
-        else "general")
+        else "wgmma_wide" if fe.supports_wide(cfg) else "general")
     _, p = packed_field(cfg, device, dtype, kernel="general")
     args = field_inputs(n, cfg, device)
     for r in range(len(fe.ALL_HEADS) + 1):
@@ -308,6 +310,95 @@ def test_f32_kernel_never_falls_back(device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width,beta", [(768, True), (1024, False),
+                                        (1024, True)])
+@pytest.mark.parametrize("n", [1, 65])
+def test_wide_kernel_matches_plain_every_head_subset(device, dtype, width,
+                                                     beta, n):
+    """The wgmma_wide kernel (a cluster of two CTAs) against the plain
+    version, every head subset, in both policies at 768 and 1024, with and
+    without a beta head: one point (the tile's other 63 rows padding), and
+    65 (two tiles, the second with one point)."""
+    cfg = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
+                      fc_units=width)
+    assert fe.route(cfg, dtype) == "wgmma_wide"
+    _, p = packed_field(cfg, device, dtype)
+    args = field_inputs(n, cfg, device, seed=n)
+    for r in range(len(fe.ALL_HEADS) + 1):
+        for heads in itertools.combinations(fe.ALL_HEADS, r):
+            hold_kernel(p, args, heads, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw,n", [
+    ("bfloat16", dict(sem=True, beta=True, num_sem_classes=3, fc_units=80),
+     130),
+    ("bfloat16", dict(beta=True, t_embedding_dims=32, fc_units=128), 63),
+    ("bfloat16", dict(sem=True, num_sem_classes=16, fc_units=736), 3 * 64 + 5),
+    ("float32", dict(sem=True, beta=True, num_sem_classes=3, fc_units=544),
+     4000),
+    ("float32", dict(fc_units=896), 300_001)])
+def test_wide_kernel_other_shapes(device, dtype, kw, n):
+    """The wgmma_wide kernel on the other shapes it takes: 80 (not a
+    multiple of 32), a transient code of 32, 16 semantic classes at 736,
+    float32 at 544 and 896; ragged tile counts and more tiles than the
+    grid has clusters; all heads and the solar pass."""
+    cfg = ModelConfig(mapping=True, fc_units=kw.pop("fc_units"), **kw)
+    assert fe.route(cfg, dtype) == "wgmma_wide"
+    _, p = packed_field(cfg, device, dtype)
+    args = field_inputs(n, cfg, device, seed=n)
+    hold_kernel(p, args, fe.ALL_HEADS, dtype)
+    hold_kernel(p, args, ("sun",), dtype)
+
+
+@pytest.mark.cuda
+def test_wide_stages_match_the_kernel(device):
+    """The wrapper's ring depth and shared-memory reckoning (`wide_stages`,
+    `wide_smem_bytes`, which `supports_wide` reads) are the kernel's own,
+    and at least one cluster of two CTAs fits the card at every width."""
+    import ctypes
+
+    from spnerf_torch.ops import _build
+
+    lib = _build.load("field_eval_wide")
+    lib.spnerf_field_eval_wide_clusters.argtypes = [ctypes.c_int] * 2
+    for width in range(0, 1057):
+        stages = fe.wide_stages(width)
+        assert lib.spnerf_field_eval_wide_stages(width) == stages, width
+        if stages:
+            assert (lib.spnerf_field_eval_wide_smem(width, stages)
+                    == fe.wide_smem_bytes(width, stages))
+    for width in (2, 80, 512, 768, 1024):
+        for bf16 in (0, 1):
+            assert lib.spnerf_field_eval_wide_clusters(width, bf16) >= 1
+
+
+@pytest.mark.cuda
+def test_wide_kernel_never_falls_back(device, monkeypatch):
+    """A field on the wgmma_wide route refuses the other dtype's compute,
+    and when its kernel cannot be had the call raises: no other kernel, the
+    module or the plain version takes its place."""
+    from spnerf_torch.ops import _build
+
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3, fc_units=768)
+    _, p = packed_field(cfg, device, "bfloat16")
+    assert p.route == "wgmma_wide"
+    args = field_inputs(16, cfg, device)
+    with pytest.raises(ValueError):
+        fe.FusedField(p, "float32")(*args)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(_build, "load", broken)
+    before = dict(fe.FusedField.route_launches)
+    with pytest.raises(RuntimeError, match="field_eval_wide"):
+        fe.FusedField(p, "bfloat16")(*args)
+    assert fe.FusedField.route_launches == before
+
+
+@pytest.mark.cuda
 def test_render_image_uses_kernel(device):
     """The eval renderer on CUDA launches the kernel three times per chunk
     and agrees with the same render through the plain field."""
@@ -341,14 +432,15 @@ def test_float32_render_takes_the_module(device):
     model, _ = packed_field(cfg, device)
     batch = fake_batch(np.random.default_rng(0), 1500)
     fe.FusedField.launches = 0
-    fe.FusedField.route_launches.update(wgmma=0, general=0, wgmma_f32=0)
+    fe.FusedField.route_launches.update(dict.fromkeys(fe.ROUTES, 0))
     out = build_render_fn(model, rc, chunk=1024)(batch["rays"], 0,
                                                  batch["sems"])
     torch.cuda.synchronize()
     launches = 3 * -(-1500 // chunk_size(rc, 1024))
     assert fe.FusedField.launches == launches
     assert fe.FusedField.route_launches == {"wgmma": 0, "general": 0,
-                                            "wgmma_f32": launches}
+                                            "wgmma_f32": launches,
+                                            "wgmma_wide": 0}
     ref = build_render_fn(model, rc, chunk=1024, field="plain")(
         batch["rays"], 0, batch["sems"])
     for k in ref:
@@ -360,13 +452,13 @@ def test_float32_render_takes_the_module(device):
 @pytest.mark.parametrize("beta", [False, True])
 def test_wide_render_takes_the_module(device, beta):
     """A bf16 render of a field wider than the wgmma kernel takes (768;
-    it took the module before the general kernel was ported) launches the
-    general kernel three times a chunk and agrees with the render through
-    the plain field (per-ray p99 within 2e-2)."""
+    it took the module before the general kernel was ported, then the
+    general kernel) launches the wide kernel three times a chunk and agrees
+    with the render through the plain field (per-ray p99 within 2e-2)."""
     cfg = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
                       fc_units=768)
     assert not fe.supports_config(cfg)
-    assert fe.route(cfg, "bfloat16") == "general"
+    assert fe.route(cfg, "bfloat16") == "wgmma_wide"
     rc = RenderConfig(n_samples=16, guidedsample=True, solar_correction=True,
                       sem=True, compute_dtype="bfloat16")
     model, _ = packed_field(cfg, device)
@@ -375,13 +467,14 @@ def test_wide_render_takes_the_module(device, beta):
                if beta else None)
     batch = fake_batch(np.random.default_rng(0), 1500)
     fe.FusedField.launches = 0
-    fe.FusedField.route_launches.update(wgmma=0, general=0, wgmma_f32=0)
+    fe.FusedField.route_launches.update(dict.fromkeys(fe.ROUTES, 0))
     out = build_render_fn(model, rc, t_embed, chunk=1024)(
         batch["rays"], 2, batch["sems"])
     torch.cuda.synchronize()
     launches = 3 * -(-1500 // chunk_size(rc, 1024))
-    assert fe.FusedField.route_launches == {"wgmma": 0, "general": launches,
-                                            "wgmma_f32": 0}
+    assert fe.FusedField.route_launches == {"wgmma": 0, "general": 0,
+                                            "wgmma_f32": 0,
+                                            "wgmma_wide": launches}
     ref = build_render_fn(model, rc, t_embed, chunk=1024, field="plain")(
         batch["rays"], 2, batch["sems"])
     assert set(out) == set(ref)

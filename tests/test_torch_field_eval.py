@@ -258,13 +258,14 @@ def test_program_stream_and_smem():
 def test_wide_fields_route_to_the_module(width, beta, want):
     """The wgmma kernel takes fc_units that are multiples of 32 up to 704
     (640 with a beta head); a bf16 render of any other width up to W_MAX on
-    CUDA takes the general kernel (these widths took the module before it
-    was ported; only fields wider than W_MAX still do), and the weights
-    pack for its route."""
+    CUDA takes the wide kernel (these widths took the module before the
+    general kernel was ported, then the general kernel; only fields wider
+    than W_MAX still take the module), and the weights pack for its
+    route."""
     cfg = ModelConfig(mapping=True, sem=True, beta=beta, num_sem_classes=3,
                       fc_units=width)
     assert tfe.supports_config(cfg) is want
-    assert tfe.route(cfg, "bfloat16") == ("wgmma" if want else "general")
+    assert tfe.route(cfg, "bfloat16") == ("wgmma" if want else "wgmma_wide")
     assert tfe.uses_fused_kernel("cuda", cfg, "bfloat16")
     p = tfe.pack_params(SPNeRF(cfg, "bfloat16"))
     assert p.route == tfe.route(cfg, "bfloat16")

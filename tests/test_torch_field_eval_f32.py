@@ -275,9 +275,11 @@ def test_k_order():
 @pytest.mark.parametrize("beta", [False, True])
 def test_route_and_reckoning_every_width(beta):
     """At every width from 1 to 1024: float32 takes "wgmma_f32" from 2 to
-    512 (the flagship among them) and "general" above it, up to W_MAX; bf16
-    routes as before (wgmma, general); the ring fits 232,448 bytes at least
-    a slab's chunks deep; the flagship's reckoning is pinned."""
+    512 (the flagship among them) and "wgmma_wide" above it, up to W_MAX;
+    bf16 takes wgmma within its envelope and wgmma_wide outside it; the
+    ring fits 232,448 bytes at least a slab's chunks deep; the flagship's
+    reckoning is pinned; 17 semantic classes leave the float32 flagship
+    to the general kernel."""
     for width in range(1, 1025):
         cfg = ModelConfig(fc_units=width, beta=beta, **FLAGSHIP)
         stages = tfe.f32_stages(width)
@@ -290,10 +292,12 @@ def test_route_and_reckoning_every_width(beta):
             assert stages == 0
         takes = 2 <= width <= tfe.F32_W_MAX
         assert tfe.supports_f32(cfg) is takes, width
-        assert tfe.route(cfg, "float32") == ("wgmma_f32" if takes
-                                             else "general"), width
+        assert tfe.route(cfg, "float32") == (
+            "wgmma_f32" if takes else "wgmma_wide" if width >= 2
+            else "general"), width
         bf16 = tfe.route(cfg, "bfloat16")
-        assert bf16 == ("wgmma" if tfe.supports_config(cfg) else "general")
+        assert bf16 == ("wgmma" if tfe.supports_config(cfg) else
+                        "wgmma_wide" if width >= 2 else "general")
     assert tfe.f32_stages(512) == 10
     assert tfe.f32_smem_bytes(512, 10) == 226_464
     assert tfe.f32_stages(256) == tfe.F32_MAX_STAGES
@@ -306,7 +310,9 @@ def test_route_and_reckoning_every_width(beta):
 def test_flagship_routes(device):
     """The flagship renders float32 through wgmma_f32 on CUDA, bf16 through
     wgmma; `pack_params(..., kernel="general")` still packs float32 for the
-    FFMA kernel (the parent's route, to time the two in one run)."""
+    FFMA kernel (the parent's route, to time the two in one run); a
+    float32 field of 544 packs for the wide kernel, or the general one on
+    request."""
     mc = ModelConfig(fc_units=512, **FLAGSHIP)
     assert tfe.route(mc, "float32") == "wgmma_f32"
     assert tfe.route(mc, "bfloat16") == "wgmma"
@@ -323,7 +329,9 @@ def test_flagship_routes(device):
     wide = SPNeRF(ModelConfig(fc_units=544, **FLAGSHIP))
     with pytest.raises(ValueError):
         tfe.pack_params(wide, "float32", kernel="wgmma_f32")
-    assert tfe.pack_params(wide, "float32").route == "general"
+    assert tfe.pack_params(wide, "float32").route == "wgmma_wide"
+    assert tfe.pack_params(wide, "float32", kernel="general").route == (
+        "general")
 
 
 def test_f32_kernel_refuses_cpu_tensors_and_other_packs(rng):

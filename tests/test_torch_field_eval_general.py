@@ -192,9 +192,9 @@ def test_route(device, dtype, width, beta, t_dims):
     transient width: bf16 within the wgmma envelope takes "wgmma" (the
     flagship among them), float32 up to F32_W_MAX "wgmma_f32" (the
     flagship among them), float32 above it up to W_MAX and bf16 outside the
-    envelope "general", wider fields no kernel; only CUDA renders take a
-    kernel. The weights pack for the route, and for the plain field where
-    there is none."""
+    envelope "wgmma_wide" (which took "general" before the wide kernel),
+    wider fields no kernel; only CUDA renders take a kernel. The weights
+    pack for the route, and for the plain field where there is none."""
     cfg = ModelConfig(fc_units=width, beta=beta, t_embedding_dims=t_dims,
                       **FLAGSHIP)
     if width > tfe.W_MAX:
@@ -204,7 +204,7 @@ def test_route(device, dtype, width, beta, t_dims):
     elif dtype == "float32" and width <= tfe.F32_W_MAX:
         want = "wgmma_f32"
     else:
-        want = "general"
+        want = "wgmma_wide"
     if (width, beta, t_dims) == (512, False, 16):
         # the flagship renders
         assert want == ("wgmma" if dtype == "bfloat16" else "wgmma_f32")
@@ -240,16 +240,16 @@ def test_route_outside_the_family():
     (64, dict(beta=True, t_embedding_dims=32))])
 def test_plain_matches_pallas_outside_the_wgmma_envelope(dtype, atol, width,
                                                          kw, rng):
-    """The plain version, which the general kernel is held against on the
-    card, against the Pallas kernel in interpret mode at fc_units 768 and
-    800 with and without a beta head, at 80 (not a multiple of 32) and at a
-    transient code of 32, in both dtypes; the field packs for the general
-    route (for the wgmma_f32 route in float32 up to 512) and, on the CPU,
-    launches nothing."""
+    """The plain version, which the general and wide kernels are held
+    against on the card, against the Pallas kernel in interpret mode at
+    fc_units 768 and 800 with and without a beta head, at 80 (not a
+    multiple of 32) and at a transient code of 32, in both dtypes; the
+    field packs for the wgmma_wide route (for the wgmma_f32 route in
+    float32 up to 512) and, on the CPU, launches nothing."""
     params, jcfg, model = make_pair(width=width, **kw)
     assert tfe.route(model.cfg, dtype) == (
         "wgmma_f32" if dtype == "float32" and width <= tfe.F32_W_MAX
-        else "general")
+        else "wgmma_wide")
     inputs = make_inputs(rng, 100, model.cfg)
     before = tfe.FusedField.launches
     out = port_fused(model, inputs, dtype, ALL)

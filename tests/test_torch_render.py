@@ -77,7 +77,7 @@ def test_render_rays_matches_jax(train, rng):
 def test_render_image_matches_trainer(dtype, field, monkeypatch):
     """The slice end to end: whole-image eval rendering. The beta case also
     carries the transient embedding of image t; the wide case is a field of
-    fc_units 768, which the port renders through its general kernel on the
+    fc_units 768, which the port renders through its wide kernel on the
     card (the wgmma kernel takes at most 704, the wgmma_f32 kernel 512) and
     the JAX package through its Pallas kernel; the card renders the other
     float32 cases through the wgmma_f32 kernel."""
@@ -99,7 +99,7 @@ def test_render_image_matches_trainer(dtype, field, monkeypatch):
     assert chunk_size(rc, 1024) == 1024
     model = SPNeRF(ModelConfig(**mc), compute_dtype=dtype)
     if field == "wide":
-        assert route(model.cfg, dtype) == "general"
+        assert route(model.cfg, dtype) == "wgmma_wide"
     elif dtype == "float32":
         assert route(model.cfg, dtype) == "wgmma_f32"
     model.load_state_dict(field_state_dict(params["coarse"]))
