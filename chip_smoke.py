@@ -237,7 +237,10 @@ Phases, each fatal on failure:
      the JAX package's create_dataset writes none) for PREP_STEPS steps at
      --img_downscale 1, validated (B1 launches counted), then each B1
      launch of the test view's first and ragged last chunk held at
-     KERNEL_ATOL on the trained field's samples and the render against
+     KERNEL_ATOL on the trained field's samples (each output's distance
+     recorded beside its float32 control and its tensor-core control, the
+     plain bf16 field with TF32 on; `spnerf_torch/utils/hold_b1.py`) and
+     the render against
      the plain render at RENDER_P99/RENDER_MAX, the plain float32 control
      beside it; (c) the hash family 10 steps at --img_downscale 4 on the
      same dataset, 30 B2 and 210 B3 launches, every B2/B3 call of one step
@@ -272,13 +275,29 @@ Phases, each fatal on failure:
      chunk of every validation view), finite losses and metrics, each
      launch of the test view's first chunk held at KERNEL_ATOL (past it,
      sun visibility and the semantic logits within WIDE_CONTROL_SHARE of
-     their plain float32 control on that launch; each output's distances
-     recorded); then phase 4's 65,536-ray view with a 1024-wide field in
+     their plain float32 control and within TC_CONTROL_SHARE of their
+     tensor-core control, the plain bf16 field with TF32 on, on that
+     launch; each output's distances recorded), and that chunk's render
+     beside the plain render with TF32 off, the plain float32 render and
+     the plain render with TF32 on (recorded); then phase 4's 65,536-ray
+     view with a 1024-wide field in
      float32 (random weights, seed 0), rendered and timed through the wide
      kernel and through the general kernel (weights packed for it) in
      turns, 3 launches a chunk on the one route each, the first and the
      ragged last chunk of each within F32_ATOL of the plain float32
      render. Its numbers on one `{"wide": ...}` line;
+ 20. the wide kernel's soak (`spnerf_torch/utils/wide_checks.py` `soak`,
+     seed 0; within ~60 s): at least SOAK_LAUNCHES_MIN launches through
+     `fused_field_wide` at 768 and 1024, bf16 and float32, all heads and
+     the solar pass's, on 1, 63, 64, 65, 4,223, 4,224, 4,225, 8,449,
+     131,195 and 374,976 points in a shuffled order; each input's first
+     launch held against the plain version (KERNEL_ATOL, F32_ATOL), every
+     later launch equal to it bit for bit (the kernel's sums are in a
+     fixed order, so a race in its cluster meetings shows as a mismatch);
+     its launches, mismatches and traps (a launch that fails, with the
+     kernel's wait record) and the cluster meetings reckoned from each
+     launch's points (not counted by the kernel) on one `{"soak": ...}`
+     line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
@@ -292,7 +311,9 @@ Phases, each fatal on failure:
   launches on phase 19's float32 view packed for it, its errors in
   float32 and bf16; the wide route's entry `field_eval_wide`: its launches
   in phase 19's CLI run, phase 5's times at 1024 in bf16 (the CLI run's
-  launch) and every time of phase 5 under `times`).
+  launch), every time of phase 5 under `times`, phase 20's counts under
+  `soak` and phase 19's held launches by output under
+  `held_cli_by_output`).
   The env of phases 10, 11 and 15 (d) is set around its use only and
   restored after.
 
@@ -315,11 +336,16 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-KERNEL_ATOL = 2e-2  # bf16: sum order may flip one bf16 ulp of an activation
-# float32 (the wgmma_f32 and general routes against the plain version with
-# TF32 off): the same float32 products summed in another order, or as three
-# TF32 products without lo x lo (2^-22 of each), through eight layers
-F32_ATOL = 1e-4
+try:
+    # B1's bars (KERNEL_ATOL, F32_ATOL, the wide route's control shares) and
+    # the one reckoning that holds a launch against them and its controls
+    from spnerf_torch.utils import hold_b1
+    from spnerf_torch.utils.hold_b1 import (F32_ATOL, KERNEL_ATOL,
+                                            TC_CONTROL_SHARE,
+                                            WIDE_CONTROL_SHARE, p99_max)
+    from spnerf_torch.utils.synth import FLAGSHIP_CLI_FLAGS as CLI_FLAGS
+except ImportError as e:
+    sys.exit(f"FAIL: the spnerf_torch package is not beside this script: {e}")
 # per-ray outputs, kernel vs plain field: 99th percentile and max. The sound
 # render reads at most 3.1e-4 and 6.1e-4; the plain float32 render of the
 # same rays differs from it by up to 1.8e-3 and 2.8e-3.
@@ -376,12 +402,6 @@ def rel_check(out, ref, tag):
     if not (err <= DTAB_RTOL * scale) or not torch.isfinite(out).all():
         fail(f"{tag}: max abs err {err} against max |dtab| {scale}")
     return err, (err / scale if scale else 0.0)
-
-
-def p99_max(a, b):
-    """The 99th percentile and the largest of |a - b|."""
-    err = (a - b).abs().flatten().float()
-    return torch.quantile(err, 0.99).item(), err.max().item()
 
 
 # names of the port's table-gradient kernels (the zero fill of B2, B3′ and
@@ -772,14 +792,8 @@ def validation_pass(device, card, project, width=813, height=793,
     return rec
 
 
-# the flagship and hash command lines of phase 13 (8x512 Siren, 64 samples,
-# bf16 and batch 1024 are the parser's defaults); --chunk 40960 lets the
-# renderer take its largest chunk (5,859 rays: 111 chunks a view)
-CLI_FLAGS = ["--aoi_id", AOI_ID, "--model", "sp-nerf", "--mapping",
-             "--guidedsample", "--sem", "--num_sem_classes", "3",
-             "--sc_lambda", "0.1", "--depth", "--ds_lambda", "1.0",
-             "--ss_lambda", "1.0", "--chunk", "40960", "--log_every", "5",
-             "--no_timestamp_exp_name"]
+# the flagship and hash command lines of phase 13: CLI_FLAGS
+# (`FLAGSHIP_CLI_FLAGS`, on AOI_ID) and the hash family's flags after them
 HASH_ARGS = ["--encoding", "hash", "--img_downscale", "4"]
 LPIPS_ATOL = 1e-5
 RENDER_PSNR_ATOL = 1e-3
@@ -1181,17 +1195,6 @@ WIDE_EXP = "wide1024"
 WIDE_ARGS = ["--fc_units", "1024", "--img_downscale", "4",
              "--max_train_steps", "10"]
 WIDE_VIEW_UNITS = 1024
-# Phase 19 holds the trained 1024-wide bf16 field's launches at KERNEL_ATOL,
-# but for CONTROL_OUTPUTS: past KERNEL_ATOL, each lies within
-# WIDE_CONTROL_SHARE of its plain float32 control on the same launch
-# (`hold_b1_launches`). After 10 steps at 1024 the tensor cores' bf16 sums
-# put sun visibility up to 3.9e-2 and the semantic logits up to 2.2e-2 from
-# plain bf16, at 0.20 of the control and below (the largest such reading);
-# the other outputs stay below 5.7e-3. A ratio of 1 is a kernel as far from
-# plain bf16 as float32 is. The share is the geometric mean of 0.20 and 1,
-# so it has the same room, 2.2x, to either side.
-CONTROL_OUTPUTS = ("sun_v", "sem_logits")
-WIDE_CONTROL_SHARE = 0.45
 
 
 def wide_pass(device, card, project, n_view=N_VIEW):
@@ -1200,7 +1203,9 @@ def wide_pass(device, card, project, n_view=N_VIEW):
     run), 10 steps and the final validation through the wide kernel, each
     launch of the test view's first chunk held (KERNEL_ATOL; past it, an
     output of CONTROL_OUTPUTS within WIDE_CONTROL_SHARE of its plain
-    float32 control); then phase 4's view with a WIDE_VIEW_UNITS-wide
+    float32 control and within TC_CONTROL_SHARE of its tensor-core
+    control), and that chunk's render beside both controls' renders; then
+    phase 4's view with a WIDE_VIEW_UNITS-wide
     float32 field through the wide and the general kernel in turns, held
     on its first and its ragged last chunk against the plain float32
     render. Returns the record it prints."""
@@ -1260,18 +1265,29 @@ def wide_pass(device, card, project, n_view=N_VIEW):
             or not np.isfinite(r["val"]["val"]["mae"])):
         fail(f"the fc_units {units} run: B1 {r['b1_routes']} (expected "
              f"{expect} wgmma_wide), losses {r['loss']}, {r['val']}")
-    rays, sems = samples[-1]["rays"], samples[-1]["sems"]
+    rays, sems = samples[-1]["rays"][:chunk], samples[-1]["sems"][:chunk]
     render = build_render_fn(state.model, rc, state.t_embed, chunk=args.chunk)
-    r["held"] = hold_b1_launches(lambda: render(rays[:chunk], 0, sems[:chunk]),
+    outs = []
+    r["held"] = hold_b1_launches(lambda: outs.append(render(rays, 0, sems)),
                                  f"fc_units {units} run, first chunk",
-                                 control_share=WIDE_CONTROL_SHARE)
+                                 control_share=WIDE_CONTROL_SHARE,
+                                 tc_share=TC_CONTROL_SHARE)
     if r["held"]["routes"] != ["wgmma_wide"]:
         fail(f"fc_units {units} run, first chunk: {r['held']}")
+    # the first chunk's render against the plain render, beside its float32
+    # and its tensor-core control (recorded; the launches carry the bars)
+    r["render"] = hold_b1.render_rows(outs[0], *(
+        build_render_fn(state.model, c, state.t_embed, chunk=args.chunk,
+                        field="plain")
+        for c in (rc, replace(rc, compute_dtype="float32"))), rays, 0, sems)
     log(f"fc_units {units} run: 10 steps and validation in {r['s']:.1f} s, "
         f"B1 {json.dumps(r['b1_routes'])}, val {json.dumps(r['val'])}, held "
         f"launches within {r['held']['max_abs_err']:.3g}; past KERNEL_ATOL "
         f"at most {r['held']['max_ratio_past_atol']} of the plain float32 "
-        f"control ({card})")
+        f"control and {r['held']['max_tc_ratio_past_atol']} of the "
+        f"tensor-core control; each output's largest distances "
+        f"{json.dumps(r['held']['by_output'])}; the first chunk's render "
+        f"{json.dumps(r['render'])} ({card})")
     del state, render, scene, samples
     torch.cuda.empty_cache()
 
@@ -1329,6 +1345,40 @@ def wide_pass(device, card, project, n_view=N_VIEW):
     log(f"float32 fc_units {WIDE_VIEW_UNITS} view ({n_view} rays): "
         f"{json.dumps(v)} ({card})")
     return rec
+
+
+# phase 20: the least launches of the wide kernel's soak
+SOAK_LAUNCHES_MIN = 20_000
+
+
+def soak_pass(device, card):
+    """Phase 20: one schedule of `spnerf_torch.utils.wide_checks.soak`
+    (the wide kernel through `fused_field_wide` at 768 and 1024, bf16 and
+    float32, all heads and the solar pass's, n from 1 to 374,976: each
+    input's first launch held against the plain version, every later one
+    equal to it bit for bit), its launches counted (counts set to 0 just
+    before and read just after). Returns the record it prints."""
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.utils import wide_checks
+
+    reset_b1()
+    try:
+        r = wide_checks.soak(device, seed=0, log=log)
+    except hold_b1.B1Mismatch as e:
+        fail(str(e))
+    r["route_launches"] = dict(fe.FusedField.route_launches)
+    r["card"] = card
+    log(f"wide kernel soak: {r['launches']} launches, "
+        f"{r['meetings_reckoned']} cluster meetings (reckoned from n), "
+        f"{r['mismatches']} bit mismatches, {r['traps']} "
+        f"traps in {r['s']:.1f} s (reckoned {r['reckoned']['seconds']:.1f} "
+        f"s with its set-up); first launches within "
+        f"{r['max_abs_err_first']:.3g} of the plain version ({card})")
+    want = {k: 0 for k in fe.ROUTES} | {"wgmma_wide": r["scheduled"]}
+    if (r["traps"] or r["mismatches"] or r["launches"] < SOAK_LAUNCHES_MIN
+            or r["route_launches"] != want):
+        fail(f"the wide kernel's soak: {json.dumps(r)}")
+    return r
 
 
 # phase 14's runs: the occupancy-grid flagship (the JAX package's fast
@@ -1658,79 +1708,12 @@ def recording_dtab(calls):
         hg.dtab = real
 
 
-def hold_b1_launches(run, tag, control_share=None):
-    """B1 against its plain version on the field inputs of every launch
-    that `run()` makes, at the launch's compute dtype, within KERNEL_ATOL
-    (F32_ATOL in float32); their max abs errors and routes. With
-    `control_share`, each bf16 launch also gets the plain float32 version
-    (TF32 off) as a control, and the record lists, launch by launch and
-    output by output, the kernel's distance from the plain version, the
-    control's (the size of the bf16 rounding policy itself) and their
-    ratio; there an output of CONTROL_OUTPUTS past KERNEL_ATOL passes where
-    it lies within `control_share` of its control, and every other output
-    keeps KERNEL_ATOL."""
-    from spnerf_torch.ops import field_eval as fe
-
-    seen = []
-    real = fe.FusedField.__call__
-
-    def recording(self, xyz, sun_d, t_emb=None, sem_labels=None, heads=None):
-        seen.append((self.packed, self.compute_dtype, xyz, sun_d, t_emb,
-                     sem_labels, heads))
-        return real(self, xyz, sun_d, t_emb, sem_labels, heads=heads)
-
-    fe.FusedField.__call__ = recording
+def hold_b1_launches(run, tag, **bars):
+    """`spnerf_torch.utils.hold_b1.hold_b1_launches`, its failure fatal."""
     try:
-        run()
-    finally:
-        fe.FusedField.__call__ = real
-    if not seen:
-        fail(f"{tag}: no B1 launch")
-    errs, outputs, past = [], [], []
-    for packed, cd, xyz, sun, t_emb, sem, heads in seen:
-        out = fe.FusedField(packed, cd)(xyz, sun, t_emb, sem, heads=heads)
-        ref = fe.PlainField(packed, cd)(xyz, sun, t_emb, sem, heads=heads)
-        err = {k: (out[k] - ref[k]).abs().max().item() for k in ref}
-        errs.append(max(err.values()))
-        atol = F32_ATOL if str(cd).endswith("float32") else KERNEL_ATOL
-        if control_share is None or atol != KERNEL_ATOL:
-            if not errs[-1] <= atol:
-                fail(f"{tag}: B1 launch on {xyz.shape[0]} points, heads "
-                     f"{heads}: max abs err {errs[-1]} > {atol}")
-            continue
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            ctl = fe.PlainField(packed, "float32")(xyz, sun, t_emb, sem,
-                                                    heads=heads)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-        row = {}
-        for k, e in err.items():
-            c = (ctl[k] - ref[k]).abs().max().item()
-            row[k] = {"err": e, "control": c,
-                      "ratio": e / c if c else None}
-            if e <= atol:
-                continue
-            if k not in CONTROL_OUTPUTS:
-                fail(f"{tag}: B1 launch on {xyz.shape[0]} points, heads "
-                     f"{heads}, {k}: max abs err {e} > {atol}")
-            past.append(e / c if c else np.inf)
-            if not e <= control_share * c:
-                fail(f"{tag}: B1 launch on {xyz.shape[0]} points, heads "
-                     f"{heads}, {k}: max abs err {e} > {atol} and > "
-                     f"{control_share} of the plain float32 control {c}")
-        outputs.append(row)
-    rec = {"launches_held": len(errs),
-           "points": [s[2].shape[0] for s in seen],
-           "routes": sorted({s[0].route for s in seen}),
-           "max_abs_err": max(errs)}
-    if control_share is not None:
-        rec["outputs"] = outputs
-        # the largest ratio of an output past KERNEL_ATOL, the one the
-        # share holds (None where every output met KERNEL_ATOL)
-        rec["max_ratio_past_atol"] = max(past, default=None)
-    return rec
+        return hold_b1.hold_b1_launches(run, tag, **bars)
+    except hold_b1.B1Mismatch as e:
+        fail(str(e))
 
 
 def table_snapshot(state):
@@ -2440,11 +2423,17 @@ def prep_pass(device, card, hold_hash):
                         ("last", slice((n_chunks - 1) * chunk, n_view))):
             outs = []
             held = hold_b1_launches(lambda: outs.append(render(rays[sl], 0)),
-                                    f"prepared flagship, {tag} chunk")
+                                    f"prepared flagship, {tag} chunk",
+                                    controls=True)
             launch_errs.append(held["max_abs_err"])
             out, ref, ctl = outs[0], plain(rays[sl], 0), plain32(rays[sl], 0)
             errs = {"launches_held": held["launches_held"],
-                    "launch_max_abs_err": held["max_abs_err"]}
+                    "launch_max_abs_err": held["max_abs_err"],
+                    "launch_outputs": held["outputs"],
+                    "launch_by_output": held["by_output"]}
+            log(f"  prepared flagship, {tag} chunk: each output's largest "
+                f"distance from plain over its launches, beside its float32 "
+                f"and tensor-core controls: {json.dumps(held['by_output'])}")
             for k, v in ref.items():
                 p99, mx = p99_max(out[k], v)
                 c99, cmx = p99_max(out[k], ctl[k])
@@ -3719,6 +3708,14 @@ def main():
         wide_run["phase_s"] = time.time() - t19
         print(json.dumps({"wide": wide_run}), flush=True)
         torch.cuda.empty_cache()
+
+    log(f"-- phase 20 at {time.time() - t_start:.1f} s")
+    # 20. the wide kernel's soak: its cluster meeting over >= 20,000 launches
+    t20 = time.time()
+    soak_rec = soak_pass(device, card)
+    soak_rec["phase_s"] = time.time() - t20
+    print(json.dumps({"soak": soak_rec}), flush=True)
+    torch.cuda.empty_cache()
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
     occ, multi = paths_rec["occgrid"], paths_rec["multi"]
     field_entry.update(
@@ -3772,7 +3769,10 @@ def main():
         max_abs_err_cli=run19["held"]["max_abs_err"],
         launches_wide_bf16_768=wide["launches"],
         launches_view_f32_1024=view["wgmma_wide"]["launches"],
-        view_ms_f32_1024=view["wgmma_wide"]["ms"])
+        view_ms_f32_1024=view["wgmma_wide"]["ms"],
+        soak={k: soak_rec[k] for k in ("launches", "mismatches", "traps",
+                                       "s", "max_abs_err_first")},
+        held_cli_by_output=run19["held"]["by_output"])
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 

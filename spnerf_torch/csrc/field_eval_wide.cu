@@ -71,11 +71,60 @@
 //   next layer reads them). A meeting is the CTA's consumer barrier, then
 //   one thread arrives on the peer's mbarrier (release, cluster scope) and
 //   waits on its own (acquire, cluster scope), then the consumer barrier
-//   again; each CTA has two such mbarriers, taken in turn, so that a phase
-//   cannot complete twice before its waiter sees it (`meet`); the producer thread takes no part, so the ring runs on across
-//   the boundary. The kernel opens with a cluster barrier (the barriers are
-//   initialised) and the consumers close with a meeting, so that no CTA
-//   exits while its peer can still read its shared memory.
+//   again (`meet`); the producer thread takes no part, so the ring runs on
+//   across the boundary. The kernel opens with a cluster barrier (the
+//   barriers are initialised) and the consumers close with a meeting, so
+//   that no CTA exits while its peer can still read its shared memory.
+// - Why two meeting barriers a CTA. A count-1 mbarrier completes a phase at
+//   each of the peer's arrivals, and the waiter asks for the phase of one
+//   parity. With one barrier a CTA, the peer can arrive for meeting k + 1
+//   (it needs only this CTA's arrival for k, which comes before this CTA's
+//   wait) before this CTA's waiting thread has polled for k: the phase then
+//   completes twice, the parity is back where it was, and the wait never
+//   ends. The wide kernel's checks (utils/wide_checks.py) build that form
+//   with a delay before the first poll, and it traps with the wait record
+//   naming the meeting barrier. With two, meeting k takes barrier k % 2 at
+//   parity k / 2 % 2; the peer's next arrival on that barrier is for
+//   meeting k + 2, which needs this CTA's arrival for k + 1, which comes
+//   after its wait for k. So each barrier completes at most one phase ahead
+//   of its waiter (tests/test_torch_wide_meeting.py enumerates every
+//   interleaving of a model of both forms).
+// - Memory order across the cluster (PTX memory model). Consumer thread j
+//   reads the peer's half of the buffer (ld.shared::cluster in `load_frag`)
+//   and, after the second meeting, both CTAs' head partials (red0, red1);
+//   the peer's consumer m overwrites them after a later meeting. The chain
+//   from j's read to m's write, for every j and m: j's read precedes j's
+//   bar.sync in program order; bar.sync synchronises j with thread 0 of its
+//   CTA (CTA scope); thread 0's fence.acq_rel.cluster and
+//   mbarrier.arrive.release.cluster release at cluster scope, and a release
+//   is cumulative, so it carries every operation that precedes it in
+//   causality order, j's remote read included; the peer's thread 0 acquires
+//   it (try_wait.parity.acquire.cluster, then fence.acq_rel.cluster), and
+//   its bar.sync synchronises it with m. Causality order is transitive, so
+//   j's read happens before m's write, and the read cannot see it. The same
+//   chain, writes first, orders each half's new activations and partials
+//   before every read of them after the second meeting. The partials of a
+//   head are read after the second meeting of its layer and written again
+//   only after the first meeting of a later layer. The barriers: the
+//   peer's arrival k + 2 on a barrier follows its acquire of this CTA's
+//   arrival k + 1, which follows this CTA's wait for k in program order;
+//   the cluster barrier after mbarrier.init (fence.mbarrier_init.release.
+//   cluster, barrier.cluster.arrive.release / wait.acquire) orders the
+//   initialisation before any remote arrival. Besides, every remote load's
+//   value is consumed (by a wgmma or a sum) before the thread reaches the
+//   meeting's first bar.sync.
+// - A timed wait. Every mbarrier wait that has polled for half of
+//   WIDE_TRAP_CYCLES (~10 s) is taken for a deadlock: it writes which wait
+//   it was (the meeting barrier, or the ring's full or empty barrier; its
+//   CTA rank, cluster, thread, meeting or stage index, parity and ring
+//   position) to a record in host memory that a process can read after the
+//   trap (`spnerf_field_eval_wide_wait_record`; without one nothing is
+//   written), and traps once WIDE_TRAP_CYCLES (~20 s) have passed since it
+//   began, so that the launch fails instead of holding the card and every
+//   wait stuck with it has noted itself first (`stuck`). That code never
+//   returns to the polling loop, so the loop's registers are the parent
+//   form's (a record that returned to the loop cost the bf16 kernel spills
+//   and 7-9% of its time).
 // - Head outputs (<= 16 columns). Each CTA sums its K half from the
 //   registers of the layer before: each thread's columns by FFMA, the four
 //   lanes of a row by shuffles, the three warpgroups into shared memory;
@@ -93,6 +142,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "field_epilogue.cuh"
 #include "hopper.cuh"
@@ -113,6 +163,28 @@ static_assert(128 * PRODUCER_REGS + CONSUMER_REGS * 384 <= 65536,
 #ifndef WIDE_LOCAL_A
 #define WIDE_LOCAL_A 0
 #endif
+// The meeting's stress switches, off in the route's build; built by
+// utils/wide_checks.py alone. WIDE_MEET_DELAY_NS > 0: rank 0's meeting
+// thread waits that long between its arrival and its first poll, at every
+// meeting; WIDE_ONE_BARRIER 1: one meeting barrier a CTA, the form that can
+// hang; WIDE_TRAP_CYCLES: how long a wait polls before it traps.
+#ifndef WIDE_MEET_DELAY_NS
+#define WIDE_MEET_DELAY_NS 0
+#endif
+#ifndef WIDE_ONE_BARRIER
+#define WIDE_ONE_BARRIER 0
+#endif
+#ifndef WIDE_TRAP_CYCLES
+#define WIDE_TRAP_CYCLES 40000000000LL
+#endif
+// The wait record: REC_KINDS counts, then REC_SLOTS records of REC_INTS ints
+// a kind (WAIT_MEET, WAIT_FULL, WAIT_EMPTY); mirrored in utils/wide_checks.py
+#define REC_KINDS 3
+#define REC_SLOTS 16
+#define REC_INTS 8
+#define WAIT_MEET 0
+#define WAIT_FULL 1
+#define WAIT_EMPTY 2
 #define NCH 64                     // output columns of a chunk
 #define STAGE_BYTES (NCH * 128)    // 64 rows of 128 bytes
 #define MAX_STAGES 12
@@ -210,48 +282,111 @@ __device__ __forceinline__ void cluster_sync_all() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-// Waits, at cluster scope, for the phase of parity `parity` of a barrier the
-// peer CTA arrives on; traps after ~20 s as mbar_wait does.
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
+// The record the timed waits write to (host memory mapped for the device),
+// null unless `spnerf_field_eval_wide_wait_record` set it, and each kind's
+// next free slot.
+__device__ int* g_wait_record = nullptr;
+__device__ int g_wait_slots[REC_KINDS];
+
+// A wait past half of WIDE_TRAP_CYCLES is taken for a deadlock. It notes
+// itself in the wait record (which barrier, the CTA's rank and cluster, the
+// thread, the meeting or stage index, the parity it waits for and the ring
+// position `it`, -1 at a meeting), holds still until WIDE_TRAP_CYCLES have
+// passed since it began, so that every other wait stuck with it notes
+// itself too, and traps. It never returns, so nothing of its caller is
+// live across it: the polling loop keeps the registers it had.
+__device__ __forceinline__ void stuck(int kind, int index, uint32_t parity,
+                                      int it, long long start) {
+  int* rec = g_wait_record;
+  if (rec != nullptr) {
+    const int slot = atomicAdd(&g_wait_slots[kind], 1);
+    volatile int* count = rec + kind;
+    *count = slot + 1;
+    if (slot < REC_SLOTS) {
+      uint32_t rank, cluster;
+      asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+      asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cluster));
+      volatile int* q =
+          rec + REC_KINDS + (kind * REC_SLOTS + slot) * REC_INTS;
+      q[0] = kind;
+      q[1] = (int)rank;
+      q[2] = (int)cluster;
+      q[3] = (int)threadIdx.x;
+      q[4] = index;
+      q[5] = (int)parity;
+      q[6] = it;
+      q[7] = 1;  // written last: the record is whole
+    }
+    __threadfence_system();
+  }
+  while (clock64() - start <= WIDE_TRAP_CYCLES) __nanosleep(1000);
+  __trap();
+}
+
+// Waits for the phase of parity `parity` of `bar` to complete: at cluster
+// scope (a barrier the peer CTA arrives on) or at the CTA's; past half of
+// WIDE_TRAP_CYCLES, `stuck`.
+template <bool CLUSTER>
+__device__ __forceinline__ void wait_timed(uint32_t bar, uint32_t parity,
+                                           int kind, int index, int it) {
   uint32_t done;
   long long start = 0;
   for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (CLUSTER)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "%2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
     if (start == 0) {
       start = clock64();
-    } else if (clock64() - start > 40000000000LL) {
-      __trap();
+    } else if (clock64() - start > WIDE_TRAP_CYCLES / 2) {
+      stuck(kind, index, parity, it, start);
     }
   }
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 // The consumers of both CTAs meet: every consumer thread's shared-memory
 // reads and writes before it (its own CTA's and the peer's) happen before
 // every consumer thread's after it. `peer_bar` is the peer's pair of
 // barriers as a shared::cluster address, `own_bar` this CTA's; `k` counts
-// meetings. Meeting k uses barrier k % 2 of the pair, at parity k / 2 % 2.
-// With one barrier, the peer could arrive for meeting k + 1 before this
-// CTA's waiting thread had seen meeting k's phase complete: the phase would
-// flip twice, and the wait for parity k would never end. With two, the
-// peer's next arrival on a barrier (meeting k + 2) needs this CTA's arrival
-// for meeting k + 1, which comes after its wait for meeting k.
+// meetings. Meeting k uses barrier k % 2 of the pair, at parity k / 2 % 2
+// (see "Why two meeting barriers a CTA" above).
 __device__ __forceinline__ void meet(uint32_t own_bar, uint32_t peer_bar,
-                                     uint32_t& k) {
+                                     uint32_t rank, uint32_t& k) {
   named_sync(CONSUMERS);
   if (threadIdx.x == 0) {
-    const uint32_t off = 8 * (k & 1);
+#if WIDE_ONE_BARRIER
+    const uint32_t off = 0, parity = k & 1;
+#else
+    const uint32_t off = 8 * (k & 1), parity = (k >> 1) & 1;
+#endif
     asm volatile("fence.acq_rel.cluster;" ::: "memory");
     asm volatile(
         "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
         :: "r"(peer_bar + off) : "memory");
-    mbar_wait_cluster(own_bar + off, (k >> 1) & 1);
+#if WIDE_MEET_DELAY_NS > 0
+    if (rank == 0) {
+      const unsigned long long t0 = global_ns();
+      while (global_ns() - t0 < (unsigned long long)WIDE_MEET_DELAY_NS)
+        __nanosleep(10000);
+    }
+#endif
+    wait_timed<true>(own_bar + off, parity, WAIT_MEET, (int)k, -1);
     asm volatile("fence.acq_rel.cluster;" ::: "memory");
   }
   ++k;
@@ -558,7 +693,9 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
             for (int n0 = 0; n0 < h; n0 += NCH, ++it) {
               const int slot = it % d.stages;
               const uint32_t bytes = min(NCH, h - n0) * 128;
-              mbar_wait(empty + 8 * slot, ((it / d.stages) & 1) ^ 1);
+              wait_timed<false>(empty + 8 * slot,
+                                ((it / d.stages) & 1) ^ 1, WAIT_EMPTY, slot,
+                                it);
               mbar_expect_tx(full + 8 * slot, bytes);
               bulk_copy(ring + slot * STAGE_BYTES,
                         base + ((size_t)s * h + n0) * 128, bytes,
@@ -626,7 +763,8 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
         for (int c = 0; c < CPW; ++c) own[c] = -1;
         for (int j = 0; j < nch; ++j, ++it) {
           const int slot = it % d.stages;
-          mbar_wait(full + 8 * slot, (it / d.stages) & 1);
+          wait_timed<false>(full + 8 * slot, (it / d.stages) & 1, WAIT_FULL,
+                            slot, it);
           bool mine = false;
 #pragma unroll
           for (int c = 0; c < CPW; ++c) {
@@ -681,7 +819,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
       apply_rt(o.epi, acc, d.b + o.b_off + rank * h, wg, nc, t0);
       // every thread of both CTAs is done reading the buffer halves and
       // the last head output's partial sums
-      meet(xbar, peer_xbar, meetings);
+      meet(xbar, peer_xbar, rank, meetings);
       if (o.dst == SRC_BUF0) {
 #pragma unroll
         for (int c = 0; c < CPW; ++c) {
@@ -737,7 +875,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
         }
       }
       // both halves of the buffer and both CTAs' partial sums are written
-      meet(xbar, peer_xbar, meetings);
+      meet(xbar, peer_xbar, rank, meetings);
       if (tail) {
         // rows [32 rank, 32 rank + 32) of the tile, the partials of rank 0
         // then rank 1, each CTA's warpgroups in order
@@ -764,7 +902,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
     }
   }
   // no CTA leaves while its peer may still read its shared memory
-  meet(xbar, peer_xbar, meetings);
+  meet(xbar, peer_xbar, rank, meetings);
 }
 
 // ------------------------------------------------------------------- host
@@ -925,6 +1063,32 @@ int spnerf_field_eval_wide(const void* xin, const void* sun, const void* tin,
     field_eval_wide_kernel<false>
         <<<grid, THREADS, smem, (cudaStream_t)stream>>>(d);
   return (int)cudaGetLastError();
+}
+
+// The wait record of this library's launches: (REC_KINDS + REC_KINDS *
+// REC_SLOTS * REC_INTS) ints of host memory mapped for the device, zeroed,
+// which the timed waits of later launches write to and a process can read
+// after a trap. Returns its host address (the same one, zeroed again, on
+// every call), or null on an error.
+void* spnerf_field_eval_wide_wait_record() {
+  static int* host = nullptr;
+  const size_t bytes =
+      (REC_KINDS + REC_KINDS * REC_SLOTS * REC_INTS) * sizeof(int);
+  if (host == nullptr
+      && cudaHostAlloc((void**)&host, bytes, cudaHostAllocMapped)
+             != cudaSuccess) {
+    host = nullptr;
+    return nullptr;
+  }
+  memset(host, 0, bytes);
+  int* dev = nullptr;
+  const int zeros[REC_KINDS] = {0};
+  if (cudaHostGetDevicePointer((void**)&dev, host, 0) != cudaSuccess
+      || cudaMemcpyToSymbol(g_wait_record, &dev, sizeof(dev)) != cudaSuccess
+      || cudaMemcpyToSymbol(g_wait_slots, zeros, sizeof(zeros))
+             != cudaSuccess)
+    return nullptr;
+  return host;
 }
 
 const char* spnerf_cuda_error_string(int err) {

@@ -6,8 +6,11 @@ Rays are rendered in chunks of at most `MAX_POINTS // samples_per_ray` rays
 runs through a fused CUDA kernel whenever `ops.field_eval.route` names one
 for the configuration at the render's compute dtype and the model lies on a
 CUDA device, as the JAX package uses its fused kernel on every accelerator:
-the wgmma kernel for bf16 fields within its envelope, the general kernel
-for float32 renders and the other bf16 widths up to W_MAX. Wider fields
+the wgmma kernel for bf16 fields within its envelope, the wgmma_f32 kernel
+for float32 fields up to 512 wide, the wgmma_wide kernel (a cluster of two
+CTAs) for the bf16 fields outside the wgmma envelope and the float32 fields
+of 513 to W_MAX, and the general kernel for what those leave (more than 16
+semantic classes). Wider fields
 render through the module; so does a configuration with a fine pass or a
 proposal sampler, as the JAX package's does. With the occupancy
 grid the trained grid places the samples (a uniform grid where none is

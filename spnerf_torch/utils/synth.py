@@ -1,6 +1,6 @@
-"""The flagship and hash configurations, synthetic scenes in numpy, the
-train-step setup the chip smoke test drives and the program
-`bench_torch.py` times (`bench_setup`)."""
+"""The flagship and hash configurations, the flagship's command line,
+synthetic scenes in numpy, the train-step setup the chip smoke test drives
+and the program `bench_torch.py` times (`bench_setup`)."""
 
 from dataclasses import replace
 
@@ -10,6 +10,15 @@ from ..config import LossConfig, ModelConfig, RenderConfig
 
 HASH_LR = 1e-2  # the hash family's table learning rate (NGP practice)
 FLAGSHIP_LR = 5e-4
+# the flagship's training command line on the synthetic AOI JAX_269
+# (8x512 Siren, 64 samples, bf16 and batch 1024 are the parser's
+# defaults); --chunk 40960 lets the renderer take its largest chunk
+# (5,859 rays: 111 chunks a full-size view)
+FLAGSHIP_CLI_FLAGS = [
+    "--aoi_id", "JAX_269", "--model", "sp-nerf", "--mapping",
+    "--guidedsample", "--sem", "--num_sem_classes", "3", "--sc_lambda",
+    "0.1", "--depth", "--ds_lambda", "1.0", "--ss_lambda", "1.0", "--chunk",
+    "40960", "--log_every", "5", "--no_timestamp_exp_name"]
 
 
 def flagship_configs(n_samples=64, fc_units=512):

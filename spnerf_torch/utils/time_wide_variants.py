@@ -1,23 +1,27 @@
-"""Time B1's wide kernel against a copy that reads every A fragment from
-its own CTA, in turns on the card.
+"""Time B1's wide kernel against copies of it built here, in turns on the
+card.
 
 Usage (from the repository root, on a machine with a CUDA device):
 
     python -m spnerf_torch.utils.time_wide_variants
     python -m spnerf_torch.utils.time_wide_variants --widths 768 1024 --dtypes bfloat16
+    python -m spnerf_torch.utils.time_wide_variants --parent DIR
 
 "route" is `csrc/field_eval_wide.cu` as the route builds and loads it;
 "local_a" is the same source built here as a library of its own with
 WIDE_LOCAL_A=1: every A fragment comes from the CTA's own half of the
 buffer, a wrong answer and only a floor for what reading the peer's half
-through distributed shared memory costs. Both are launched through the
-same C entry from here, so neither adds to `FusedField`'s counts. At each
+through distributed shared memory costs. With `--parent DIR`, "parent"
+takes local_a's place: `DIR/spnerf_torch/csrc/field_eval_wide.cu`
+(another checkout, e.g. one unpacked with `git archive`) built the same
+way. Both are launched through the same C entry from here, so neither
+adds to `FusedField`'s counts. At each
 width and dtype, the flagship family (random weights, seed 0) evaluates
 all heads on `--points` points (the eval render's all-head launch)
 through each, timed with CUDA events over `--reps` launches after a
-warm-up, route, local_a, local_a, route. Prints each build's ptxas
-register and spill lines and one JSON line: the times, each one's max
-abs error from the plain version (large for local_a by design), and the
+warm-up, in turns (route, copy, copy, route). Prints each build's ptxas
+register and spill lines and one JSON line: the times, each one's max abs
+error from the plain version (large for local_a by design), and the
 card's name and power limit.
 """
 
@@ -36,18 +40,20 @@ def _ptxas_lines(text):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def build_local_a():
-    """csrc/field_eval_wide.cu built with WIDE_LOCAL_A=1 under _build/,
-    loaded; (library, ptxas lines). The file is removed once loaded."""
+def build_variant(tag, defines=(), source=None):
+    """`source` (default csrc/field_eval_wide.cu) built with `defines`
+    ("NAME=VALUE" strings) as a library of its own under _build/, loaded;
+    (library, ptxas lines). The file is removed once loaded."""
     from ..ops import _build
 
     _build.BUILD.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD / f"libfield_eval_wide-local_a-{os.getpid()}.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DWIDE_LOCAL_A=1", "-o",
-           str(out), str(_build.CSRC / "field_eval_wide.cu")]
+    out = _build.BUILD / f"libfield_eval_wide-{tag}-{os.getpid()}.so"
+    src = source or _build.CSRC / "field_eval_wide.cu"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS,
+           *(f"-D{d}" for d in defines), "-o", str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed for the local_a copy:\n"
+        raise RuntimeError(f"nvcc failed for the {tag} copy:\n"
                            f"{proc.stdout}{proc.stderr}")
     try:
         lib = ctypes.CDLL(str(out))
@@ -56,17 +62,18 @@ def build_local_a():
     return lib, _ptxas_lines(proc.stdout + proc.stderr)
 
 
-def launch(lib, packed, x_in, sun):
-    """All heads of `packed` through `lib`'s wide entry on CUDA tensors,
-    as `fused_field_wide` launches it, without counting the launch."""
+def launch(lib, packed, x_in, sun, heads=None):
+    """`heads` (all by default) of `packed` through `lib`'s wide entry on
+    CUDA tensors, as `fused_field_wide` launches it, without counting the
+    launch."""
     from ..ops import field_eval as fe
 
+    heads = fe.ALL_HEADS if heads is None else heads
     cfg = packed.cfg
-    prog = fe._check_launch(packed, "wgmma_wide", x_in, sun, None,
-                            fe.ALL_HEADS)
+    prog = fe._check_launch(packed, "wgmma_wide", x_in, sun, None, heads)
     n = x_in.shape[0]
     res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
-           for nm, wd in fe.active_outputs(cfg, fe.ALL_HEADS)}
+           for nm, wd in fe.active_outputs(cfg, heads)}
     xin, sn, _ = fe._float32_inputs(cfg, x_in, sun, None, False)
     fe._launch(lib, fe._declare(lib, "spnerf_field_eval_wide", 6), (
         fe._ptr(xin), fe._ptr(sn), None, fe._ptr(packed.w_all),
@@ -91,6 +98,9 @@ def main(argv=None):
                    choices=("bfloat16", "float32"))
     p.add_argument("--points", type=int, default=374_976)
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--parent", default=None,
+                   help="a checkout whose wide kernel is timed in place of "
+                        "local_a")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -100,7 +110,13 @@ def main(argv=None):
            "ptxas": {}, "runs": {}}
     rec["ptxas"]["route"] = _ptxas_lines(_build.build("field_eval_wide"))
     libs = {"route": _build.load("field_eval_wide")}
-    libs["local_a"], rec["ptxas"]["local_a"] = build_local_a()
+    if args.parent:
+        libs["parent"], rec["ptxas"]["parent"] = build_variant(
+            "parent", source=os.path.join(
+                args.parent, "spnerf_torch", "csrc", "field_eval_wide.cu"))
+    else:
+        libs["local_a"], rec["ptxas"]["local_a"] = build_variant(
+            "local_a", ["WIDE_LOCAL_A=1"])
     print(json.dumps({"ptxas": rec["ptxas"]}), flush=True)
     g = np.random.default_rng(0)
     n = args.points
@@ -139,7 +155,8 @@ def main(argv=None):
                 r[name]["max_abs_err"] = max(
                     (out[k] - ref[k]).abs().max().item() for k in ref)
                 del out
-            for name in ["route", "local_a", "local_a", "route"]:
+            copy = next(k for k in libs if k != "route")
+            for name in ["route", copy, copy, "route"]:
                 lib = libs[name]
                 r[name]["ms"].append(ms(lambda: launch(lib, packed, x_in,
                                                        sn)))
