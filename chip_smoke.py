@@ -6,8 +6,9 @@ an NVIDIA H100 and the CUDA toolkit)
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the path from spnerf_torch/csrc with nvcc, the
-     five sources in parallel, and print how many clusters of two CTAs of
-     the wide kernel fit on the card at 768 and 1024;
+     five sources in parallel, and print how many clusters of the wide
+     kernel fit on the card at once at 768 and 1024 (2 CTAs), 1536 and
+     2048 (4) and 3072 and 4096 (8);
   3. hold the fused-field kernel (B1) against its plain PyTorch version at
      the flagship width (8x512 Siren, bf16) on a ragged 131,195-point batch
      for every head subset, on n = 1, 63, 65 and 187 (three tiles, the last
@@ -236,10 +237,11 @@ Phases, each fatal on failure:
      flags without --sem: the prepared data has no semantic labels, as
      the JAX package's create_dataset writes none) for PREP_STEPS steps at
      --img_downscale 1, validated (B1 launches counted), then each B1
-     launch of the test view's first and ragged last chunk held at
-     KERNEL_ATOL on the trained field's samples (each output's distance
-     recorded beside its float32 control and its tensor-core control, the
-     plain bf16 field with TF32 on; `spnerf_torch/utils/hold_b1.py`) and
+     launch of the test view's first and ragged last chunk held on the
+     trained field's samples at KERNEL_ATOL (past it, every output within
+     WIDE_CONTROL_SHARE of its float32 control and TC_CONTROL_SHARE of its
+     tensor-core control, the plain bf16 field with TF32 on; each output's
+     distances recorded; `spnerf_torch/utils/hold_b1.py`) and
      the render against
      the plain render at RENDER_P99/RENDER_MAX, the plain float32 control
      beside it; (c) the hash family 10 steps at --img_downscale 4 on the
@@ -274,10 +276,10 @@ Phases, each fatal on failure:
      B1 launch on the wide kernel (launches counted by route, held to 3 a
      chunk of every validation view), finite losses and metrics, each
      launch of the test view's first chunk held at KERNEL_ATOL (past it,
-     sun visibility and the semantic logits within WIDE_CONTROL_SHARE of
-     their plain float32 control and within TC_CONTROL_SHARE of their
-     tensor-core control, the plain bf16 field with TF32 on, on that
-     launch; each output's distances recorded), and that chunk's render
+     every output within WIDE_CONTROL_SHARE of its plain float32 control
+     and within TC_CONTROL_SHARE of its tensor-core control, the plain
+     bf16 field with TF32 on, on that launch; each output's distances
+     recorded), and that chunk's render
      beside the plain render with TF32 off, the plain float32 render and
      the plain render with TF32 on (recorded); then phase 4's 65,536-ray
      view with a 1024-wide field in
@@ -288,7 +290,8 @@ Phases, each fatal on failure:
      render. Its numbers on one `{"wide": ...}` line;
  20. the wide kernel's soak (`spnerf_torch/utils/wide_checks.py` `soak`,
      seed 0; within ~60 s): at least SOAK_LAUNCHES_MIN launches through
-     `fused_field_wide` at 768 and 1024, bf16 and float32, all heads and
+     `fused_field_wide` at 768 and 1024 on clusters of two and at 768 on
+     clusters of 4 and 8, bf16 and float32, all heads and
      the solar pass's, on 1, 63, 64, 65, 4,223, 4,224, 4,225, 8,449,
      131,195 and 374,976 points in a shuffled order; each input's first
      launch held against the plain version (KERNEL_ATOL, F32_ATOL), every
@@ -298,6 +301,27 @@ Phases, each fatal on failure:
      kernel's wait record) and the cluster meetings reckoned from each
      launch's points (not counted by the kernel) on one `{"soak": ...}`
      line;
+ 21. the wide route past 1,024 wide and past 16 classes (`cluster_pass`):
+     (a) random fields of 1,536 and 2,048 wide (clusters of 4) and 3,072
+     and 4,096 (clusters of 8) in bf16 and float32, all heads and the
+     solar pass's, on 8,192 and 9,217 points, each launch held against the
+     plain version (KERNEL_ATOL; F32_ATOL, scaled by the width over 2,048
+     past it: `hold_b1.f32_atol`) and equal bit for bit to a
+     second one; (b) the same for 150-class fields at 1,024 in bf16 and 512
+     in float32 (clusters of two, the logits in passes of 16 columns); (c)
+     the training CLI at `--fc_units 2048` in bf16 (phase 13's flagship
+     flags at `--img_downscale 8`, 3 steps at batch 1024, halved until the
+     step fits; the batch and the peak memory recorded), its validation
+     through the wide kernel on clusters of 4 (launches counted by route,
+     3 a chunk of every view), every launch of a validation render of both
+     views held (KERNEL_ATOL; past it, every output within
+     WIDE_CONTROL_SHARE of its float32 control and TC_CONTROL_SHARE of its
+     tensor-core control), `tools render --step best` (the same launches,
+     the logged PSNR and SSIM); (d) the all-head launch at 2,048 and 4,096
+     in both dtypes on 65,536 points, timed beside its tensor-core bound,
+     the plain version, `gemm_ms`, `gemm_ms_f32` and the float32 module;
+     (e) the clusters of 2, 4 and 8 that fit the card. Its numbers on one
+     `{"cluster": ...}` line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
   phase 13's runs with their errors there, `max_abs_err_cli`; phase 14's
   under `launches_occgrid`, `launches_second_frame`, `launches_multi`,
@@ -313,7 +337,12 @@ Phases, each fatal on failure:
   in phase 19's CLI run, phase 5's times at 1024 in bf16 (the CLI run's
   launch), every time of phase 5 under `times`, phase 20's counts under
   `soak` and phase 19's held launches by output under
-  `held_cli_by_output`).
+  `held_cli_by_output`, phase 21's under `launches_cli_2048`,
+  `launches_render_best_2048`, `launches_clusters_held`,
+  `max_abs_err_clusters`, `held_cli_2048_by_output`, `cli_2048`,
+  `times_clusters` and `clusters_by_size`; the general route's
+  `launches_on_routes`, its launches on the CLI runs of phases 19 and 21:
+  0, since `route` names it for no field).
   The env of phases 10, 11 and 15 (d) is set around its use only and
   restored after.
 
@@ -1201,10 +1230,10 @@ def wide_pass(device, card, project, n_view=N_VIEW):
     """Phase 19: the training CLI at fc_units 1024 in bf16 on phase 12's
     AOI under `project` (the ray cache of phase 13's `--img_downscale 4`
     run), 10 steps and the final validation through the wide kernel, each
-    launch of the test view's first chunk held (KERNEL_ATOL; past it, an
-    output of CONTROL_OUTPUTS within WIDE_CONTROL_SHARE of its plain
-    float32 control and within TC_CONTROL_SHARE of its tensor-core
-    control), and that chunk's render beside both controls' renders; then
+    launch of the test view's first chunk held (KERNEL_ATOL; past it, every
+    output within WIDE_CONTROL_SHARE of its plain float32 control and
+    within TC_CONTROL_SHARE of its tensor-core control), and that chunk's
+    render beside both controls' renders; then
     phase 4's view with a WIDE_VIEW_UNITS-wide
     float32 field through the wide and the general kernel in turns, held
     on its first and its ragged last chunk against the plain float32
@@ -1379,6 +1408,276 @@ def soak_pass(device, card):
             or r["route_launches"] != want):
         fail(f"the wide kernel's soak: {json.dumps(r)}")
     return r
+
+
+# phase 21: B1's wide route on clusters of 4 and 8 CTAs and with semantic
+# heads of more than 16 classes. Widths of each cluster size (1,536 and
+# 2,048 on 4 CTAs, 3,072 and 4,096 on 8), their launches' points (a whole
+# number of tiles and a ragged odd count), the 150-class fields (ADE20K's
+# count: 1,024 in bf16, 512 in float32, both on clusters of two), the CLI
+# run at 2,048 (phase 13's flagship flags, 3 steps, its validation at a
+# sixty-fourth of the AOI's pixels: the views' rays are the path, the
+# training only gives the field its weights) and the timed launches'
+# points
+CLUSTER_WIDTHS = (1536, 2048, 3072, 4096)
+CLUSTER_POINTS = (8_192, 9_217)
+SEM_FIELDS = ((1024, "bfloat16"), (512, "float32"))
+SEM_CLASSES = 150
+CLUSTER_EXP = "wide2048"
+CLUSTER_ARGS = ["--fc_units", "2048", "--img_downscale", "8",
+                "--max_train_steps", "3"]
+CLUSTER_BATCHES = (1024, 512, 256)  # halved where the step does not fit
+CLUSTER_TIMED = (2048, 4096)
+N_TIME = 65_536
+
+
+def cluster_pass(device, card, project):
+    """Phase 21: the wide route on clusters of 4 and 8 CTAs and with wide
+    semantic heads. (a) every width of CLUSTER_WIDTHS in both dtypes (random
+    weights), all heads and the solar pass's, on CLUSTER_POINTS points:
+    each launch held against the plain version (KERNEL_ATOL; `f32_atol`)
+    and equal bit for bit to a second one; (b) the same for SEM_FIELDS at
+    SEM_CLASSES classes; (c) the training CLI at --fc_units 2048 in bf16 on
+    phase 12's AOI under `project`, 3 steps (the batch halved where the step
+    does not fit the card), its validation through the wide kernel on
+    clusters of 4 (launches counted by route), every launch of a
+    validation pass's render held under the bar of a trained field
+    (KERNEL_ATOL; past it, within WIDE_CONTROL_SHARE of the plain float32
+    control and TC_CONTROL_SHARE of the tensor-core control), then `tools
+    render --step best` (its launches counted, its PSNR and SSIM the
+    logged ones); (d) the all-head launch at CLUSTER_TIMED widths in both
+    dtypes on N_TIME points, timed beside its tensor-core bound, the plain
+    version, `gemm_ms`, `gemm_ms_f32` and the float32 module; (e) the
+    clusters of each size that fit the card. Returns the record it
+    prints."""
+    from spnerf_torch.cli import train as cli_train
+    from spnerf_torch.config import (build_train_parser, finalize_args,
+                                     model_config_from_args,
+                                     render_config_from_args)
+    from spnerf_torch.models import load_model
+    from spnerf_torch.ops import field_eval as fe
+    from spnerf_torch.render import build_render_fn, chunk_size, module_at
+    from spnerf_torch.tools import main as tools_main
+    from spnerf_torch.train.checkpoints import CheckpointManager
+    from spnerf_torch.utils.synth import flagship_configs
+
+    rec = {"card": card, "clusters": {}, "held": {}}
+    fmc, frc = flagship_configs()
+    for width, c in ((1024, 2), (2048, 4), (4096, 8)):
+        for dtype in ("bfloat16", "float32"):
+            rec["clusters"][f"{dtype} {width} on {c}"] = fe.wide_clusters(
+                width, dtype, c)
+    log(f"wide kernel: clusters that fit the card at once by size "
+        f"{json.dumps(rec['clusters'])} ({card})")
+    if min(rec["clusters"].values()) < 1:
+        fail(f"a cluster size of the wide kernel does not fit: "
+             f"{rec['clusters']}")
+
+    def held_twice(pk, dtype, n, heads, tag):
+        """One launch against the plain version and a second one, equal bit
+        for bit; counted on the wide route. Returns the max abs error."""
+        xyz, sun, sems = field_inputs(n, n + pk.cfg.fc_units, device,
+                                      pk.cfg.num_sem_classes)
+        args = (xyz, sun, None, sems)
+        before = fe.FusedField.route_launches["wgmma_wide"]
+        field = fe.FusedField(pk, dtype)
+        a = field(*args, heads=heads)
+        b = field(*args, heads=heads)
+        torch.cuda.synchronize()
+        if fe.FusedField.route_launches["wgmma_wide"] != before + 2:
+            fail(f"{tag}: not two launches on the wide route")
+        ref = fe.PlainField(pk, dtype)(*args, heads=heads)
+        atol = (hold_b1.f32_atol(pk.cfg.fc_units) if dtype == "float32"
+                else KERNEL_ATOL)
+        err = 0.0
+        for k in ref:
+            e = (a[k] - ref[k]).abs().max().item()
+            if not (e <= atol) or not torch.isfinite(a[k]).all():
+                fail(f"{tag} {k}: max abs err {e} > {atol}")
+            if not torch.equal(a[k], b[k]):
+                fail(f"{tag} {k}: a second launch differs")
+            err = max(err, e)
+        return err
+
+    # (a), (b) the clusters of 4 and 8, and the 150-class heads
+    cases = ([(w, dtype, fmc.num_sem_classes) for w in CLUSTER_WIDTHS
+              for dtype in ("bfloat16", "float32")]
+             + [(w, dtype, SEM_CLASSES) for w, dtype in SEM_FIELDS])
+    reset_b1()
+    for width, dtype, classes in cases:
+        cfg = replace(fmc, fc_units=width, num_sem_classes=classes)
+        pk = fe.pack_params(load_model(
+            cfg, dtype, device=device,
+            generator=torch.Generator().manual_seed(width + classes)), dtype)
+        want = 2 if width <= 1024 else 4 if width <= 2048 else 8
+        if pk.route != "wgmma_wide" or pk.cluster != want:
+            fail(f"{dtype} fc_units {width}, {classes} classes: packed for "
+                 f"{pk.route} on clusters of {pk.cluster}")
+        tag = f"{dtype} {width} {classes} classes on {pk.cluster}"
+        rec["held"][tag] = max(
+            held_twice(pk, dtype, n, heads, f"{tag}, n={n}, {h}")
+            for n in CLUSTER_POINTS
+            for h, heads in (("all", fe.ALL_HEADS), ("sun", ("sun",))))
+        del pk
+        torch.cuda.empty_cache()
+    rec["launches_held"] = fe.FusedField.route_launches["wgmma_wide"]
+    log(f"wide kernel on clusters of 4 and 8 and at {SEM_CLASSES} classes, "
+        f"{rec['launches_held']} launches, each equal bit for bit to a "
+        f"second one: max abs err {json.dumps(rec['held'])} ({card})")
+
+    # (c) the CLI at fc_units 2048, its validation and tools render
+    units = int(CLUSTER_ARGS[CLUSTER_ARGS.index("--fc_units") + 1])
+    r = rec["run"] = {"fc_units": units, "tried": []}
+    state = None
+    for batch in CLUSTER_BATCHES:
+        exp = f"{CLUSTER_EXP}_b{batch}"
+        argv = CLI_FLAGS + CLUSTER_ARGS + [
+            "--batch_size", str(batch), "--project_dir", project, "--device",
+            str(device), "--exp_name", exp]
+        args = finalize_args(build_train_parser().parse_args(argv),
+                             make_dirs=False)
+        mc, rc = model_config_from_args(args), render_config_from_args(args)
+        r["cluster"] = fe.wide_cluster(units)
+        if (mc.fc_units != units or rc.compute_dtype != "bfloat16"
+                or fe.route(mc, rc.compute_dtype) != "wgmma_wide"
+                or (units == 2048 and r["cluster"] != 4)):
+            fail(f"--fc_units {units}: compute_dtype {rc.compute_dtype}, "
+                 f"route {fe.route(mc, rc.compute_dtype)} on clusters of "
+                 f"{r['cluster']}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_b1()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            state = cli_train.main(argv)
+        except torch.cuda.OutOfMemoryError as e:
+            r["tried"].append({"batch": batch, "error": str(e)[:200]})
+            log(f"fc_units {units} at batch {batch}: out of memory")
+            state = None
+            continue
+        torch.cuda.synchronize()
+        r.update(batch=batch, s=time.perf_counter() - t0,
+                 peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                 b1=fe.FusedField.launches,
+                 b1_routes=dict(fe.FusedField.route_launches))
+        break
+    if state is None:
+        fail(f"fc_units {units}: no batch of {CLUSTER_BATCHES} fits")
+    with open(os.path.join(project, "output", exp, "logs",
+                           "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    r["loss"] = [x["loss"] for x in rows if x["split"] == "train"]
+    r["val"] = {x["split"]: {k: x[k] for k in ("psnr", "ssim", "mae")}
+                for x in rows if x["split"].startswith("val")}
+    trainer, scene, _ = cli_train.build_trainer_and_scene(args, device)
+    samples = [scene.load_val_image(v, with_sem=True)
+               for v in scene.val_images]
+    chunk = chunk_size(rc, args.chunk)
+    expect = sum(3 * -(-len(s["rays"]) // chunk) for s in samples)
+    routes = {k: 0 for k in fe.ROUTES} | {"wgmma_wide": expect}
+    r["expected_launches"] = expect
+    if (r["b1_routes"] != routes or not r["loss"]
+            or not np.isfinite(r["loss"]).all()
+            or not np.isfinite(r["val"]["val"]["psnr"])
+            or not np.isfinite(r["val"]["val"]["mae"])):
+        fail(f"the fc_units {units} run: B1 {r['b1_routes']} (expected "
+             f"{expect} wgmma_wide), losses {r['loss']}, {r['val']}")
+    # every launch of the validation views' render, each on its own inputs
+    render = build_render_fn(state.model, rc, state.t_embed, chunk=args.chunk)
+    r["held"] = hold_b1_launches(
+        lambda: [render(s["rays"], 0, s["sems"]) for s in samples],
+        f"fc_units {units} run, validation views",
+        control_share=WIDE_CONTROL_SHARE, tc_share=TC_CONTROL_SHARE)
+    if (r["held"]["routes"] != ["wgmma_wide"]
+            or r["held"]["launches_held"] != expect):
+        fail(f"fc_units {units} run, validation views: {r['held']}")
+    log(f"fc_units {units} run (clusters of {r['cluster']}): "
+        f"{args.max_train_steps} steps at "
+        f"batch {r['batch']} and validation in {r['s']:.1f} s, peak "
+        f"{r['peak_gb']:.2f} GB, B1 {json.dumps(r['b1_routes'])}, val "
+        f"{json.dumps(r['val'])}; {r['held']['launches_held']} launches "
+        f"held within {r['held']['max_abs_err']:.3g}; past KERNEL_ATOL at "
+        f"most {r['held']['max_ratio_past_atol']} of the plain float32 "
+        f"control and {r['held']['max_tc_ratio_past_atol']} of the "
+        f"tensor-core control; each output's largest distances "
+        f"{json.dumps(r['held']['by_output'])} ({card})")
+    del state, render, trainer, scene, samples
+    torch.cuda.empty_cache()
+    best = CheckpointManager(args.ckpts_dir).best_step()
+    reset_b1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tools_main(["render", "--run_dir", args.output_dir, "--step",
+                      "best", "--device", str(device), "--out_dir",
+                      os.path.join(project, "render_wide2048")])
+    torch.cuda.synchronize()
+    logged = [x for x in rows if x["split"] == "val" and x["step"] == best][-1]
+    rb = rec["render_best"] = {
+        "s": time.perf_counter() - t0, "step": out["step"],
+        "psnr": out["psnr"], "ssim": out["ssim"],
+        "logged_psnr": logged["psnr"], "logged_ssim": logged["ssim"],
+        "b1_routes": dict(fe.FusedField.route_launches)}
+    if (out["step"] != best or rb["b1_routes"] != routes
+            or not abs(out["psnr"] - logged["psnr"]) <= RENDER_PSNR_ATOL
+            or not abs(out["ssim"] - logged["ssim"]) <= RENDER_SSIM_ATOL):
+        fail(f"render --step best of the fc_units {units} run: "
+             f"{json.dumps(rb)}")
+    log(f"fc_units {units} tools render --step best: {json.dumps(rb)}")
+
+    # (d) the all-head launch at 2048 and 4096, timed beside its bound and
+    #     the yardsticks
+    times = rec["times"] = {}
+    for width in CLUSTER_TIMED:
+        cfg = replace(fmc, fc_units=width)
+        xyz, sun, sems = field_inputs(N_TIME, 3, device, cfg.num_sem_classes)
+        flops = fe.flops_per_point(cfg) * N_TIME
+        outs = sum(w for _, w in fe.active_outputs(cfg, fe.ALL_HEADS))
+        t = times[str(width)] = {"n": N_TIME,
+                                 "cluster": fe.wide_cluster(width)}
+        module = None
+        for dtype in ("bfloat16", "float32"):
+            model = load_model(cfg, dtype, device=device,
+                               generator=torch.Generator().manual_seed(0))
+            pk = fe.pack_params(model, dtype)
+            field, plain = fe.FusedField(pk, dtype), fe.PlainField(pk, dtype)
+            reps = 2 if dtype == "bfloat16" else 1
+            nbytes = (N_TIME * (fe.in_width(cfg) + 3 + outs) * 4
+                      + pk.w_all.numel() * 4 + pk.b_all.numel() * 4)
+            tensor = (flops / PEAK_BF16 if dtype == "bfloat16"
+                      else 3 * flops / PEAK_TF32)
+            d = t[dtype] = {
+                "ms": cuda_ms(lambda: field(xyz, sun, None, sems), reps),
+                "plain_ms": cuda_ms(lambda: plain(xyz, sun, None, sems), 1),
+                "bound_ms": max(tensor, nbytes / PEAK_BYTES) * 1e3,
+                "bound_by": ("operations" if tensor >= nbytes / PEAK_BYTES
+                             else "bytes")}
+            d["share_of_bound"] = d["bound_ms"] / d["ms"]
+            if dtype == "float32":
+                module = module_at(model, "float32")
+            del model, pk, field, plain
+            torch.cuda.empty_cache()
+        gemm = gemm_fn(cfg, fe.ALL_HEADS, N_TIME, device)
+        t["gemm_ms"] = cuda_ms(gemm, 2)
+        del gemm
+        gemm = gemm_fn(cfg, fe.ALL_HEADS, N_TIME, device, torch.float32)
+        t["gemm_ms_f32"] = cuda_ms(gemm, 1)
+        del gemm
+        with torch.no_grad():
+            t["module_ms"] = cuda_ms(lambda: module(xyz, sun, None, sems), 1)
+        del module
+        torch.cuda.empty_cache()
+        b16, f32 = t["bfloat16"], t["float32"]
+        log(f"field_eval wgmma_wide fc_units {width} (clusters of "
+            f"{t['cluster']}), all heads on {N_TIME} points: bf16 "
+            f"{b16['ms']:.3f} ms ({b16['share_of_bound']:.1%} of its bound "
+            f"{b16['bound_ms']:.3f}), float32 {f32['ms']:.3f} ms "
+            f"({f32['share_of_bound']:.1%} of {f32['bound_ms']:.3f}); plain "
+            f"{t['bfloat16']['plain_ms']:.3f} / {t['float32']['plain_ms']:.3f}"
+            f" ms, bf16 matmuls alone {t['gemm_ms']:.3f} ms, float32 "
+            f"{t['gemm_ms_f32']:.3f} ms, float32 module {t['module_ms']:.3f}"
+            f" ms ({card})")
+    return rec
 
 
 # phase 14's runs: the occupancy-grid flagship (the JAX package's fast
@@ -2227,7 +2526,7 @@ def mesh_pass(device, card, project, n_view=813 * 793):
 
 # ---------------------------------------------------------------- phase 16
 # the data-prep tail: a raw AOI prepared, scored, trained and validated
-PREP_STEPS = 300
+PREP_STEPS = 150  # steps of (b): a trained field, within the run's time
 DEPTH_MAE_BAR = 0.05  # m: the lidar's own surface through the splat
 UTM_ROUND_TRIP_BAR = 1e-4  # m: UTM text and back to ECEF
 # the flagship's flags as phase 13 takes them, without --sem: the prepared
@@ -2424,7 +2723,8 @@ def prep_pass(device, card, hold_hash):
             outs = []
             held = hold_b1_launches(lambda: outs.append(render(rays[sl], 0)),
                                     f"prepared flagship, {tag} chunk",
-                                    controls=True)
+                                    control_share=WIDE_CONTROL_SHARE,
+                                    tc_share=TC_CONTROL_SHARE)
             launch_errs.append(held["max_abs_err"])
             out, ref, ctl = outs[0], plain(rays[sl], 0), plain32(rays[sl], 0)
             errs = {"launches_held": held["launches_held"],
@@ -2451,7 +2751,9 @@ def prep_pass(device, card, hold_hash):
         log(f"prepared flagship: {PREP_STEPS} steps in {r['s']:.1f} s, MAE "
             f"{r['val']['val']['mae']:.4f} m, B1 launches {r['b1']}, each "
             f"held launch within {r['launch_max_abs_err']:.3g} of its plain "
-            f"version (KERNEL_ATOL {KERNEL_ATOL}) ({card})")
+            f"version (KERNEL_ATOL {KERNEL_ATOL}; past it, within "
+            f"{WIDE_CONTROL_SHARE} of its float32 control and "
+            f"{TC_CONTROL_SHARE} of its tensor-core control) ({card})")
         del state, scene, render, plain, plain32
         torch.cuda.empty_cache()
 
@@ -2554,12 +2856,20 @@ def main():
                               "field_eval_f32", "field_eval_wide", "dtab"])
     log(f"build: {time.time() - t0:.1f} s")
     for name, text in texts.items():
+        # ptxas's notes that it fenced a wgmma's registers (C7519), counted
+        injected = sum("C7519" in line for line in text.splitlines())
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line) and (
+                    "C7519" not in line):
                 log(f"  {name}: {line.strip()}")
-    clusters = {f"{dtype} {width}": fe.wide_clusters(width, dtype)
-                for width in (768, 1024) for dtype in ("bfloat16", "float32")}
-    log(f"wide kernel: clusters of two CTAs on the card at once "
+        if injected:
+            log(f"  {name}: {injected} warpgroup.arrive injected by ptxas "
+                f"(C7519)")
+    clusters = {f"{dtype} {width} on {fe.wide_cluster(width)}":
+                fe.wide_clusters(width, dtype)
+                for width in (768, 1024, 1536, 2048, 3072, 4096)
+                for dtype in ("bfloat16", "float32")}
+    log(f"wide kernel: clusters of 2, 4 and 8 CTAs on the card at once "
         f"{json.dumps(clusters)} "
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
     if min(clusters.values()) < 1:
@@ -3709,13 +4019,23 @@ def main():
         print(json.dumps({"wide": wide_run}), flush=True)
         torch.cuda.empty_cache()
 
-    log(f"-- phase 20 at {time.time() - t_start:.1f} s")
-    # 20. the wide kernel's soak: its cluster meeting over >= 20,000 launches
-    t20 = time.time()
-    soak_rec = soak_pass(device, card)
-    soak_rec["phase_s"] = time.time() - t20
-    print(json.dumps({"soak": soak_rec}), flush=True)
-    torch.cuda.empty_cache()
+        log(f"-- phase 20 at {time.time() - t_start:.1f} s")
+        # 20. the wide kernel's soak: its cluster meetings, on clusters of
+        #     2, 4 and 8, over >= 20,000 launches
+        t20 = time.time()
+        soak_rec = soak_pass(device, card)
+        soak_rec["phase_s"] = time.time() - t20
+        print(json.dumps({"soak": soak_rec}), flush=True)
+        torch.cuda.empty_cache()
+
+        log(f"-- phase 21 at {time.time() - t_start:.1f} s")
+        # 21. the wide route on clusters of 4 and 8 and with 150 classes:
+        #     launches held, the CLI at fc_units 2048, the timed launches
+        t21 = time.time()
+        cluster_rec = cluster_pass(device, card, project)
+        cluster_rec["phase_s"] = time.time() - t21
+        print(json.dumps({"cluster": cluster_rec}), flush=True)
+        torch.cuda.empty_cache()
     field_entry["launches_cli"] = cli_rec["flagship_run"]["b1"]
     occ, multi = paths_rec["occgrid"], paths_rec["multi"]
     field_entry.update(
@@ -3756,23 +4076,43 @@ def main():
         launches_view_f32_1024=view["general"]["launches"],
         view_ms_f32_1024=view["general"]["ms"])
     run19 = wide_run["run"]
+    run21 = cluster_rec["run"]
+    # the general kernel on the main paths' CLI runs (route names it for
+    # none; it runs packed for it by name only)
+    general_entry["launches_on_routes"] = (run19["b1_routes"]["general"]
+                                           + run21["b1_routes"]["general"])
+    cl_err = {d: max(v for k, v in cluster_rec["held"].items()
+                     if k.startswith(d)) for d in ("bfloat16", "float32")}
     wide_entry.update(
         launches=run19["b1_routes"]["wgmma_wide"],
         max_abs_err=max(wide_err["float32"], wide_err["bfloat16"],
                         run19["held"]["max_abs_err"], wide["launch_max_abs_err"],
-                        view["wgmma_wide"]["max_abs_err"]),
+                        view["wgmma_wide"]["max_abs_err"], *cl_err.values(),
+                        run21["held"]["max_abs_err"]),
         max_abs_err_f32=max(wide_err["float32"],
-                            view["wgmma_wide"]["max_abs_err"]),
+                            view["wgmma_wide"]["max_abs_err"],
+                            cl_err["float32"]),
         max_abs_err_bf16=max(wide_err["bfloat16"],
                              run19["held"]["max_abs_err"],
-                             wide["launch_max_abs_err"]),
+                             wide["launch_max_abs_err"], cl_err["bfloat16"],
+                             run21["held"]["max_abs_err"]),
         max_abs_err_cli=run19["held"]["max_abs_err"],
         launches_wide_bf16_768=wide["launches"],
         launches_view_f32_1024=view["wgmma_wide"]["launches"],
         view_ms_f32_1024=view["wgmma_wide"]["ms"],
         soak={k: soak_rec[k] for k in ("launches", "mismatches", "traps",
-                                       "s", "max_abs_err_first")},
-        held_cli_by_output=run19["held"]["by_output"])
+                                       "s", "max_abs_err_first", "clusters")},
+        held_cli_by_output=run19["held"]["by_output"],
+        launches_cli_2048=run21["b1_routes"]["wgmma_wide"],
+        launches_render_best_2048=cluster_rec["render_best"]["b1_routes"][
+            "wgmma_wide"],
+        launches_clusters_held=cluster_rec["launches_held"],
+        max_abs_err_clusters=cluster_rec["held"],
+        max_abs_err_cli_2048=run21["held"]["max_abs_err"],
+        held_cli_2048_by_output=run21["held"]["by_output"],
+        cli_2048={k: run21[k] for k in ("batch", "peak_gb", "s")},
+        times_clusters=cluster_rec["times"],
+        clusters_by_size=cluster_rec["clusters"])
 
     log(f"-- all phases in {time.time() - t_start:.1f} s")
 

@@ -1,14 +1,16 @@
 // Fused forward of the SP-NeRF field on Hopper (sm_90a): the wide route,
-// fields wider than one CTA holds, on wgmma through a cluster of two CTAs.
+// fields wider than one CTA holds, on wgmma through a cluster of 2, 4 or 8
+// CTAs.
 //
 // Replaces the Pallas TPU kernel `_make_kernel` / `_fused_apply` in
 // spnerf_tpu/ops/pallas/field_eval.py (its dots at field_eval.py:125-126:
 // compute-dtype operands, float32 sums) for the fields the one-CTA tensor
 // core kernels do not take: bf16 fields outside the wgmma kernel's envelope
 // (field_eval.cu: wider than 704, or 640 with a beta head; fc_units not a
-// multiple of 32; a transient code wider than 16) and float32 fields wider
-// than the wgmma_f32 kernel's 512 (field_eval_f32.cu), up to W_MAX = 1024
-// and TAIL_N = 16 semantic classes. For every point it computes the Siren
+// multiple of 32; a transient code wider than 16), float32 fields wider
+// than the wgmma_f32 kernel's 512 (field_eval_f32.cu), and fields of more
+// than 16 semantic classes that those kernels refuse, up to W_MAX = 4096
+// wide and any number of classes. For every point it computes the Siren
 // trunk sin(30 W0 x), the sine layers with the input concatenated back in
 // at the skip, then any subset of the heads (sigma, albedo, sun visibility,
 // sky, beta, semantic logits), walking the layer program of `program` in
@@ -25,39 +27,48 @@
 //   (round to nearest even) as its A fragment is loaded and the weight when
 //   packed: every use of an activation is a product operand, so this is the
 //   TPU kernel's cast at the dot.
-// The head outputs (1 to 16 columns) are float32 FFMA sums of the same
-// operands (rounded to bf16 in the bf16 policy), taken from the registers
-// of the layer before them. Bias and epilogues repeat the plain version op
-// for op (field_epilogue.cuh).
+// The head outputs (1 to 3 columns, the semantic logits any number) are
+// float32 FFMA sums of the same operands (rounded to bf16 in the bf16
+// policy), taken from the registers of the layer before them. Bias and
+// epilogues repeat the plain version op for op (field_epilogue.cuh).
 //
 // Bound. 2 FLOP a weight a point uses: 21.25 MFLOP for all heads of an
-// 8x1024 field (19.14 for the solar pass), 12.00 at 768. On the tensor cores
-// that is 8.06 ms (bf16, 989 TFLOP/s) or 48.3 ms (three TF32 products at
-// 495 TFLOP/s) for the eval render's 374,976-point all-head launch. Every
-// 64-point tile also streams every weight it uses from L2 (2 bytes a weight
-// in bf16, 8 as hi and lo in float32): 32 or 48 FLOP a byte, so L2 sits
-// close behind the tensor cores, as in the one-CTA kernels.
+// 8x1024 field (19.14 for the solar pass), 12.00 at 768, 84.44 at 2048,
+// 336.65 at 4096. On the tensor cores that is 8.06 ms (bf16, 989 TFLOP/s)
+// or 48.3 ms (three TF32 products at 495 TFLOP/s) for the eval render's
+// 374,976-point all-head launch at 1024, 32.0 / 191.9 ms at 2048 and
+// 127.6 / 765.1 ms at 4096. Every 64-point tile also streams every weight
+// it uses from L2 (2 bytes a weight in bf16, 8 as hi and lo in float32):
+// 32 or 48 FLOP a byte, so L2 sits close behind the tensor cores, as in the
+// one-CTA kernels.
 //
 // Design.
 // - Why a cluster. A 64-point tile of a 1,024-wide field holds 256 KB of
 //   float32 activations, and one layer's output is 65,536 accumulators: one
 //   CTA (227 KB of shared memory, 64K registers) holds neither, and wgmma's
-//   M of 64 does not let the tile shrink. Two CTAs on neighbouring SMs, a
-//   cluster (__cluster_dims__(2, 1, 1)), share the tile: CTA r
-//   (%cluster_ctarank) owns the output columns [r h, (r + 1) h) of every
-//   layer, h = npad / 2 (npad = ceil64(width)), and the same columns of the
-//   tile's activation buffer: 128 KB and 96 accumulators a thread at 1,024,
-//   the budget of field_eval_f32.cu at 512.
-// - A from registers, K from both CTAs. For every k step a thread loads its
-//   A fragment from the CTA that owns those K columns: its own buffer
-//   (ld.shared) or its peer's through distributed shared memory
-//   (mapa.shared::cluster + ld.shared::cluster). The next slab's fragments
-//   are loaded while the current slab's products run. Each weight's K rows
-//   are reordered within groups (`f32_k_order`, `bf16_k_order`) so that a
-//   thread's k values are adjacent columns of the buffer: one 8-byte
-//   (float32) or 16-byte (bf16) load a row. The trunk input, sun and
-//   transient code are read from device memory at the layers that use them.
-// - Each CTA streams only its half of every layer's weights through its own
+//   M of 64 does not let the tile shrink. C CTAs on SMs of one GPC, a
+//   cluster (launched with cudaLaunchAttributeClusterDimension; C a
+//   template parameter), share the tile: C is the smallest of 2, 4 and 8
+//   with ceil64(width) / C <= SHARE_MAX (512), so 2 up to 1,024 wide, 4 up
+//   to 2,048 and 8 up to 4,096; 8 is the H100's portable cluster size,
+//   which caps the route at W_MAX. Every layer's output is padded to npad =
+//   ceil(width, 32 C) columns, and CTA r (%cluster_ctarank) owns columns
+//   [r h, (r + 1) h) of it, h = npad / C, whole chunks of 64 and 32, and
+//   the same columns of the tile's activation buffer: at most 128 KB and 96
+//   accumulators a thread, the budget of field_eval_f32.cu at 512.
+// - A from registers, K from every CTA. For every k step a thread loads its
+//   A fragment from the CTA that owns those K columns (a k step of 8 or 16
+//   columns never straddles two CTAs' shares, which are multiples of 32):
+//   its own buffer (ld.shared) or a peer's through distributed shared
+//   memory (mapa.shared::cluster to that rank + ld.shared::cluster); the
+//   owner is the same for the whole warp, found from the step's first
+//   column by C - 1 compares. The next slab's fragments are loaded while
+//   the current slab's products run. Each weight's K rows are reordered
+//   within groups (`f32_k_order`, `bf16_k_order`) so that a thread's k
+//   values are adjacent columns of the buffer: one 8-byte (float32) or
+//   16-byte (bf16) load a row. The trunk input, sun and transient code are
+//   read from device memory at the layers that use them.
+// - Each CTA streams only its 1/C of every layer's weights through its own
 //   ring of 8 KB stages, one bulk copy (cp.async.bulk) a stage, filled by
 //   one producer thread that walks the program ahead across layers and
 //   tiles: a stage is one K slab (16 rows as hi | lo in float32, 64 rows in
@@ -65,79 +76,98 @@
 //   wgmma reads. Three consumer warpgroups own a layer's chunks j = wg,
 //   wg + 3, wg + 6 and run the whole K, as field_eval_f32.cu.
 // - Layer boundaries. A layer's output overwrites the buffer in place, so the
-//   two CTAs meet twice a layer: once every thread of both CTAs is done
-//   reading the old activations (before any write), and once both halves of
-//   the new ones (and the head outputs' partial sums) are written (before the
+//   C CTAs meet twice a layer: once every thread of every CTA is done
+//   reading the old activations (before any write), and once every share of
+//   the new ones (and the head outputs' partial sums) is written (before the
 //   next layer reads them). A meeting is the CTA's consumer barrier, then
-//   one thread arrives on the peer's mbarrier (release, cluster scope) and
-//   waits on its own (acquire, cluster scope), then the consumer barrier
-//   again (`meet`); the producer thread takes no part, so the ring runs on
-//   across the boundary. The kernel opens with a cluster barrier (the
-//   barriers are initialised) and the consumers close with a meeting, so
-//   that no CTA exits while its peer can still read its shared memory.
-// - Why two meeting barriers a CTA. A count-1 mbarrier completes a phase at
-//   each of the peer's arrivals, and the waiter asks for the phase of one
-//   parity. With one barrier a CTA, the peer can arrive for meeting k + 1
-//   (it needs only this CTA's arrival for k, which comes before this CTA's
-//   wait) before this CTA's waiting thread has polled for k: the phase then
-//   completes twice, the parity is back where it was, and the wait never
-//   ends. The wide kernel's checks (utils/wide_checks.py) build that form
+//   one thread arrives on each of the C - 1 peers' mbarriers (release,
+//   cluster scope) and waits on its own (acquire, cluster scope), then the
+//   consumer barrier again (`meet`); the producer thread takes no part, so
+//   the ring runs on across the boundary. The kernel opens with a cluster
+//   barrier (the barriers are initialised) and the consumers close with a
+//   meeting, so that no CTA exits while a peer can still read its shared
+//   memory.
+// - Why two meeting barriers a CTA. Each barrier expects C - 1 arrivals a
+//   phase, one from each peer, and the waiter asks for the phase of one
+//   parity. With one barrier a CTA, a peer can arrive for meeting k + 1 (it
+//   needs only the arrivals for k on its own barrier, which come before
+//   this CTA's wait) before this CTA's waiting thread has polled for k: the
+//   phase then completes twice (at C = 2), or completes on a mix of
+//   arrivals for k and k + 1 (C > 2), and the wait never ends or ends
+//   early. The wide kernel's checks (utils/wide_checks.py) build that form
 //   with a delay before the first poll, and it traps with the wait record
 //   naming the meeting barrier. With two, meeting k takes barrier k % 2 at
-//   parity k / 2 % 2; the peer's next arrival on that barrier is for
-//   meeting k + 2, which needs this CTA's arrival for k + 1, which comes
-//   after its wait for k. So each barrier completes at most one phase ahead
-//   of its waiter (tests/test_torch_wide_meeting.py enumerates every
-//   interleaving of a model of both forms).
+//   parity k / 2 % 2, and every arrival for meeting k on a barrier precedes
+//   every arrival for k + 2 on it: a peer y arrives for k + 2 only after
+//   its wait for k + 1, which needs the arrival for k + 1 of every other
+//   peer z (this CTA included), each of which follows z's arrivals for k in
+//   program order; y's own arrival for k precedes it in program order. So
+//   the barrier's phase for k completes on exactly the C - 1 arrivals for
+//   k; and its phase for k + 2 needs this CTA's arrival for k + 1, which
+//   comes after its wait for k, so each barrier completes at most one phase
+//   ahead of its waiter (tests/test_torch_wide_meeting.py enumerates every
+//   interleaving of a model of both forms at C = 2, 3 and 4).
 // - Memory order across the cluster (PTX memory model). Consumer thread j
-//   reads the peer's half of the buffer (ld.shared::cluster in `load_frag`)
-//   and, after the second meeting, both CTAs' head partials (red0, red1);
-//   the peer's consumer m overwrites them after a later meeting. The chain
-//   from j's read to m's write, for every j and m: j's read precedes j's
-//   bar.sync in program order; bar.sync synchronises j with thread 0 of its
-//   CTA (CTA scope); thread 0's fence.acq_rel.cluster and
+//   of a CTA reads the other CTAs' shares of the buffer
+//   (ld.shared::cluster in `load_frag`) and, after the second meeting,
+//   every CTA's head partials (`red`); a peer's consumer m overwrites them
+//   after a later meeting. The chain from j's read to m's write, for every
+//   j and m of any two CTAs: j's read precedes j's bar.sync in program
+//   order; bar.sync synchronises j with thread 0 of its CTA (CTA scope);
+//   thread 0's fence.acq_rel.cluster and its C - 1
 //   mbarrier.arrive.release.cluster release at cluster scope, and a release
 //   is cumulative, so it carries every operation that precedes it in
-//   causality order, j's remote read included; the peer's thread 0 acquires
-//   it (try_wait.parity.acquire.cluster, then fence.acq_rel.cluster), and
-//   its bar.sync synchronises it with m. Causality order is transitive, so
-//   j's read happens before m's write, and the read cannot see it. The same
-//   chain, writes first, orders each half's new activations and partials
-//   before every read of them after the second meeting. The partials of a
-//   head are read after the second meeting of its layer and written again
-//   only after the first meeting of a later layer. The barriers: the
-//   peer's arrival k + 2 on a barrier follows its acquire of this CTA's
-//   arrival k + 1, which follows this CTA's wait for k in program order;
-//   the cluster barrier after mbarrier.init (fence.mbarrier_init.release.
-//   cluster, barrier.cluster.arrive.release / wait.acquire) orders the
+//   causality order, j's remote read included; the peer's thread 0
+//   acquires every one of its C - 1 arrivals (try_wait.parity.acquire.
+//   cluster completes after the last of them, then fence.acq_rel.cluster),
+//   and its bar.sync synchronises it with m. Causality order is transitive,
+//   so j's read happens before m's write, and the read cannot see it. The
+//   same chain, writes first, orders each share's new activations and
+//   partials before every read of them after the second meeting. The
+//   partials of a head pass are read after the meeting that follows their
+//   writes and written again only after a later meeting. The barriers: as
+//   above, an arrival for k + 2 follows the acquire of every arrival for
+//   k + 1, which follows the arrivals for k in program order; the cluster
+//   barrier after mbarrier.init (fence.mbarrier_init.release.cluster,
+//   barrier.cluster.arrive.release / wait.acquire) orders the
 //   initialisation before any remote arrival. Besides, every remote load's
 //   value is consumed (by a wgmma or a sum) before the thread reaches the
 //   meeting's first bar.sync.
 // - A timed wait. Every mbarrier wait that has polled for half of
 //   WIDE_TRAP_CYCLES (~10 s) is taken for a deadlock: it writes which wait
 //   it was (the meeting barrier, or the ring's full or empty barrier; its
-//   CTA rank, cluster, thread, meeting or stage index, parity and ring
-//   position) to a record in host memory that a process can read after the
-//   trap (`spnerf_field_eval_wide_wait_record`; without one nothing is
+//   CTA rank out of the cluster's C, cluster, thread, meeting or stage
+//   index, parity and ring position) to a record in host memory that a
+//   process can read after the trap
+//   (`spnerf_field_eval_wide_wait_record`; without one nothing is
 //   written), and traps once WIDE_TRAP_CYCLES (~20 s) have passed since it
 //   began, so that the launch fails instead of holding the card and every
 //   wait stuck with it has noted itself first (`stuck`). That code never
 //   returns to the polling loop, so the loop's registers are the parent
 //   form's (a record that returned to the loop cost the bf16 kernel spills
 //   and 7-9% of its time).
-// - Head outputs (<= 16 columns). Each CTA sums its K half from the
-//   registers of the layer before: each thread's columns by FFMA, the four
-//   lanes of a row by shuffles, the three warpgroups into shared memory;
-//   after the second meeting CTA r writes rows [32 r, 32 r + 32) of the
-//   tile, each the six partials added in a fixed order (rank 0's warpgroups
-//   0, 1, 2, then rank 1's), so the result repeats. A layer that feeds only
-//   a head output stays in registers.
+// - Head outputs. Each CTA sums its K share from the registers of the
+//   layer before: each thread's columns by FFMA, the four lanes of a row by
+//   shuffles, the three warpgroups into shared memory; after the next
+//   meeting CTA r writes rows [r 64 / C, (r + 1) 64 / C) of the tile, each
+//   the 3 C partials added in a fixed order (rank 0's warpgroups 0, 1, 2,
+//   then rank 1's, ...), so the result repeats. An output of more than
+//   TAIL_N columns (the semantic logits of more than 16 classes) takes
+//   ceil(n / TAIL_N) such passes of TAIL_N columns over the same registers,
+//   with a meeting between two passes (every CTA is done reading the
+//   partials before they are overwritten): the layer before keeps its
+//   output in registers, so the activation buffer, which still holds the
+//   trunk's output that feats reads next, is not needed, and the partials
+//   stay at 12 KB a CTA. The alternative, the logits as one more chunked
+//   wgmma layer, would need the hidden layer's output in a second buffer
+//   (64 KB a CTA at 4,096 wide, which the ring could not give up). A layer
+//   that feeds only a head output stays in registers.
 // - A persistent grid of clusters, as many as fit on the card at once
-//   (cudaOccupancyMaxActiveClusters), each one 64-point tile at a time.
-//   512 threads a CTA: three consumer warpgroups at CONSUMER_REGS registers
-//   and a producer warpgroup at PRODUCER_REGS (setmaxnreg within the CTA's
-//   launch allocation of 512 x 128; a copy that moved 8 registers to the
-//   producer spilled more and ran slower).
+//   (cudaOccupancyMaxActiveClusters for clusters of C), each one 64-point
+//   tile at a time. 512 threads a CTA: three consumer warpgroups at
+//   CONSUMER_REGS registers and a producer warpgroup at PRODUCER_REGS
+//   (setmaxnreg within the CTA's launch allocation of 512 x 128; a copy
+//   that moved 8 registers to the producer spilled more and ran slower).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -157,8 +187,8 @@
 #define CONSUMER_REGS 160
 static_assert(128 * PRODUCER_REGS + CONSUMER_REGS * 384 <= 65536,
               "setmaxnreg stays within the launch allocation");
-// WIDE_LOCAL_A 1 reads every A fragment from the CTA's own half of the
-// buffer: a wrong answer, only a floor for what the peer's half costs,
+// WIDE_LOCAL_A 1 reads every A fragment from the CTA's own share of the
+// buffer: a wrong answer, only a floor for what the peers' shares cost,
 // built by utils/time_wide_variants.py alone; the route builds it 0
 #ifndef WIDE_LOCAL_A
 #define WIDE_LOCAL_A 0
@@ -181,7 +211,7 @@ static_assert(128 * PRODUCER_REGS + CONSUMER_REGS * 384 <= 65536,
 // a kind (WAIT_MEET, WAIT_FULL, WAIT_EMPTY); mirrored in utils/wide_checks.py
 #define REC_KINDS 3
 #define REC_SLOTS 16
-#define REC_INTS 8
+#define REC_INTS 9
 #define WAIT_MEET 0
 #define WAIT_FULL 1
 #define WAIT_EMPTY 2
@@ -189,10 +219,11 @@ static_assert(128 * PRODUCER_REGS + CONSUMER_REGS * 384 <= 65536,
 #define STAGE_BYTES (NCH * 128)    // 64 rows of 128 bytes
 #define MAX_STAGES 12
 #define CPW 3                      // chunks a warpgroup owns at most
-#define W_MAX 1024                 // the widest field it takes
-#define HALF_MAX (W_MAX / 2)       // columns a CTA owns at most
-static_assert(HALF_MAX <= CPW * WGS * NCH, "a CTA's chunks fit");
-#define TAIL_N 16                  // a head output's padded width
+#define SHARE_MAX 512              // columns a CTA owns at most
+static_assert(SHARE_MAX <= CPW * WGS * NCH, "a CTA's chunks fit");
+#define C_MAX 8                    // the H100's portable cluster size
+#define W_MAX (SHARE_MAX * C_MAX)  // the widest field it takes
+#define TAIL_N 16                  // the columns of one head output pass
 #define RED_FLOATS (WGS * BM * TAIL_N)
 #define SMEM_LIMIT 232448
 #define MAX_OPS 32
@@ -201,22 +232,24 @@ static_assert(HALF_MAX <= CPW * WGS * NCH, "a CTA's chunks fit");
 // One dense layer of the program (`_program_f32` in ops/field_eval.py), in
 // the order the kernel runs them. A layer with out >= 0 is a head output: it
 // runs on the registers of the layer before it; w_off: the byte offset of
-// its float32 (k1, TAIL_N) row-major weight, k1 the padded width of the
-// layer before; npad TAIL_N. Otherwise: npad = ceil64(width), each CTA h =
-// npad / 2 columns; w_off: the byte offset of its weight stages, CTA r's at
-// w_off + r * ns * h * 128 (ns = (k1 + k2) / KS slabs), stage (s, j) of a
-// CTA at + (s * h + 64 j) * 128; k1, k2: the input segments' padded depths
-// (k2 = 0 for one segment; the buffer's is the writing layer's npad, split
-// between the CTAs as its output was, an input's a multiple of KS); a1, a2:
-// the segments' sources (SRC_BUF0 or an input); dst: SRC_BUF0 to overwrite
-// the buffer, -1 to keep the output in registers. b_off: float offset of
-// the bias (zero-padded to npad); nreal: the real output width; epi: EPI_*.
+// its float32 (k1, npad) row-major weight, k1 the padded width of the layer
+// before (CTA r's rows [r k1 / C, (r + 1) k1 / C)), npad = ceil16(nreal)
+// (TAIL_N up to 16 columns). Otherwise: npad = ceil(width, 32 C), each CTA
+// h = npad / C columns; w_off: the byte offset of its weight stages, CTA
+// r's at w_off + r * ns * h * 128 (ns = (k1 + k2) / KS slabs), stage (s, j)
+// of a CTA at + (s * h + 64 j) * 128; k1, k2: the input segments' padded
+// depths (k2 = 0 for one segment; the buffer's is the writing layer's npad,
+// split between the CTAs as its output was, an input's a multiple of KS);
+// a1, a2: the segments' sources (SRC_BUF0 or an input); dst: SRC_BUF0 to
+// overwrite the buffer, -1 to keep the output in registers. b_off: float
+// offset of the bias (zero-padded to npad); nreal: the real output width;
+// epi: EPI_*.
 struct Op {
   int w_off, b_off, k1, k2, npad, nreal, a1, a2, dst, epi, out;
 };
 
 struct WideDesc {
-  int n_ops, n_points, stages, half, k0, tdim;
+  int n_ops, n_points, stages, share, k0, tdim;
   const float* xin;  // (n_points, k0)
   const float* sun;  // (n_points, 3)
   const float* tin;  // (n_points, tdim) or null
@@ -249,8 +282,7 @@ __device__ __forceinline__ uint32_t cluster_count() {
 // the shared::cluster address of shared::cta address `addr` in CTA `rank`
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(addr), "r"(rank));
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
 }
 
@@ -276,7 +308,7 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
   return v;
 }
 
-// every thread of both CTAs, once: the barriers each initialised are seen
+// every thread of every CTA, once: the barriers each initialised are seen
 __device__ __forceinline__ void cluster_sync_all() {
   asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
@@ -290,8 +322,9 @@ __device__ int g_wait_slots[REC_KINDS];
 
 // A wait past half of WIDE_TRAP_CYCLES is taken for a deadlock. It notes
 // itself in the wait record (which barrier, the CTA's rank and cluster, the
-// thread, the meeting or stage index, the parity it waits for and the ring
-// position `it`, -1 at a meeting), holds still until WIDE_TRAP_CYCLES have
+// thread, the meeting or stage index, the parity it waits for, the ring
+// position `it`, -1 at a meeting, and the cluster's CTAs, so that the rank
+// reads as one out of C), holds still until WIDE_TRAP_CYCLES have
 // passed since it began, so that every other wait stuck with it notes
 // itself too, and traps. It never returns, so nothing of its caller is
 // live across it: the polling loop keeps the registers it had.
@@ -303,9 +336,10 @@ __device__ __forceinline__ void stuck(int kind, int index, uint32_t parity,
     volatile int* count = rec + kind;
     *count = slot + 1;
     if (slot < REC_SLOTS) {
-      uint32_t rank, cluster;
+      uint32_t rank, cluster, ctas;
       asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
       asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(cluster));
+      asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(ctas));
       volatile int* q =
           rec + REC_KINDS + (kind * REC_SLOTS + slot) * REC_INTS;
       q[0] = kind;
@@ -315,7 +349,8 @@ __device__ __forceinline__ void stuck(int kind, int index, uint32_t parity,
       q[4] = index;
       q[5] = (int)parity;
       q[6] = it;
-      q[7] = 1;  // written last: the record is whole
+      q[7] = (int)ctas;
+      q[8] = 1;  // written last: the record is whole
     }
     __threadfence_system();
   }
@@ -324,7 +359,7 @@ __device__ __forceinline__ void stuck(int kind, int index, uint32_t parity,
 }
 
 // Waits for the phase of parity `parity` of `bar` to complete: at cluster
-// scope (a barrier the peer CTA arrives on) or at the CTA's; past half of
+// scope (a barrier the peer CTAs arrive on) or at the CTA's; past half of
 // WIDE_TRAP_CYCLES, `stuck`.
 template <bool CLUSTER>
 __device__ __forceinline__ void wait_timed(uint32_t bar, uint32_t parity,
@@ -360,14 +395,17 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// The consumers of both CTAs meet: every consumer thread's shared-memory
-// reads and writes before it (its own CTA's and the peer's) happen before
-// every consumer thread's after it. `peer_bar` is the peer's pair of
-// barriers as a shared::cluster address, `own_bar` this CTA's; `k` counts
-// meetings. Meeting k uses barrier k % 2 of the pair, at parity k / 2 % 2
-// (see "Why two meeting barriers a CTA" above).
-__device__ __forceinline__ void meet(uint32_t own_bar, uint32_t peer_bar,
-                                     uint32_t rank, uint32_t& k) {
+// The consumers of the cluster's C CTAs meet: every consumer thread's
+// shared-memory reads and writes before it (its own CTA's and the peers')
+// happen before every consumer thread's after it. `own_bar` is this CTA's
+// pair of meeting barriers (each expecting C - 1 arrivals a phase), which
+// the peers' pairs mirror; `k` counts meetings. Meeting k uses barrier
+// k % 2 of the pair, at parity k / 2 % 2 (see "Why two meeting barriers a
+// CTA" above); thread 0 arrives on that barrier of every peer, ranks
+// rank + 1, ..., rank + C - 1 (mod C) in turn, then waits on its own.
+template <int C>
+__device__ __forceinline__ void meet(uint32_t own_bar, uint32_t rank,
+                                     uint32_t& k) {
   named_sync(CONSUMERS);
   if (threadIdx.x == 0) {
 #if WIDE_ONE_BARRIER
@@ -376,9 +414,13 @@ __device__ __forceinline__ void meet(uint32_t own_bar, uint32_t peer_bar,
     const uint32_t off = 8 * (k & 1), parity = (k >> 1) & 1;
 #endif
     asm volatile("fence.acq_rel.cluster;" ::: "memory");
-    asm volatile(
-        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
-        :: "r"(peer_bar + off) : "memory");
+#pragma unroll
+    for (int j = 1; j < C; ++j) {
+      const uint32_t peer_bar = map_rank(own_bar + off, (rank + j) % C);
+      asm volatile(
+          "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+          :: "r"(peer_bar) : "memory");
+    }
 #if WIDE_MEET_DELAY_NS > 0
     if (rank == 0) {
       const unsigned long long t0 = global_ns();
@@ -491,11 +533,13 @@ struct Policy {
 };
 
 // Where the A fragments of a k step come from: the tile's buffer (a
-// shared::cta pointer to this CTA's half and a shared::cluster address of
-// the peer's, which owns the other half) or an input in device memory.
+// shared::cta pointer to this CTA's share and its shared::cta address,
+// which mapa turns into any peer's share of the same columns; at C = 2 the
+// one peer's, mapped once) or an input in device memory.
 struct Src {
-  const float* act;   // this CTA's half of the buffer
-  uint32_t peer_act;  // the peer's half, a shared::cluster address
+  const float* act;   // this CTA's share of the buffer
+  uint32_t act_u32;   // its shared::cta address
+  uint32_t peer_act;  // at C = 2, the peer's share (shared::cluster)
   uint32_t rank;
 };
 
@@ -507,27 +551,33 @@ struct Src {
 // floats; bf16 (k16: a0 row r k 2 t0, 2 t0 + 1; a1 row r + 8; a2 row r k
 // 2 t0 + 8, 2 t0 + 9; a3 row r + 8; `bf16_k_order` puts these at columns
 // 4 t0 .. 4 t0 + 3) as bf16 pairs. Rows past n_points and columns past an
-// input's width are zero. `half_in` is the columns of the buffer segment
-// each CTA owns.
-template <bool BF16>
+// input's width are zero. `share_in` is the columns of the buffer segment
+// each CTA owns, a multiple of 32: the step's columns [kb, kb + KSTEP) lie
+// in the share of one CTA, the owner, the same for every lane.
+template <bool BF16, int C>
 __device__ __forceinline__ void load_frag(const WideDesc& d, const Src& s,
-                                          int src, int kb, int half_in,
+                                          int src, int kb, int share_in,
                                           int r, int row0,
                                           uint32_t (&a)[4]) {
   const int t0 = threadIdx.x & 3;
-  const int c = kb + (BF16 ? 4 : 2) * t0;
   if (src == SRC_BUF0) {
-    const int owner = c >= half_in;
-    const int lc = (c - owner * half_in) ^ ((r & 3) << 3);
-    const int o0 = r * d.half + lc, o1 = (r + 8) * d.half + lc;
+    int owner = 0;
+#pragma unroll
+    for (int q = 1; q < C; ++q) owner += kb >= q * share_in;
+    const int c = kb - owner * share_in + (BF16 ? 4 : 2) * t0;
+    const int lc = c ^ ((r & 3) << 3);
+    const int o0 = r * d.share + lc, o1 = (r + 8) * d.share + lc;
+    const bool own = WIDE_LOCAL_A || owner == (int)s.rank;
+    const uint32_t peer =
+        C == 2 ? s.peer_act : own ? 0u : map_rank(s.act_u32, owner);
     if (BF16) {
       float4 v0, v1;
-      if (WIDE_LOCAL_A || owner == (int)s.rank) {
+      if (own) {
         v0 = *reinterpret_cast<const float4*>(s.act + o0);
         v1 = *reinterpret_cast<const float4*>(s.act + o1);
       } else {
-        v0 = ld_cluster4(s.peer_act + 4 * o0);
-        v1 = ld_cluster4(s.peer_act + 4 * o1);
+        v0 = ld_cluster4(peer + 4 * o0);
+        v1 = ld_cluster4(peer + 4 * o1);
       }
       a[0] = pack_bf16(v0.x, v0.y);
       a[1] = pack_bf16(v1.x, v1.y);
@@ -535,12 +585,12 @@ __device__ __forceinline__ void load_frag(const WideDesc& d, const Src& s,
       a[3] = pack_bf16(v1.z, v1.w);
     } else {
       float2 v0, v1;
-      if (WIDE_LOCAL_A || owner == (int)s.rank) {
+      if (own) {
         v0 = *reinterpret_cast<const float2*>(s.act + o0);
         v1 = *reinterpret_cast<const float2*>(s.act + o1);
       } else {
-        v0 = ld_cluster2(s.peer_act + 4 * o0);
-        v1 = ld_cluster2(s.peer_act + 4 * o1);
+        v0 = ld_cluster2(peer + 4 * o0);
+        v1 = ld_cluster2(peer + 4 * o1);
       }
       a[0] = __float_as_uint(v0.x);
       a[1] = __float_as_uint(v1.x);
@@ -549,6 +599,7 @@ __device__ __forceinline__ void load_frag(const WideDesc& d, const Src& s,
     }
     return;
   }
+  const int c = kb + (BF16 ? 4 : 2) * t0;
   const float* g = src == SRC_X ? d.xin : src == SRC_SUN ? d.sun : d.tin;
   const int w = src == SRC_X ? d.k0 : src == SRC_SUN ? 3 : d.tdim;
   constexpr int NV = BF16 ? 4 : 2;
@@ -645,8 +696,8 @@ __device__ __forceinline__ void apply_rt(int epi, float (&acc)[CPW][32],
   }
 }
 
-template <bool BF16>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+template <bool BF16, int C>
+__global__ void __launch_bounds__(THREADS, 1)
 field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
   using P = Policy<BF16>;
   extern __shared__ uint8_t smem_raw[];
@@ -654,7 +705,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   const uint32_t ring = smem_u32(smem);
   float* act = reinterpret_cast<float*>(smem + d.stages * STAGE_BYTES);
-  float* red = act + BM * d.half;
+  float* red = act + BM * d.share;
   const uint32_t full = smem_u32(red + RED_FLOATS);
   const uint32_t empty = full + 8 * d.stages;
   const uint32_t xbar = empty + 8 * d.stages;
@@ -666,8 +717,8 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 4 * WGS);  // every consumer warp
     }
-    mbar_init(xbar, 1);      // the peer's thread 0, at even meetings
-    mbar_init(xbar + 8, 1);  // and at odd ones
+    mbar_init(xbar, C - 1);      // every peer's thread 0, at even meetings
+    mbar_init(xbar + 8, C - 1);  // and at odd ones
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cluster_sync_all();
@@ -677,7 +728,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == WGS) {
     // producer: one thread walks the program and fills the ring with this
-    // CTA's half of every layer
+    // CTA's share of every layer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS) {
       int it = 0;
@@ -686,7 +737,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
           const Op& o = d.op[i];
           if (o.out >= 0) continue;
           const int ns = (o.k1 + o.k2) / P::KS;
-          const int h = o.npad / 2;
+          const int h = o.npad / C;
           const uint8_t* base =
               d.w + o.w_off + (size_t)rank * ns * h * 128;
           for (int s = 0; s < ns; ++s) {
@@ -709,12 +760,10 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(CONSUMER_REGS));
 
-  const uint32_t peer = rank ^ 1;
-  const uint32_t peer_xbar = map_rank(xbar, peer);
-  const Src src_of{act, map_rank(smem_u32(act), peer), rank};
-  // the head outputs' partial sums of rank 0 and rank 1
-  const uint32_t red0 = map_rank(smem_u32(red), 0);
-  const uint32_t red1 = map_rank(smem_u32(red), 1);
+  const uint32_t act_u32 = smem_u32(act);
+  const Src src_of{act, act_u32, map_rank(act_u32, rank ^ 1), rank};
+  // the head outputs' partial sums, each rank's at this shared::cta address
+  const uint32_t red_u32 = smem_u32(red);
   const int lane = threadIdx.x & 31;
   const int t0 = lane & 3;
   const int r = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
@@ -725,7 +774,7 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
     const int row0 = t * BM;
     for (int i = 0; i < d.n_ops; ++i) {
       const Op& o = d.op[i];
-      const int h = o.npad / 2;  // this CTA's columns of the layer
+      const int h = o.npad / C;  // this CTA's columns of the layer
       const int nch = (h + NCH - 1) / NCH;
       const int ns = (o.k1 + o.k2) / P::KS;
       int nc[CPW];
@@ -751,8 +800,9 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
         for (int kk = 0; kk < P::STEPS; ++kk) {
           const int kc = s * P::KS + kk * P::KSTEP;
           const bool seg2 = kc >= o.k1;
-          load_frag<BF16>(d, src_of, seg2 ? o.a2 : o.a1,
-                          seg2 ? kc - o.k1 : kc, o.k1 / 2, r, row0, f[kk]);
+          load_frag<BF16, C>(d, src_of, seg2 ? o.a2 : o.a1,
+                             seg2 ? kc - o.k1 : kc, o.k1 / C, r, row0,
+                             f[kk]);
         }
       };
       if (nc[0]) load_slab(0, a);
@@ -817,9 +867,9 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
       for (int c = 0; c < CPW; ++c) fence_operands(acc[c]);
 
       apply_rt(o.epi, acc, d.b + o.b_off + rank * h, wg, nc, t0);
-      // every thread of both CTAs is done reading the buffer halves and
+      // every thread of every CTA is done reading the buffer's shares and
       // the last head output's partial sums
-      meet(xbar, peer_xbar, rank, meetings);
+      meet<C>(xbar, rank, meetings);
       if (o.dst == SRC_BUF0) {
 #pragma unroll
         for (int c = 0; c < CPW; ++c) {
@@ -828,101 +878,140 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
           for (int k = 0; k < NCH / 8; ++k) {
             if (8 * k < nc[c]) {
               const int col = (cb + 8 * k) ^ sw;
-              *reinterpret_cast<float2*>(act + r * d.half + col) =
+              *reinterpret_cast<float2*>(act + r * d.share + col) =
                   make_float2(acc[c][4 * k], acc[c][4 * k + 1]);
-              *reinterpret_cast<float2*>(act + (r + 8) * d.half + col) =
+              *reinterpret_cast<float2*>(act + (r + 8) * d.share + col) =
                   make_float2(acc[c][4 * k + 2], acc[c][4 * k + 3]);
             }
           }
         }
       }
+      // a head output after this layer: its passes of TAIL_N columns
       const bool tail = i + 1 < d.n_ops && d.op[i + 1].out >= 0;
-      if (tail) {
-        // the head output's partial sums over this warpgroup's columns
-        const Op& hd = d.op[i + 1];
-        const float* tw = reinterpret_cast<const float*>(d.w + hd.w_off)
-                          + (size_t)rank * h * TAIL_N;
-        for (int q = 0; q < hd.nreal; ++q) {
-          float p0 = 0.0f, p1 = 0.0f;
+      const Op& hd = d.op[tail ? i + 1 : i];
+      const int passes = tail ? (hd.nreal + TAIL_N - 1) / TAIL_N : 1;
+      for (int pass = 0; pass < passes; ++pass) {
+        const int q0 = pass * TAIL_N;
+        const int nq = tail ? min(TAIL_N, hd.nreal - q0) : 0;
+        // every CTA is done reading the last pass's partial sums
+        if (pass > 0) meet<C>(xbar, rank, meetings);
+        if (tail) {
+          // the pass's partial sums over this warpgroup's columns; CTA r's
+          // rows of the (k1, npad) weight start at row r h
+          const float* tw = reinterpret_cast<const float*>(d.w + hd.w_off)
+                            + (size_t)rank * h * hd.npad + q0;
+          for (int q = 0; q < nq; ++q) {
+            float p0 = 0.0f, p1 = 0.0f;
 #pragma unroll
-          for (int c = 0; c < CPW; ++c) {
-            const int cb = (wg + WGS * c) * NCH + 2 * t0;
+            for (int c = 0; c < CPW; ++c) {
+              const int cb = (wg + WGS * c) * NCH + 2 * t0;
 #pragma unroll
-            for (int k = 0; k < NCH / 8; ++k) {
-              if (8 * k < nc[c]) {
+              for (int k = 0; k < NCH / 8; ++k) {
+                if (8 * k < nc[c]) {
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const float wv = __ldg(tw + (cb + 8 * k + e) * TAIL_N + q);
-                  float x0 = acc[c][4 * k + e], x1 = acc[c][4 * k + 2 + e];
-                  if (BF16) {
-                    x0 = round_bf16(x0);
-                    x1 = round_bf16(x1);
+                  for (int e = 0; e < 2; ++e) {
+                    const float wv =
+                        __ldg(tw + (size_t)(cb + 8 * k + e) * hd.npad + q);
+                    float x0 = acc[c][4 * k + e], x1 = acc[c][4 * k + 2 + e];
+                    if (BF16) {
+                      x0 = round_bf16(x0);
+                      x1 = round_bf16(x1);
+                    }
+                    p0 = fmaf(x0, wv, p0);
+                    p1 = fmaf(x1, wv, p1);
                   }
-                  p0 = fmaf(x0, wv, p0);
-                  p1 = fmaf(x1, wv, p1);
                 }
               }
             }
-          }
-          p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 1));
-          p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 1));
-          p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 2));
-          p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 2));
-          if (t0 == 0) {
-            red[(wg * BM + r) * TAIL_N + q] = p0;
-            red[(wg * BM + r + 8) * TAIL_N + q] = p1;
+            p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 1));
+            p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 1));
+            p0 = __fadd_rn(p0, __shfl_xor_sync(0xffffffffu, p0, 2));
+            p1 = __fadd_rn(p1, __shfl_xor_sync(0xffffffffu, p1, 2));
+            if (t0 == 0) {
+              red[(wg * BM + r) * TAIL_N + q] = p0;
+              red[(wg * BM + r + 8) * TAIL_N + q] = p1;
+            }
           }
         }
-      }
-      // both halves of the buffer and both CTAs' partial sums are written
-      meet(xbar, peer_xbar, rank, meetings);
-      if (tail) {
-        // rows [32 rank, 32 rank + 32) of the tile, the partials of rank 0
-        // then rank 1, each CTA's warpgroups in order
-        const Op& hd = d.op[++i];
-        float* out = d.out[hd.out];
-        const int half_rows = BM / 2;
-        for (int idx = threadIdx.x; idx < half_rows * hd.nreal;
-             idx += CONSUMERS) {
-          const int row = rank * half_rows + idx / hd.nreal;
-          const int q = idx % hd.nreal;
-          float v = 0.0f;
+        // every share of the buffer and every CTA's partial sums are
+        // written
+        meet<C>(xbar, rank, meetings);
+        if (tail) {
+          // rows [rank rows, (rank + 1) rows) of the tile, the partials of
+          // rank 0, 1, ..., C - 1, each CTA's warpgroups in order
+          float* out = d.out[hd.out];
+          constexpr int rows = BM / C;
+          for (int idx = threadIdx.x; idx < rows * nq; idx += CONSUMERS) {
+            const int row = rank * rows + idx / nq;
+            const int q = idx % nq;
+            float v = 0.0f;
 #pragma unroll
-          for (int g = 0; g < 2 * WGS; ++g) {
-            const uint32_t off =
-                4 * (((g % WGS) * BM + row) * TAIL_N + q);
-            const float p = ld_cluster((g < WGS ? red0 : red1) + off);
-            v = g ? __fadd_rn(v, p) : p;
+            for (int g = 0; g < C * WGS; ++g) {
+              const uint32_t off =
+                  4 * (((g % WGS) * BM + row) * TAIL_N + q);
+              const float p = ld_cluster(map_rank(red_u32, g / WGS) + off);
+              v = g ? __fadd_rn(v, p) : p;
+            }
+            v = activate_rt(hd.epi, __fadd_rn(v, d.b[hd.b_off + q0 + q]));
+            if (row0 + row < d.n_points)
+              out[(size_t)(row0 + row) * hd.nreal + q0 + q] = v;
           }
-          v = activate_rt(hd.epi, __fadd_rn(v, d.b[hd.b_off + q]));
-          if (row0 + row < d.n_points)
-            out[(size_t)(row0 + row) * hd.nreal + q] = v;
         }
       }
+      if (tail) ++i;
     }
   }
-  // no CTA leaves while its peer may still read its shared memory
-  meet(xbar, peer_xbar, rank, meetings);
+  // no CTA leaves while a peer may still read its shared memory
+  meet<C>(xbar, rank, meetings);
 }
 
 // ------------------------------------------------------------------- host
 
-static int ceil64(int x) { return (x + 63) / 64 * 64; }
+static int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
 
-// the buffer columns a CTA owns at `width`
-static int half_cols(int width) { return ceil64(width) / 2; }
+// The cluster's CTAs at `width`: the smallest of 2, 4 and 8 with
+// ceil64(width) / C <= SHARE_MAX; 0 outside 2 .. W_MAX.
+static int cluster_of(int width) {
+  if (width < 2 || width > W_MAX) return 0;
+  for (int c = 2; c <= C_MAX; c *= 2)
+    if (ceil_to(width, 64) <= SHARE_MAX * c) return c;
+  return 0;
+}
+
+// The buffer columns a CTA of a cluster of `c` owns at `width`: the
+// width padded to 32 c, over c.
+static int share_cols(int width, int c) {
+  return ceil_to(width, 32 * c) / c;
+}
 
 // Dynamic shared memory of a launch: 1 KB of slack for the 1,024-byte
 // alignment of the stages, the ring with its barriers, the two meeting
-// barriers (16 bytes), the CTA's half of the activation buffer (64 x ceil64(width) /
-// 2 floats) and the head outputs' partial sums.
-static int smem_bytes(int width, int stages) {
-  return 1024 + stages * (STAGE_BYTES + 16) + 16 + BM * half_cols(width) * 4
-         + RED_FLOATS * 4;
+// barriers (16 bytes), the CTA's share of the activation buffer (64 x
+// ceil(width, 32 C) / C floats) and the head outputs' partial sums.
+static int smem_bytes(int width, int stages, int c) {
+  return 1024 + stages * (STAGE_BYTES + 16) + 16
+         + BM * share_cols(width, c) * 4 + RED_FLOATS * 4;
+}
+
+static bool cluster_ok(int c) { return c == 2 || c == 4 || c == 8; }
+
+// The weight ring's depth of a launch at `width` on clusters of `c`:
+// MAX_STAGES, or as many stages as fit in shared memory beside the buffer
+// share; 0 where fewer than a CTA's chunks of a layer fit, the field is
+// outside 2 .. W_MAX, c is not 2, 4 or 8, or a CTA's share would exceed
+// SHARE_MAX: a launch the route does not take.
+static int stages_of(int width, int c) {
+  if (width < 2 || width > W_MAX || !cluster_ok(c)
+      || share_cols(width, c) > SHARE_MAX)
+    return 0;
+  const int least = (share_cols(width, c) + NCH - 1) / NCH;
+  for (int s = MAX_STAGES; s >= 2 && s >= least; --s)
+    if (smem_bytes(width, s, c) <= SMEM_LIMIT) return s;
+  return 0;
 }
 
 // whether the program rows fit the launch's buffer, ring and inputs
-template <bool BF16>
+template <bool BF16, int C>
 static bool ops_ok(const WideDesc& d) {
   const int ks = Policy<BF16>::KS;
   for (int i = 0; i < d.n_ops; ++i) {
@@ -932,7 +1021,8 @@ static bool ops_ok(const WideDesc& d) {
       return false;
     if (o.out >= 0) {
       if (i == 0 || d.op[i - 1].out >= 0 || o.out > 5 || !d.out[o.out]
-          || o.npad != TAIL_N || o.k1 != d.op[i - 1].npad || o.w_off % 16)
+          || o.npad != ceil_to(o.nreal, TAIL_N)
+          || o.k1 != d.op[i - 1].npad || o.w_off % 16)
         return false;
       continue;
     }
@@ -942,86 +1032,134 @@ static bool ops_ok(const WideDesc& d) {
       if (g == 1 && depth[g] == 0) continue;
       const int s = srcs[g];
       if (depth[g] <= 0 || depth[g] % ks) return false;
-      if (s == SRC_BUF0 ? g == 1 || depth[g] % 64 || depth[g] / 2 > d.half
+      if (s == SRC_BUF0 ? g == 1 || depth[g] % (32 * C)
+                              || depth[g] / C > d.share
           : s == SRC_X ? d.k0 < 1
           : s == SRC_SUN ? false
           : s == SRC_T ? d.tdim < 1 || !d.tin : true)
         return false;
     }
-    if (o.npad <= 0 || o.npad % 64 || o.npad / 2 > d.half
-        || (o.npad / 2 + NCH - 1) / NCH > d.stages || o.w_off % 16
+    if (o.npad <= 0 || o.npad % (32 * C) || o.npad / C > d.share
+        || (o.npad / C + NCH - 1) / NCH > d.stages || o.w_off % 16
         || (o.dst != SRC_BUF0 && o.dst != -1))
       return false;
   }
   return d.n_ops > 0 && d.op[0].out < 0;
 }
 
-template <bool BF16>
+template <bool BF16, int C>
 static cudaError_t opt_in() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      field_eval_wide_kernel<BF16>,
+      field_eval_wide_kernel<BF16, C>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err == cudaSuccess) done = true;
   return err;
 }
 
-// clusters of the kernel that fit on the card at once at `smem` bytes
-template <bool BF16>
-static cudaError_t max_clusters(int smem, int* n) {
-  cudaError_t err = opt_in<BF16>();
-  if (err != cudaSuccess) return err;
+// A launch configuration of `clusters` clusters of C CTAs at `smem` bytes;
+// `attr` holds its cluster dimension.
+template <int C>
+static cudaLaunchConfig_t launch_config(int clusters, int smem,
+                                        cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2, 1, 1);
+  cfg.gridDim = dim3(C * clusters, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
-  return cudaOccupancyMaxActiveClusters(n, field_eval_wide_kernel<BF16>,
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// clusters of C CTAs of the kernel that fit on the card at once at `smem`
+// bytes
+template <bool BF16, int C>
+static cudaError_t max_clusters(int smem, int* n) {
+  cudaError_t err = opt_in<BF16, C>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(1, smem, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(n, field_eval_wide_kernel<BF16, C>,
                                         &cfg);
 }
 
+// The persistent grid (as many clusters as fit, at most one a tile) on
+// `stream`.
+template <bool BF16, int C>
+static cudaError_t launch(const WideDesc& d, int smem, cudaStream_t stream) {
+  if (!ops_ok<BF16, C>(d)) return cudaErrorInvalidValue;
+  int clusters = 0;
+  cudaError_t err = max_clusters<BF16, C>(smem, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  const int n_tiles = (d.n_points + BM - 1) / BM;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<C>(
+      n_tiles < clusters ? n_tiles : clusters, smem, stream, &attr);
+  void* args[] = {const_cast<WideDesc*>(&d)};
+  err = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(field_eval_wide_kernel<BF16, C>),
+      args);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// `launch` or `max_clusters` at the run-time policy and cluster size
+#define WIDE_DISPATCH(FN, bf16, c, ...)                                   \
+  ((bf16) ? ((c) == 2   ? FN<true, 2>(__VA_ARGS__)                        \
+             : (c) == 4 ? FN<true, 4>(__VA_ARGS__)                        \
+                        : FN<true, 8>(__VA_ARGS__))                       \
+          : ((c) == 2   ? FN<false, 2>(__VA_ARGS__)                       \
+             : (c) == 4 ? FN<false, 4>(__VA_ARGS__)                       \
+                        : FN<false, 8>(__VA_ARGS__)))
+
 extern "C" {
 
-// The weight ring's depth of a launch at `width`: MAX_STAGES, or as many
-// stages as fit in shared memory beside the buffer half; 0 where fewer than
-// a CTA's chunks of a layer fit or the field is outside 2 .. W_MAX, a width
-// the route does not take.
-int spnerf_field_eval_wide_stages(int width) {
-  if (width < 2 || width > W_MAX) return 0;
-  const int least = (half_cols(width) + NCH - 1) / NCH;
-  for (int s = MAX_STAGES; s >= 2 && s >= least; --s)
-    if (smem_bytes(width, s) <= SMEM_LIMIT) return s;
-  return 0;
+// The cluster's CTAs the route takes at `width` (2, 4 or 8), or 0 where it
+// takes no field of that width.
+int spnerf_field_eval_wide_cluster(int width) { return cluster_of(width); }
+
+// The weight ring's depth of a launch at `width` on clusters of `cluster`
+// CTAs (`stages_of`); 0 where the route takes no such launch.
+int spnerf_field_eval_wide_stages(int width, int cluster) {
+  return stages_of(width, cluster);
 }
 
-int spnerf_field_eval_wide_smem(int width, int stages) {
-  return smem_bytes(width, stages);
+int spnerf_field_eval_wide_smem(int width, int stages, int cluster) {
+  return smem_bytes(width, stages, cluster);
 }
 
-// Clusters of two CTAs that fit on the card at once at `width` in the
+// Clusters of `cluster` CTAs that fit on the card at once at `width` in the
 // policy (cudaOccupancyMaxActiveClusters), or -(cudaError_t) on an error.
-int spnerf_field_eval_wide_clusters(int width, int bf16) {
-  const int stages = spnerf_field_eval_wide_stages(width);
+int spnerf_field_eval_wide_clusters(int width, int bf16, int cluster) {
+  const int stages = stages_of(width, cluster);
   if (stages == 0) return -(int)cudaErrorInvalidValue;
   int n = 0;
-  const cudaError_t err =
-      bf16 ? max_clusters<true>(smem_bytes(width, stages), &n)
-           : max_clusters<false>(smem_bytes(width, stages), &n);
+  const cudaError_t err = WIDE_DISPATCH(
+      max_clusters, bf16, cluster, smem_bytes(width, stages, cluster), &n);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 // op_rows: host array of n_ops x OP_INTS ints, the fields of Op in order.
 // xin (n_points, k0), sun (n_points, 3), tin (n_points, tdim) float32,
 // row-major; tdim = 0 without a transient input; bf16 selects the bf16
-// policy (else 3xTF32). Launches on `stream` and returns a cudaError_t (0
-// on success); does not synchronise.
+// policy (else 3xTF32); cluster: the CTAs of a cluster (2, 4 or 8), as the
+// weights were packed for. Launches on `stream` and returns a cudaError_t
+// (0 on success); does not synchronise.
 int spnerf_field_eval_wide(const void* xin, const void* sun, const void* tin,
                            const void* w, const void* b, const void* op_rows,
                            int n_ops, int width, int k0, int tdim,
-                           int n_points, int bf16, void* o_sigma, void* o_rgb,
-                           void* o_sun, void* o_sky, void* o_beta,
-                           void* o_sem, void* stream) {
-  const int stages = spnerf_field_eval_wide_stages(width);
+                           int n_points, int bf16, int cluster,
+                           void* o_sigma, void* o_rgb, void* o_sun,
+                           void* o_sky, void* o_beta, void* o_sem,
+                           void* stream) {
+  const int stages = stages_of(width, cluster);
   if (n_ops < 1 || n_ops > MAX_OPS || n_points <= 0 || stages == 0
       || k0 < 1 || tdim < 0)
     return (int)cudaErrorInvalidValue;
@@ -1029,7 +1167,7 @@ int spnerf_field_eval_wide(const void* xin, const void* sun, const void* tin,
   d.n_ops = n_ops;
   d.n_points = n_points;
   d.stages = stages;
-  d.half = half_cols(width);
+  d.share = share_cols(width, cluster);
   d.k0 = k0;
   d.tdim = tdim;
   d.xin = (const float*)xin;
@@ -1045,24 +1183,9 @@ int spnerf_field_eval_wide(const void* xin, const void* sun, const void* tin,
     d.op[i] = Op{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9],
                  q[10]};
   }
-  if (!(bf16 ? ops_ok<true>(d) : ops_ok<false>(d)))
-    return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(width, stages);
-  // the persistent grid: as many clusters as fit on the card at once
-  int clusters = 0;
-  cudaError_t err = bf16 ? max_clusters<true>(smem, &clusters)
-                         : max_clusters<false>(smem, &clusters);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = (n_points + BM - 1) / BM;
-  const int grid = 2 * (n_tiles < clusters ? n_tiles : clusters);
-  if (bf16)
-    field_eval_wide_kernel<true>
-        <<<grid, THREADS, smem, (cudaStream_t)stream>>>(d);
-  else
-    field_eval_wide_kernel<false>
-        <<<grid, THREADS, smem, (cudaStream_t)stream>>>(d);
-  return (int)cudaGetLastError();
+  return (int)WIDE_DISPATCH(launch, bf16, cluster, d,
+                            smem_bytes(width, stages, cluster),
+                            (cudaStream_t)stream);
 }
 
 // The wait record of this library's launches: (REC_KINDS + REC_KINDS *

@@ -18,14 +18,18 @@ outputs touch device memory.
   float32 activations in one buffer, for the family up to F32_W_MAX = 512
   wide (`supports_f32`).
 - "wgmma_wide" (`csrc/field_eval_wide.cu`): the fields neither takes, up
-  to W_MAX = 1024 wide and TAIL_N semantic classes (`supports_wide`), on the
-  tensor cores with a 64-point tile split across a cluster of two CTAs,
-  each holding half of every layer's columns: bf16 products, or float32 as
-  three TF32 products.
+  to W_MAX = 4096 wide with any number of semantic classes
+  (`supports_wide`), on the tensor cores with a 64-point tile split across
+  a cluster of 2, 4 or 8 CTAs (`wide_cluster`), each holding 1/C of every
+  layer's columns: bf16 products, or float32 as three TF32 products. A
+  field wider than W_MAX would need a cluster larger than the H100's
+  portable 8 CTAs: it renders through the `SPNeRF` module, the port's only
+  limit on the field's width.
 - "general" (`csrc/field_eval_general.cu`): float32 activations and FFMA
   sums, the operands either float32 or rounded to bf16 at the product; every
-  width up to W_MAX, for what the others leave (more than TAIL_N semantic
-  classes), and on request (`pack_params(..., kernel="general")`).
+  width up to GEN_W_MAX. `route` names it for no configuration: it runs
+  only on request (`pack_params(..., kernel="general")`), to hold and time
+  the other routes beside it.
 
 Numerics, as in the Pallas kernel: every matmul takes compute-dtype
 operands (the activation and the weight, both rounded from float32) and
@@ -62,7 +66,7 @@ MAX_STAGES = 6  # the weight ring's depth where shared memory holds it
 # layer covers GEN_THREADS x 32 / BM columns of a BM-point tile
 GKS = 16
 GEN_THREADS = 256
-W_MAX = 1024
+GEN_W_MAX = 1024
 # the wgmma_f32 route (csrc/field_eval_f32.cu KS, NCH, STAGE_BYTES,
 # MAX_STAGES, W_MAX_F32, TAIL_N, WGS, RED_FLOATS): weight stages of F32_KS K
 # rows of one F32_NCH-wide chunk, hi and lo; every head output at most
@@ -78,11 +82,16 @@ F32_RED_BYTES = F32_WGS * 64 * TAIL_N * 4
 # the layers whose output is a head output: on the wgmma_f32 route each runs
 # on the registers of the layer before it
 TAILS = ("sigma", "rgb1", "sun3", "sky1", "beta1", "sem1")
-# the wgmma_wide route (csrc/field_eval_wide.cu NCH, MAX_STAGES, W_MAX, the
-# policies' KS): every layer's output padded to WIDE_NPAD, half of it on each
-# CTA of the cluster; weight stages of one K slab (F32_KS rows as hi | lo in
-# float32, WIDE_KS_BF16 rows in bf16) of one 64-wide chunk
-WIDE_NPAD = 64
+# the wgmma_wide route (csrc/field_eval_wide.cu NCH, MAX_STAGES, SHARE_MAX,
+# W_MAX, TAIL_N, the policies' KS): clusters of WIDE_CLUSTERS CTAs, C the
+# smallest with ceil64(width) / C <= WIDE_SHARE_MAX (`wide_cluster`); every
+# layer's output padded to 32 C columns, 1/C of it on each CTA; weight
+# stages of one K slab (F32_KS rows as hi | lo in float32, WIDE_KS_BF16 rows
+# in bf16) of one 64-wide chunk; a head output's weight padded to TAIL_N
+# columns a pass
+WIDE_CLUSTERS = (2, 4, 8)
+WIDE_SHARE_MAX = 512
+W_MAX = WIDE_SHARE_MAX * WIDE_CLUSTERS[-1]
 WIDE_KS_BF16 = 64
 WIDE_MAX_STAGES = 12
 ROUTES = ("wgmma", "general", "wgmma_f32", "wgmma_wide")
@@ -116,8 +125,8 @@ def supports_config(cfg: ModelConfig) -> bool:
 def supports_f32(cfg: ModelConfig) -> bool:
     """Whether the wgmma_f32 kernel takes the configuration: the family at
     fc_units 2 to F32_W_MAX (the ring at least a slab's chunks deep beside
-    the buffer, `f32_stages`), at most TAIL_N semantic classes; any
-    t_embedding_dims and trunk input width."""
+    the buffer, `f32_stages`), at most TAIL_N semantic classes (one head
+    output pass); any t_embedding_dims and trunk input width."""
     return (in_family(cfg) and cfg.fc_units >= 2
             and f32_stages(cfg.fc_units) > 0
             and not (cfg.sem and cfg.num_sem_classes > TAIL_N))
@@ -125,17 +134,16 @@ def supports_f32(cfg: ModelConfig) -> bool:
 
 def supports_wide(cfg: ModelConfig) -> bool:
     """Whether the wgmma_wide kernel takes the configuration (any dtype):
-    the family at fc_units 2 to W_MAX (the ring at least a CTA's chunks deep
-    beside its half of the buffer, `wide_stages`), at most TAIL_N semantic
-    classes; any t_embedding_dims and trunk input width."""
-    return (in_family(cfg) and cfg.fc_units >= 2
-            and wide_stages(cfg.fc_units) > 0
-            and not (cfg.sem and cfg.num_sem_classes > TAIL_N))
+    the family at fc_units 2 to W_MAX (on clusters of `wide_cluster`, the
+    ring at least a CTA's chunks deep beside its share of the buffer,
+    `wide_stages`); any number of semantic classes (the logits in passes
+    of TAIL_N columns), t_embedding_dims and trunk input width."""
+    return in_family(cfg) and wide_stages(cfg.fc_units) > 0
 
 
 def takes_general(cfg: ModelConfig) -> bool:
     """Whether the general kernel takes the configuration (any dtype): the
-    family at a width whose tiles fit (up to W_MAX)."""
+    family at a width whose tiles fit (up to GEN_W_MAX)."""
     t_pad = _ceil(cfg.t_embedding_dims, GKS) if cfg.beta else 0
     return in_family(cfg) and general_tile_rows(
         cfg.fc_units, _ceil(in_width(cfg), GKS), t_pad) > 0
@@ -145,11 +153,11 @@ def route(cfg: ModelConfig, compute_dtype):
     """Which CUDA kernel evaluates the field at `compute_dtype`: "wgmma" for
     bf16 within `supports_config`; "wgmma_f32" for float32 within
     `supports_f32`; "wgmma_wide" for what neither takes within
-    `supports_wide` (float32 wider than 512 up to W_MAX; bf16 outside the
-    wgmma kernel's envelope: wider fields, fc_units not a multiple of 32,
-    t_embedding_dims > 16); "general" for the rest up to W_MAX (more than
-    TAIL_N semantic classes); None outside the family, wider than W_MAX, or
-    at another dtype."""
+    `supports_wide` (float32 wider than 512, or of more than TAIL_N
+    semantic classes, up to W_MAX; bf16 outside the wgmma kernel's
+    envelope: wider fields, fc_units not a multiple of 32, t_embedding_dims
+    > 16); None outside the family, wider than W_MAX, or at another dtype.
+    It never names "general", which runs only on request."""
     cd = as_dtype(compute_dtype)
     if not in_family(cfg) or cd not in (torch.bfloat16, torch.float32):
         return None
@@ -159,7 +167,7 @@ def route(cfg: ModelConfig, compute_dtype):
         return "wgmma_f32"
     if supports_wide(cfg):
         return "wgmma_wide"
-    return "general" if takes_general(cfg) else None
+    return None
 
 
 def uses_fused_kernel(device, cfg: ModelConfig, compute_dtype) -> bool:
@@ -269,16 +277,19 @@ class PackedField:
     layer in `w_all` (`w_off` in floats); in bf16 each weight is rounded to
     bf16 when packed (`compute_dtype`).
 
-    "wgmma_wide" (float32 `w_all` words, `w_off` in bytes; `_pack_wide`): a
-    layer of TAILS as on wgmma_f32 (its weight rounded to bf16 in bf16).
-    Any other layer: its transposed weight, npad = ceil64(N) rows, the
-    buffer's input segment padded to 64 and an input's to the policy's slab
-    (F32_KS, WIDE_KS_BF16), its K rows in `f32_k_order` / `bf16_k_order`;
-    rows [r npad / 2, (r + 1) npad / 2) are CTA r's, which streams them as
-    stages of one slab of one 64-wide chunk, each row a column's slab (hi
-    then lo float32; or bf16) in the 128-byte swizzle: CTA r's stage (s,
-    j) at byte w_off + r * ns * (npad / 2) * 128 + (s * npad / 2 + 64 j) *
-    128, ns the layer's slabs.
+    "wgmma_wide" (float32 `w_all` words, `w_off` in bytes; `_pack_wide`),
+    for clusters of `cluster` CTAs (C): a layer of TAILS, its (K, npad)
+    row-major float32 weight (rounded to bf16 in bf16), K the padded width
+    of the layer before, npad = ceil16(N) (TAIL_N up to 16 columns; the
+    kernel sums it in passes of TAIL_N columns). Any other layer: its
+    transposed weight, npad = ceil(N, 32 C) rows, the buffer's input
+    segment padded to 32 C (the writing layer's npad) and an input's to the
+    policy's slab (F32_KS, WIDE_KS_BF16), its K rows in `f32_k_order` /
+    `bf16_k_order`; rows [r h, (r + 1) h), h = npad / C, are CTA r's, which
+    streams them as stages of one slab of one 64-wide chunk, each row a
+    column's slab (hi then lo float32; or bf16) in the 128-byte swizzle:
+    CTA r's stage (s, j) at byte w_off + r * ns * h * 128 + (s * h + 64 j)
+    * 128, ns the layer's slabs.
 
     "wgmma_f32" (float32 `w_all`, `w_off` in bytes): a layer of TAILS, its
     (K, TAIL_N) row-major float32 weight, K the padded width of the layer
@@ -303,6 +314,7 @@ class PackedField:
     k0_pad: int
     route: Optional[str]
     compute_dtype: torch.dtype
+    cluster: int = 0  # wgmma_wide: the CTAs of a cluster the layout is for
 
 
 def _pack_general(specs, ws, bs, cd):
@@ -377,12 +389,19 @@ def _pack_f32(specs, ws, bs):
     return torch.cat(w_parts), torch.cat(b_parts), layers
 
 
-def _wide_pads(name, segs, ks):
+def wide_npad(n, cluster):
+    """A wgmma_wide layer's padded output width on clusters of `cluster`
+    CTAs: ceil(n, 32 C), so that each CTA owns whole chunks of 64 and 32
+    columns."""
+    return _ceil(n, 32 * cluster)
+
+
+def _wide_pads(name, segs, ks, cluster):
     """The wgmma_wide layout's padded input segments of a layer: the
-    buffer's (the first, but for trunk0 and sky0) to WIDE_NPAD, the writing
-    layer's npad; an input's (trunk input, sun, transient code) to the
-    policy's slab `ks`."""
-    return [_ceil(s, WIDE_NPAD) if i == 0 and name not in ("trunk0", "sky0")
+    buffer's (the first, but for trunk0 and sky0) to the writing layer's
+    npad (`wide_npad`); an input's (trunk input, sun, transient code) to
+    the policy's slab `ks`."""
+    return [wide_npad(s, cluster) if i == 0 and name not in ("trunk0", "sky0")
             else _ceil(s, ks) for i, s in enumerate(segs)]
 
 
@@ -400,23 +419,24 @@ def _swizzle_rows(blk):
     return blk[:, n, c ^ (n % 8), :]
 
 
-def _pack_wide(specs, ws, bs, cd):
-    """The wgmma_wide route's layout of the layers: (w_all, b_all, layers)."""
+def _pack_wide(specs, ws, bs, cd, cluster):
+    """The wgmma_wide route's layout of the layers for clusters of
+    `cluster` CTAs: (w_all, b_all, layers)."""
     bf16 = cd == torch.bfloat16
     ks = wide_ks(cd)
     w_parts, b_parts, layers = [], [], {}
     w_off = b_off = 0
     for (name, segs, out, _), w, b in zip(specs, ws, bs):
-        kp = _wide_pads(name, segs, ks)
+        kp = _wide_pads(name, segs, ks, cluster)
         if name in TAILS:
-            npad = TAIL_N
+            npad = _ceil(out, TAIL_N)
             wt = torch.zeros(kp[0], npad, dtype=torch.float32,
                              device=w.device)
             wt[:segs[0], :out] = w.to(cd).float()
             flat = wt.reshape(-1)
         else:
-            npad, ktot = _ceil(out, WIDE_NPAD), sum(kp)
-            h, ns = npad // 2, ktot // ks
+            npad, ktot = wide_npad(out, cluster), sum(kp)
+            h, ns = npad // cluster, ktot // ks
             wt = torch.zeros(npad, ktot, dtype=torch.float32, device=w.device)
             src = dst = 0
             for sw, p in zip(segs, kp):
@@ -431,9 +451,10 @@ def _pack_wide(specs, ws, bs, cd):
                 lo = tf32_rna(wt - hi)
                 rows = torch.cat([hi.reshape(npad, ns, ks),
                                   lo.reshape(npad, ns, ks)], dim=2)
-            halves = [_swizzle_rows(rows[r * h:(r + 1) * h].permute(
-                1, 0, 2).reshape(ns, h, 8, -1)).reshape(-1) for r in (0, 1)]
-            flat = torch.cat(halves)
+            shares = [_swizzle_rows(rows[r * h:(r + 1) * h].permute(
+                1, 0, 2).reshape(ns, h, 8, -1)).reshape(-1)
+                for r in range(cluster)]
+            flat = torch.cat(shares)
             if bf16:
                 flat = flat.view(torch.float32)
         w_parts.append(flat)
@@ -447,15 +468,17 @@ def _pack_wide(specs, ws, bs, cd):
     return torch.cat(w_parts), torch.cat(b_parts), layers
 
 
-def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
+def pack_params(model, compute_dtype="bfloat16", kernel=None,
+                cluster=None) -> PackedField:
     """Pack an `SPNeRF` module's weights for the fused field at
     `compute_dtype`, in the layout of `kernel` ("wgmma", "general",
     "wgmma_f32" or "wgmma_wide"; None: `route(cfg, compute_dtype)`'s, the
-    wgmma kernel's
-    where there is none). The packed layout decides which kernel a
-    `FusedField` launches on CUDA; `kernel="general"` puts a field another
-    kernel takes on the general kernel instead (to hold the two against
-    each other)."""
+    wgmma kernel's where there is none). The packed layout decides which
+    kernel a `FusedField` launches on CUDA; `kernel="general"` puts a field
+    another kernel takes on the general kernel instead (to hold the two
+    against each other). On the wgmma_wide route `cluster` forces the
+    cluster's CTAs (2, 4 or 8; None: `wide_cluster`'s), so that the
+    splits of 4 and 8 CTAs can run at narrow widths."""
     cfg = model.cfg
     if not in_family(cfg):
         raise ValueError("configuration not covered by the fused field")
@@ -468,6 +491,12 @@ def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     if kernel is not None and not takes.get(kernel, False):
         raise ValueError(f"kernel {kernel!r} does not take this field at "
                          f"{cd}")
+    if cluster is not None and (r != "wgmma_wide" or not wide_stages(
+            cfg.fc_units, cluster)):
+        raise ValueError(f"no wgmma_wide launch of fc_units {cfg.fc_units} "
+                         f"on clusters of {cluster} CTAs (route {r})")
+    if r == "wgmma_wide" and cluster is None:
+        cluster = wide_cluster(cfg.fc_units)
     specs = layer_specs(cfg)
     names = [s[0] for s in specs]
     ws = [model.layer(n).kernel.detach().float() for n in names]
@@ -477,13 +506,15 @@ def pack_params(model, compute_dtype="bfloat16", kernel=None) -> PackedField:
     if r in ("general", "wgmma_f32", "wgmma_wide"):
         pack = {"general": lambda: _pack_general(specs, ws, bs, cd),
                 "wgmma_f32": lambda: _pack_f32(specs, ws, bs),
-                "wgmma_wide": lambda: _pack_wide(specs, ws, bs, cd)}[r]
+                "wgmma_wide": lambda: _pack_wide(specs, ws, bs, cd,
+                                                 cluster)}[r]
         w_all, b_all, layers = pack()
         k_pad = wide_ks(cd) if r == "wgmma_wide" else GKS
         return PackedField(cfg=cfg, names=names, ws=ws, bs=bs,
                            sem_table=sem_table, w_all=w_all, b_all=b_all,
                            layers=layers, k0_pad=_ceil(in_width(cfg), k_pad),
-                           route=r, compute_dtype=cd)
+                           route=r, compute_dtype=cd,
+                           cluster=cluster if r == "wgmma_wide" else 0)
     w_parts, b_parts, layers = [], [], {}
     w_off = b_off = 0
     for (name, segs, out, _), w, b in zip(specs, ws, bs):
@@ -658,43 +689,68 @@ def f32_stages(width):
     return 0
 
 
-def wide_smem_bytes(width, stages):
-    """The wgmma_wide kernel's dynamic shared memory a CTA
-    (spnerf_field_eval_wide_smem): 1 KB of alignment slack, the ring of
-    `stages` with its barriers, the meeting barrier (16 bytes), the CTA's
-    half of the activation buffer (64 x ceil64(width) / 2 floats) and the
-    head outputs' partial sums."""
-    return (1024 + stages * (F32_STAGE_BYTES + 16) + 16
-            + 64 * _ceil(width, WIDE_NPAD) // 2 * 4 + F32_RED_BYTES)
-
-
-def wide_stages(width):
-    """The wgmma_wide kernel's ring depth (spnerf_field_eval_wide_stages):
-    WIDE_MAX_STAGES, or as many stages as fit beside the buffer half; 0
-    where fewer than a CTA's chunks of a layer (ceil64(width) / 2 / 64) fit
-    or width is outside 2 .. W_MAX."""
+def wide_cluster(width):
+    """The CTAs of a wgmma_wide cluster at `width`
+    (spnerf_field_eval_wide_cluster): the smallest of WIDE_CLUSTERS with
+    ceil64(width) / C <= WIDE_SHARE_MAX, so 2 up to 1,024 wide, 4 up to
+    2,048 and 8 up to W_MAX; 0 outside 2 .. W_MAX."""
     if not 2 <= width <= W_MAX:
         return 0
-    least = -(-(_ceil(width, WIDE_NPAD) // 2) // F32_NCH)
+    return next(c for c in WIDE_CLUSTERS
+                if _ceil(width, 64) <= WIDE_SHARE_MAX * c)
+
+
+def wide_share(width, cluster=None):
+    """The buffer columns each CTA of a cluster of `cluster` CTAs (None:
+    `wide_cluster`'s) owns at `width`: wide_npad(width, C) / C."""
+    c = wide_cluster(width) if cluster is None else cluster
+    return wide_npad(width, c) // c
+
+
+def wide_smem_bytes(width, stages, cluster=None):
+    """The wgmma_wide kernel's dynamic shared memory a CTA
+    (spnerf_field_eval_wide_smem) on clusters of `cluster` CTAs (None:
+    `wide_cluster`'s): 1 KB of alignment slack, the ring of `stages` with
+    its barriers, the meeting barriers (16 bytes), the CTA's share of the
+    activation buffer (64 x `wide_share` floats) and the head outputs'
+    partial sums."""
+    return (1024 + stages * (F32_STAGE_BYTES + 16) + 16
+            + 64 * wide_share(width, cluster) * 4 + F32_RED_BYTES)
+
+
+def wide_stages(width, cluster=None):
+    """The wgmma_wide kernel's ring depth (spnerf_field_eval_wide_stages)
+    on clusters of `cluster` CTAs (None: `wide_cluster`'s):
+    WIDE_MAX_STAGES, or as many stages as fit beside the buffer share; 0
+    where fewer than a CTA's chunks of a layer fit, the width is outside
+    2 .. W_MAX, or the cluster is not one of WIDE_CLUSTERS or gives a CTA
+    more than WIDE_SHARE_MAX columns."""
+    c = wide_cluster(width) if cluster is None else cluster
+    if (not 2 <= width <= W_MAX or c not in WIDE_CLUSTERS
+            or wide_share(width, c) > WIDE_SHARE_MAX):
+        return 0
+    least = -(-wide_share(width, c) // F32_NCH)
     for stages in range(WIDE_MAX_STAGES, max(least, 2) - 1, -1):
-        if wide_smem_bytes(width, stages) <= SMEM_LIMIT:
+        if wide_smem_bytes(width, stages, c) <= SMEM_LIMIT:
             return stages
     return 0
 
 
-def wide_clusters(width, compute_dtype):
-    """Clusters of two CTAs of the wgmma_wide kernel at `width` that fit on
-    the current CUDA device at once (cudaOccupancyMaxActiveClusters): the
-    persistent grid the kernel launches. Builds the kernel if needed."""
+def wide_clusters(width, compute_dtype, cluster=None):
+    """Clusters of `cluster` CTAs (None: `wide_cluster`'s) of the
+    wgmma_wide kernel at `width` that fit on the current CUDA device at
+    once (cudaOccupancyMaxActiveClusters): the persistent grid the kernel
+    launches. Builds the kernel if needed."""
     from . import _build
 
     lib = _build.load("field_eval_wide")
     f = lib.spnerf_field_eval_wide_clusters
-    f.argtypes = [ctypes.c_int, ctypes.c_int]
+    f.argtypes = [ctypes.c_int] * 3
     f.restype = ctypes.c_int
     lib.spnerf_cuda_error_string.argtypes = [ctypes.c_int]
     lib.spnerf_cuda_error_string.restype = ctypes.c_char_p
-    n = f(width, int(as_dtype(compute_dtype) == torch.bfloat16))
+    n = f(width, int(as_dtype(compute_dtype) == torch.bfloat16),
+          wide_cluster(width) if cluster is None else cluster)
     if n < 0:
         raise RuntimeError("cudaOccupancyMaxActiveClusters failed: "
                            + lib.spnerf_cuda_error_string(-n).decode())
@@ -720,8 +776,8 @@ def general_smem_bytes(bm, width, k0_pad, t_pad):
 def general_tile_rows(width, k0_pad, t_pad):
     """The general kernel's tile (spnerf_field_eval_general_tile): 64, 32
     or 16 points, the largest whose smem fits SMEM_LIMIT; 0 where none does
-    or width > W_MAX."""
-    if not 1 <= width <= W_MAX:
+    or width > GEN_W_MAX."""
+    if not 1 <= width <= GEN_W_MAX:
         return 0
     for bm in (64, 32, 16):
         if general_smem_bytes(bm, width, k0_pad, t_pad) <= SMEM_LIMIT:
@@ -939,8 +995,9 @@ def fused_field_general(packed: PackedField, x_in, sun, t_in=None,
     t_dim = cfg.t_embedding_dims if has_t else 0
     t_pad = _ceil(t_dim, GKS)
     if not general_tile_rows(cfg.fc_units, packed.k0_pad, t_pad):
-        raise ValueError(f"fc_units {cfg.fc_units}: wider than {W_MAX}, or "
-                         f"the tiles do not fit {SMEM_LIMIT} bytes")
+        raise ValueError(f"fc_units {cfg.fc_units}: wider than "
+                         f"{GEN_W_MAX}, or the tiles do not fit "
+                         f"{SMEM_LIMIT} bytes")
     outs = active_outputs(cfg, heads)
     n = x_in.shape[0]
     res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
@@ -995,11 +1052,21 @@ def fused_field_f32(packed: PackedField, x_in, sun, t_in=None,
 
 def fused_field_wide(packed: PackedField, x_in, sun, t_in=None,
                      heads=ALL_HEADS):
-    """Launch the wgmma_wide kernel on CUDA tensors; same contract as
-    `fused_field_plain` at `packed.compute_dtype`."""
+    """Launch the wgmma_wide kernel on CUDA tensors, on clusters of
+    `packed.cluster` CTAs; same contract as `fused_field_plain` at
+    `packed.compute_dtype`."""
     from . import _build
 
     cfg = packed.cfg
+    c = packed.cluster
+    if packed.route == "wgmma_wide" and (
+            c not in WIDE_CLUSTERS or not wide_stages(cfg.fc_units, c)
+            or any(
+                lp.npad % (32 * c) for nm, lp in packed.layers.items()
+                if nm not in TAILS)):
+        raise ValueError(f"weights not packed for clusters of {c} CTAs at "
+                         f"fc_units {cfg.fc_units}: pack_params(model, "
+                         f"compute_dtype, cluster=...)")
     prog = _check_launch(packed, "wgmma_wide", x_in, sun, t_in, heads)
     if not supports_wide(cfg):
         raise ValueError(f"fc_units {cfg.fc_units}: outside the wgmma_wide "
@@ -1013,11 +1080,11 @@ def fused_field_wide(packed: PackedField, x_in, sun, t_in=None,
     if n:
         xin, sn, tin = _float32_inputs(cfg, x_in, sun, t_in, has_t)
         lib = _build.load("field_eval_wide")
-        _launch(lib, _declare(lib, "spnerf_field_eval_wide", 6), (
+        _launch(lib, _declare(lib, "spnerf_field_eval_wide", 7), (
             _ptr(xin), _ptr(sn), _ptr(tin), _ptr(packed.w_all),
             _ptr(packed.b_all), prog.ctypes.data, len(prog), cfg.fc_units,
             xin.shape[1], t_dim, n,
-            int(packed.compute_dtype == torch.bfloat16),
+            int(packed.compute_dtype == torch.bfloat16), packed.cluster,
             *(_ptr(res.get(k)) for k in OUTPUTS)), x_in.device,
             "field_eval_wide")
         FusedField.launches += 1

@@ -7,12 +7,13 @@ runs through a fused CUDA kernel whenever `ops.field_eval.route` names one
 for the configuration at the render's compute dtype and the model lies on a
 CUDA device, as the JAX package uses its fused kernel on every accelerator:
 the wgmma kernel for bf16 fields within its envelope, the wgmma_f32 kernel
-for float32 fields up to 512 wide, the wgmma_wide kernel (a cluster of two
-CTAs) for the bf16 fields outside the wgmma envelope and the float32 fields
-of 513 to W_MAX, and the general kernel for what those leave (more than 16
-semantic classes). Wider fields
-render through the module; so does a configuration with a fine pass or a
-proposal sampler, as the JAX package's does. With the occupancy
+for float32 fields up to 512 wide of at most 16 semantic classes, and the
+wgmma_wide kernel (a cluster of 2, 4 or 8 CTAs) for every other field of
+the family up to W_MAX = 4096 wide, at any number of classes. A field
+wider than 4096 would need a cluster larger than the H100's portable 8
+CTAs: it renders through the module, the port's only limit on the width;
+so does a configuration with a fine pass or a proposal sampler, as the JAX
+package's does. With the occupancy
 grid the trained grid places the samples (a uniform grid where none is
 given). Lean outputs composite the per-sample sun, albedo, sky
 and beta on the device and drop the per-sample tensors.

@@ -12,17 +12,18 @@ Each prints JSON lines, the last one its result with the card's name and
 power limit.
 
 stress: two copies of the kernel built here (`STRESS_VARIANTS`), in which
-rank 0's meeting thread waits STRESS_DELAY_NS between its arrival and its
+rank 0's meeting thread waits STRESS_DELAY_NS between its arrivals and its
 first poll at every meeting and a wait traps after ~1 s: one with a single
 meeting barrier a CTA (the form that can hang) and one with the shipped
-two. Each runs in a process of its own, since a trap ends the CUDA
-context. The first should trap with its wait record naming the meeting
-barrier; the second should finish every launch with the undelayed
-kernel's output bit for bit.
+two, each on clusters of 2, 4 and 8 CTAs (STRESS_FIELDS). Each runs in a
+process of its own, since a trap ends the CUDA context. The first should
+trap with its wait record naming the meeting barrier; the second should
+finish every launch with the undelayed kernel's output bit for bit.
 
 soak: the shipped kernel through `fused_field_wide` on the inputs of
-`schedule` (widths 768 and 1024, bf16 and float32, all heads and the solar
-pass's, SOAK_POINTS points) in a shuffled order: the first launch on each
+`schedule` (768 and 1024 wide on clusters of two, 768 on clusters of 4 and
+8, bf16 and float32, all heads and the solar pass's, SOAK_POINTS points)
+in a shuffled order: the first launch on each
 input held against the plain version, every later one equal to it bit for
 bit. `--processes` runs that many schedules (seeds 0, 1, ...), each in a
 process of its own, so that a trap ends one of them and is counted.
@@ -32,7 +33,9 @@ not counted by the kernel.
 
 trained: the flagship flags at `--fc_units 1024` in bf16, `--steps` steps
 on `write_synthetic_aoi`'s AOI, then each launch of the test view's first
-chunk and that chunk's render beside both controls; then a 704-wide bf16
+chunk and that chunk's render beside both controls, and whether every
+launch meets the bar of a trained field (`hold_b1`: past KERNEL_ATOL, every
+output within both control shares); then a 704-wide bf16
 field trained 10 steps, whose first chunk's launches go through the
 one-CTA wgmma kernel and through the wide kernel (the field packed for it)
 on the same inputs, each beside both controls: what the cluster adds to
@@ -60,7 +63,7 @@ import torch
 WAIT_KINDS = ("meeting", "full", "empty")
 REC_SLOTS = 16
 REC_FIELDS = ("kind", "rank", "cluster", "thread", "index", "parity", "it",
-              "whole")
+              "ctas", "whole")
 REC_INTS = len(REC_FIELDS)
 REC_SIZE = len(WAIT_KINDS) * (1 + REC_SLOTS * REC_INTS)
 
@@ -79,25 +82,38 @@ STRESS_VARIANTS = {
 }
 # n = 64 first: one tile, one cluster, so the records are that cluster's
 STRESS_POINTS = (64, 1, 4_224, 4_225, 8_449)
+# the fields each stress copy runs on clusters of 2, 4 and 8 CTAs (768
+# packed for clusters of 4 and 8), each cluster size in a process of its own
+STRESS_FIELDS = {2: (1024, 768), 4: (768,), 8: (768,)}
 
-SOAK_WIDTHS = (768, 1024)
+# (fc_units, the cluster's CTAs) of the soak's fields: the route's own
+# clusters of two at 768 and 1024, and the 768-wide field packed for
+# clusters of 4 and 8 (the same work as at 2: only the meeting, the shares
+# and the grid change)
+SOAK_FIELDS = ((768, 2), (1024, 2), (768, 4), (768, 8))
 SOAK_DTYPES = ("bfloat16", "float32")
 SOAK_HEADS = ("all", "sun")
 # launches of each input a schedule makes after its first: one point; a
 # tile less one, one tile, a tile and one; 66 clusters x 64 points (one tile
-# a cluster) less one, at it, one more (a second round for one cluster);
-# two rounds and one more; then the full-width checks' 131,195 points and
-# the eval render's all-head launch (374,976), which take 32 and 89 rounds
-SOAK_REPEATS = {1: 400, 63: 400, 64: 400, 65: 400, 4_223: 400, 4_224: 400,
-                4_225: 60, 8_449: 40, 131_195: 2, 374_976: 2}
+# a cluster of two) less one, at it, one more (a second round for one
+# cluster); two rounds and one more; then the full-width checks' 131,195
+# points and the eval render's all-head launch (374,976), which take 32 and
+# 89 rounds on clusters of two
+SOAK_REPEATS = {1: 200, 63: 200, 64: 200, 65: 200, 4_223: 200, 4_224: 200,
+                4_225: 30, 8_449: 20, 131_195: 1, 374_976: 1}
 SOAK_POINTS = tuple(SOAK_REPEATS)
 SOAK_BUDGET_S = 60
 SOAK_SYNC_EVERY = 1000  # launches between synchronisations
 BM = 64  # points a tile
 CLUSTERS = 66  # clusters of two CTAs on the H100 at 768 and 1024, both dtypes
+# clusters of each size that fit the H100 at once, by the cluster's CTAs
+# (`wide_clusters` on an H100 80GB HBM3, chip_smoke.py phase 2: 66, 30 and
+# 15 at every width and in both dtypes; the soak reads the card's own)
+CLUSTERS_BY_CTAS = {2: CLUSTERS, 4: 30, 8: 15}
 # The wide kernel's launch times and its plain version's (ms) on an H100
 # 80GB HBM3 at 700.00 W (PERF.md, the wide route's row; the upper ends):
-# all heads on 374,976 points, the solar pass's heads on 749,952
+# all heads on 374,976 points, the solar pass's heads on 749,952; a field
+# on clusters of 4 or 8 is reckoned at the two-CTA time of its width
 LAUNCH_POINTS = {"all": 374_976, "sun": 749_952}
 LAUNCH_MS = {(768, "bfloat16", "all"): 57.76, (768, "bfloat16", "sun"): 97.24,
              (1024, "bfloat16", "all"): 84.27,
@@ -132,7 +148,7 @@ def parse_wait_record(ints):
     "slots": {kind: the kind's header, the slots taken as the last noting
     thread wrote it (racy; past REC_SLOTS, records were dropped)},
     "records": [{"kind", "rank", "cluster", "thread", "index", "parity",
-    "it"}]}."""
+    "it", "ctas"}]}: "rank" out of "ctas", the cluster's CTAs."""
     ints = [int(v) for v in ints]
     k = len(WAIT_KINDS)
     records = []
@@ -149,30 +165,37 @@ def parse_wait_record(ints):
 
 
 def meeting_analysis(records, barriers):
-    """For each cluster whose two ranks both noted a meeting wait: rank r
-    waits at meeting k_r, and its peer, waiting at k_p, has arrived for
-    meetings 0 .. k_p (an arrival comes before its own wait). Meeting k
-    takes barrier k % `barriers` and needs that barrier's (k // barriers +
-    1)-th completion; "completed_twice" where the peer's arrivals on it
-    already exceed that, so the phase the waiter asks for came and went."""
-    by_cluster = {}
+    """For each cluster whose C ranks (the records' "ctas") all noted a
+    meeting wait: rank r waits at meeting k_r, and each peer p, waiting at
+    k_p, has arrived on r's barriers for meetings 0 .. k_p (an arrival
+    comes before its own wait). Meeting k takes barrier k % `barriers` and
+    needs that barrier's (k // barriers + 1)-th completion, each of C - 1
+    arrivals; "completed_twice" where the peers' arrivals on it already
+    reach one completion more, so the phase the waiter asks for came and
+    went."""
+    by_cluster, ctas = {}, {}
     for r in records:
         if r["kind"] == "meeting":
             by_cluster.setdefault(r["cluster"], {})[r["rank"]] = r["index"]
+            ctas[r["cluster"]] = r["ctas"]
     out = []
     for cluster, ranks in sorted(by_cluster.items()):
-        if set(ranks) != {0, 1}:
+        c = ctas[cluster]
+        if set(ranks) != set(range(c)):
             continue
         for rank, k in sorted(ranks.items()):
-            k_peer = ranks[1 - rank]
             bar = k % barriers
-            arrivals = sum(1 for m in range(k_peer + 1)
+            arrivals = sum(1 for p, k_peer in ranks.items() if p != rank
+                           for m in range(k_peer + 1)
                            if m % barriers == bar)
             needed = k // barriers + 1
-            out.append({"cluster": cluster, "rank": rank, "meeting": k,
-                        "peer_meeting": k_peer, "barrier": bar,
-                        "arrivals": arrivals, "needed": needed,
-                        "completed_twice": arrivals > needed})
+            out.append({"cluster": cluster, "rank": rank, "ctas": c,
+                        "meeting": k,
+                        "peer_meetings": {p: kp for p, kp in ranks.items()
+                                          if p != rank},
+                        "barrier": bar, "arrivals": arrivals,
+                        "needed": needed,
+                        "completed_twice": arrivals >= (needed + 1) * (c - 1)})
     return out
 
 
@@ -198,9 +221,15 @@ class WaitRecord:
 # -------------------------------------------------------------- the soak
 
 def combos():
-    """(width, dtype, heads tag) of every field and head subset a schedule
-    launches."""
-    return list(itertools.product(SOAK_WIDTHS, SOAK_DTYPES, SOAK_HEADS))
+    """((width, cluster's CTAs), dtype, heads tag) of every field and head
+    subset a schedule launches."""
+    return list(itertools.product(SOAK_FIELDS, SOAK_DTYPES, SOAK_HEADS))
+
+
+def _timed(combo):
+    """The LAUNCH_MS / PLAIN_MS key of a combo: its width, dtype and
+    heads."""
+    return combo[0][0], combo[1], combo[2]
 
 
 def schedule(seed=0):
@@ -224,22 +253,24 @@ def meetings(n, layers, clusters=CLUSTERS):
     return tiles * 2 * layers + min(tiles, clusters)
 
 
-def reckon(first, rest, layers=SOAK_LAYERS, clusters=CLUSTERS):
+def reckon(first, rest, layers=SOAK_LAYERS, clusters=CLUSTERS_BY_CTAS):
     """What a schedule costs by the measured launch times (LAUNCH_MS,
-    PLAIN_MS): launches, meetings, the kernel's seconds (each launch at
-    least HOST_MS), the plain version's seconds on the first launches, and
-    their sum with SETUP_S."""
+    PLAIN_MS): launches, meetings (`clusters`: the clusters that fit, by
+    the cluster's CTAs), the kernel's seconds (each launch at least
+    HOST_MS; a launch's time grows with its rounds on two-CTA clusters),
+    the plain version's seconds on the first launches, and their sum with
+    SETUP_S."""
     def launch_ms(combo, n):
-        per_round = LAUNCH_MS[combo] / rounds(LAUNCH_POINTS[combo[2]],
-                                             clusters)
-        return max(rounds(n, clusters) * per_round, HOST_MS)
+        per_round = LAUNCH_MS[_timed(combo)] / rounds(
+            LAUNCH_POINTS[combo[2]])
+        return max(rounds(n) * per_round, HOST_MS)
 
     launches = first + rest
     device_s = sum(launch_ms(c, n) for c, n in launches) / 1e3
-    plain_s = sum(PLAIN_MS[c] * n / LAUNCH_POINTS[c[2]]
+    plain_s = sum(PLAIN_MS[_timed(c)] * n / LAUNCH_POINTS[c[2]]
                   for c, n in first) / 1e3
     return {"launches": len(launches),
-            "meetings": sum(meetings(n, layers[c[2]], clusters)
+            "meetings": sum(meetings(n, layers[c[2]], clusters[c[0][1]])
                             for c, n in launches),
             "device_s": device_s, "plain_s": plain_s,
             "seconds": device_s + plain_s + SETUP_S}
@@ -270,25 +301,27 @@ def soak(device, seed=0, log=print):
         g.normal(size=(pool, 3)).astype(np.float32)), dim=-1).to(device)
     sems = torch.from_numpy(g.integers(0, 3, size=pool)).to(device)
     fields, clusters = {}, {}
-    for width, dtype in itertools.product(SOAK_WIDTHS, SOAK_DTYPES):
+    for (width, ctas), dtype in itertools.product(SOAK_FIELDS, SOAK_DTYPES):
         mc = ModelConfig(mapping=True, sem=True, num_sem_classes=3,
                          fc_units=width)
-        packed = fe.pack_params(load_model(
-            mc, dtype, device=device,
-            generator=torch.Generator().manual_seed(width)), dtype)
-        if packed.route != "wgmma_wide":
-            raise ValueError(f"{dtype} fc_units {width} packs for "
-                             f"{packed.route}")
+        model = load_model(mc, dtype, device=device,
+                           generator=torch.Generator().manual_seed(width))
+        if fe.route(mc, dtype) != "wgmma_wide":
+            raise ValueError(f"{dtype} fc_units {width} routes to "
+                             f"{fe.route(mc, dtype)}")
+        packed = fe.pack_params(model, dtype, cluster=ctas)
         x_in, sn, _ = fe.FusedField(packed, dtype).inputs(xyz, sun, None,
                                                           sems)
-        fields[(width, dtype)] = (packed, x_in, sn)
-        clusters[(width, dtype)] = fe.wide_clusters(width, dtype)
+        fields[((width, ctas), dtype)] = (packed, x_in, sn)
+        clusters[((width, ctas), dtype)] = fe.wide_clusters(width, dtype,
+                                                            ctas)
     layers = {h: int((fe.program(packed, heads_of(h))[:, 10] < 0).sum())
               for h in SOAK_HEADS}
+    by_ctas = {f[1]: n for (f, _), n in clusters.items()}
     res = {"seed": seed, "scheduled": len(first) + len(rest),
-           "layers": layers, "clusters": {f"{d} {w}": c for (w, d), c
-                                          in clusters.items()},
-           "reckoned": reckon(first, rest, layers),
+           "layers": layers, "clusters": {f"{d} {w} on {c}": n for
+                                          ((w, c), d), n in clusters.items()},
+           "reckoned": reckon(first, rest, layers, by_ctas),
            "meetings_reckoned": 0, "mismatches": 0, "traps": 0,
            "max_abs_err_first": 0.0}
     outs, bad = {}, {}
@@ -366,10 +399,11 @@ def run_child(argv, timeout):
     return rc, last, text.splitlines()[-40:]
 
 
-def stress_child(variant, device):
-    """One stress copy's launches (see the module's docstring), each against
-    the shipped kernel's output on the same inputs; prints its record and
-    ends the process (after a trap the CUDA context is gone)."""
+def stress_child(variant, device, cluster=2):
+    """One stress copy's launches (see the module's docstring) on clusters
+    of `cluster` CTAs (the fields of STRESS_FIELDS), each against the
+    shipped kernel's output on the same inputs; prints its record and ends
+    the process (after a trap the CUDA context is gone)."""
     from ..config import ModelConfig
     from ..models import load_model
     from ..ops import _build
@@ -380,9 +414,10 @@ def stress_child(variant, device):
     shipped = _build.load("field_eval_wide")
     record = WaitRecord(lib)
     one = "WIDE_ONE_BARRIER=1" in STRESS_VARIANTS[variant]
-    res = {"variant": variant, "defines": STRESS_VARIANTS[variant],
-           "ptxas": ptxas, "launches": 0, "equal": 0, "differ": 0,
-           "trapped": False, "delay_s": 0.0}
+    res = {"variant": variant, "cluster": cluster,
+           "defines": STRESS_VARIANTS[variant], "ptxas": ptxas,
+           "launches": 0, "equal": 0, "differ": 0, "trapped": False,
+           "delay_s": 0.0}
     g = np.random.default_rng(1)
     n_max = max(STRESS_POINTS)
     xyz = torch.from_numpy(g.normal(size=(n_max, 3)).astype(np.float32)
@@ -392,12 +427,14 @@ def stress_child(variant, device):
     sems = torch.from_numpy(g.integers(0, 3, size=n_max)).to(device)
     t0 = time.perf_counter()
     try:
-        for width, dtype in itertools.product((1024, 768), SOAK_DTYPES):
+        for width, dtype in itertools.product(STRESS_FIELDS[cluster],
+                                              SOAK_DTYPES):
             mc = ModelConfig(mapping=True, sem=True, num_sem_classes=3,
                              fc_units=width)
             packed = fe.pack_params(load_model(
                 mc, dtype, device=device,
-                generator=torch.Generator().manual_seed(width)), dtype)
+                generator=torch.Generator().manual_seed(width)), dtype,
+                cluster=cluster)
             x_in, sn, _ = fe.FusedField(packed, dtype).inputs(xyz, sun, None,
                                                               sems)
             for h, n in itertools.product(SOAK_HEADS, STRESS_POINTS):
@@ -411,8 +448,9 @@ def stress_child(variant, device):
                     res["launches"] += 1
                     # rank 0 of every cluster waits at each of its meetings:
                     # the least the launch can take
-                    res["delay_s"] += ((rounds(n) * 2 * layers + 1)
-                                       * STRESS_DELAY_NS / 1e9)
+                    res["delay_s"] += ((rounds(
+                        n, CLUSTERS_BY_CTAS[cluster]) * 2 * layers + 1)
+                        * STRESS_DELAY_NS / 1e9)
                     same = all(torch.equal(out[k], ref[k]) for k in ref)
                     res["equal" if same else "differ"] += 1
     except RuntimeError as e:
@@ -426,18 +464,22 @@ def stress_child(variant, device):
 
 
 def stress(timeout=900):
-    """Each stress copy in a process of its own; its record and verdict."""
+    """Each stress copy on each cluster size in a process of its own; its
+    record and verdict."""
     out = {}
     for variant in STRESS_VARIANTS:
-        rc, res, tail = run_child(["stress-child", variant], timeout)
-        res = res or {"tail": tail}
-        recs = res.get("record", {}).get("records", [])
-        res["rc"] = rc
-        res["names_meeting"] = any(r["kind"] == "meeting" for r in recs)
-        res["completed_twice"] = any(
-            a["completed_twice"] for a in res.get("meeting_analysis", []))
-        out[variant] = res
-        print(json.dumps({variant: res}), flush=True)
+        for cluster in STRESS_FIELDS:
+            rc, res, tail = run_child(
+                ["stress-child", variant, "--cluster", str(cluster)], timeout)
+            res = res or {"tail": tail}
+            recs = res.get("record", {}).get("records", [])
+            res["rc"] = rc
+            res["names_meeting"] = any(r["kind"] == "meeting" for r in recs)
+            res["completed_twice"] = any(
+                a["completed_twice"] for a in res.get("meeting_analysis", []))
+            tag = f"{variant} on {cluster}"
+            out[tag] = res
+            print(json.dumps({tag: res}), flush=True)
     return out
 
 
@@ -472,7 +514,9 @@ def trained(device, steps=300, log=print):
                           model_config_from_args, render_config_from_args)
     from ..ops import field_eval as fe
     from ..render import build_render_fn, chunk_size
-    from .hold_b1 import by_output, hold_launch, record_launches, render_rows
+    from .hold_b1 import (KERNEL_ATOL, TC_CONTROL_SHARE, WIDE_CONTROL_SHARE,
+                          by_output, hold_launch, record_launches,
+                          render_rows, verdict)
     from .synth import FLAGSHIP_CLI_FLAGS
     from .synth_scene import write_synthetic_aoi
 
@@ -515,7 +559,16 @@ def trained(device, steps=300, log=print):
                 rows = [hold_launch(x, tag, controls=True, packed=pk,
                                     check=False)["outputs"]
                         for x in launches]
-                r[name] = {"launches": rows, "by_output": by_output(rows)}
+                # the bar of a trained field: past KERNEL_ATOL, every output
+                # within both control shares
+                misses = [f"launch {i}, {k}: {why}"
+                          for i, out in enumerate(rows)
+                          for k, row in out.items()
+                          if (why := verdict(row, KERNEL_ATOL,
+                                             WIDE_CONTROL_SHARE,
+                                             TC_CONTROL_SHARE))]
+                r[name] = {"launches": rows, "by_output": by_output(rows),
+                           "bar_passes": not misses, "bar_misses": misses}
             plain, plain32 = (build_render_fn(
                 state.model, c, state.t_embed, chunk=args.chunk,
                 field="plain") for c in (rc, replace(
@@ -540,6 +593,8 @@ def main(argv=None):
     t.add_argument("--steps", type=int, default=300)
     c = sub.add_parser("stress-child")
     c.add_argument("variant", choices=tuple(STRESS_VARIANTS))
+    c.add_argument("--cluster", type=int, default=2,
+                   choices=tuple(STRESS_FIELDS))
     c = sub.add_parser("soak-child")
     c.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
@@ -548,7 +603,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if args.cmd == "stress-child":
-        return stress_child(args.variant, dev)
+        return stress_child(args.variant, dev, args.cluster)
     if args.cmd == "soak-child":
         res = soak(dev, args.seed)
         print(json.dumps(res), flush=True)

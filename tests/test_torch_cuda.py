@@ -38,6 +38,7 @@ from spnerf_torch.ops import field_eval as fe
 from spnerf_torch.render import build_render_fn, chunk_size
 from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
                                            batched_edge_case, edge_case)
+from spnerf_torch.utils.hold_b1 import f32_atol
 from spnerf_torch.utils.synth import fake_batch
 
 ATOL = 2e-2
@@ -66,15 +67,17 @@ def field_inputs(n, cfg, device, seed=0):
 F32_ATOL = 1e-4
 
 
-def packed_field(cfg, device, dtype="bfloat16", kernel=None):
+def packed_field(cfg, device, dtype="bfloat16", kernel=None, cluster=None):
     model = load_model(cfg, dtype, device=device,
                        generator=torch.Generator().manual_seed(0))
-    return model, fe.pack_params(model, dtype, kernel=kernel)
+    return model, fe.pack_params(model, dtype, kernel=kernel,
+                                 cluster=cluster)
 
 
-def hold_kernel(p, args, heads, dtype="bfloat16"):
+def hold_kernel(p, args, heads, dtype="bfloat16", f32_bar=F32_ATOL):
     """One launch against the plain version: the same outputs within ATOL
-    (F32_ATOL in float32), and one launch counted on the packed route."""
+    (`f32_bar`, F32_ATOL by default, in float32), and one launch counted on
+    the packed route."""
     before = fe.FusedField.launches
     on_route = fe.FusedField.route_launches[p.route]
     out = fe.FusedField(p, dtype)(*args, heads=heads)
@@ -83,7 +86,7 @@ def hold_kernel(p, args, heads, dtype="bfloat16"):
     assert fe.FusedField.route_launches[p.route] == on_route + 1
     ref = fe.PlainField(p, dtype)(*args, heads=heads)
     assert set(out) == set(ref), heads
-    atol = F32_ATOL if dtype == "float32" else ATOL
+    atol = f32_bar if dtype == "float32" else ATOL
     for k in ref:
         assert out[k].shape == ref[k].shape
         assert torch.isfinite(out[k]).all(), (heads, k)
@@ -353,25 +356,88 @@ def test_wide_kernel_other_shapes(device, dtype, kw, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cluster,width,kw,n", [
+    (4, 96, dict(beta=True), 130), (4, 160, {}, 65),
+    (8, 200, dict(beta=True, t_embedding_dims=20), 4 * 64 + 3),
+    (8, 512, {}, 1000), (4, 1536, {}, 1000), (8, 3072, dict(beta=True), 70)])
+def test_wide_kernel_on_clusters_of_four_and_eight(device, dtype, cluster,
+                                                   width, kw, n):
+    """The wgmma_wide kernel on clusters of 4 and 8 CTAs: forced at 96,
+    160, 200 and 512 (shares of 32 and 64 columns, a padded share), and
+    the route's own clusters at 1,536 (4) and 3,072 (8); all heads and the
+    solar pass against the plain version (float32 within `f32_atol`), each
+    launch equal bit for bit to a second one."""
+    cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3,
+                      fc_units=width, **kw)
+    _, p = packed_field(cfg, device, dtype, kernel="wgmma_wide",
+                        cluster=cluster)
+    assert p.cluster == cluster
+    args = field_inputs(n, cfg, device, seed=n)
+    for heads in (fe.ALL_HEADS, ("sun",)):
+        hold_kernel(p, args, heads, dtype, f32_atol(width))
+        a = fe.FusedField(p, dtype)(*args, heads=heads)
+        b = fe.FusedField(p, dtype)(*args, heads=heads)
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,width,classes,cluster", [
+    ("bfloat16", 1024, 150, 2), ("float32", 512, 150, 2),
+    ("float32", 512, 17, 2), ("bfloat16", 736, 64, 2),
+    ("float32", 96, 150, 4), ("bfloat16", 200, 150, 8)])
+def test_wide_kernel_wide_semantic_heads(device, dtype, width, classes,
+                                         cluster):
+    """Semantic heads of more than 16 classes on the wide kernel (the
+    logits in passes of 16 columns): every head subset against the plain
+    version on 65 points, each launch equal bit for bit to a second one;
+    the float32 fields of 512 and less route there too."""
+    cfg = ModelConfig(mapping=True, sem=True, beta=True,
+                      num_sem_classes=classes, fc_units=width)
+    if cluster == 2 and not (dtype == "bfloat16" and width % 32 == 0
+                             and width <= 640):
+        assert fe.route(cfg, dtype) == "wgmma_wide"
+    _, p = packed_field(cfg, device, dtype, kernel="wgmma_wide",
+                        cluster=cluster)
+    args = field_inputs(65, cfg, device, seed=classes)
+    for r in range(len(fe.ALL_HEADS) + 1):
+        for heads in itertools.combinations(fe.ALL_HEADS, r):
+            hold_kernel(p, args, heads, dtype)
+    a = fe.FusedField(p, dtype)(*args)
+    b = fe.FusedField(p, dtype)(*args)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
 def test_wide_stages_match_the_kernel(device):
-    """The wrapper's ring depth and shared-memory reckoning (`wide_stages`,
-    `wide_smem_bytes`, which `supports_wide` reads) are the kernel's own,
-    and at least one cluster of two CTAs fits the card at every width."""
+    """The wrapper's cluster, ring depth and shared-memory reckoning
+    (`wide_cluster`, `wide_stages`, `wide_smem_bytes`, which
+    `supports_wide` reads) are the kernel's own for clusters of 2, 4 and 8
+    CTAs, and at least one cluster of its CTAs fits the card at every
+    width the route takes."""
     import ctypes
 
     from spnerf_torch.ops import _build
 
     lib = _build.load("field_eval_wide")
-    lib.spnerf_field_eval_wide_clusters.argtypes = [ctypes.c_int] * 2
-    for width in range(0, 1057):
-        stages = fe.wide_stages(width)
-        assert lib.spnerf_field_eval_wide_stages(width) == stages, width
-        if stages:
-            assert (lib.spnerf_field_eval_wide_smem(width, stages)
-                    == fe.wide_smem_bytes(width, stages))
-    for width in (2, 80, 512, 768, 1024):
+    for name in ("stages", "smem", "clusters"):
+        getattr(lib, f"spnerf_field_eval_wide_{name}").argtypes = (
+            [ctypes.c_int] * 3)
+    widths = list(range(0, 1057)) + list(range(1057, fe.W_MAX + 2, 31)) + [
+        2048, 3072, fe.W_MAX, fe.W_MAX + 1]
+    for width in widths:
+        assert (lib.spnerf_field_eval_wide_cluster(width)
+                == fe.wide_cluster(width)), width
+        for c in (0, *fe.WIDE_CLUSTERS, 3):
+            stages = fe.wide_stages(width, c)
+            assert lib.spnerf_field_eval_wide_stages(width, c) == stages
+            if stages:
+                assert (lib.spnerf_field_eval_wide_smem(width, stages, c)
+                        == fe.wide_smem_bytes(width, stages, c))
+    for width in (2, 80, 512, 768, 1024, 1536, 2048, 3072, 4096):
         for bf16 in (0, 1):
-            assert lib.spnerf_field_eval_wide_clusters(width, bf16) >= 1
+            assert lib.spnerf_field_eval_wide_clusters(
+                width, bf16, fe.wide_cluster(width)) >= 1
 
 
 @pytest.mark.cuda

@@ -279,7 +279,8 @@ def test_route_and_reckoning_every_width(beta):
     bf16 takes wgmma within its envelope and wgmma_wide outside it; the
     ring fits 232,448 bytes at least a slab's chunks deep; the flagship's
     reckoning is pinned; 17 semantic classes leave the float32 flagship
-    to the general kernel."""
+    to the wide kernel (which took the general kernel's place there);
+    fc_units 1 (no module has one) takes no kernel."""
     for width in range(1, 1025):
         cfg = ModelConfig(fc_units=width, beta=beta, **FLAGSHIP)
         stages = tfe.f32_stages(width)
@@ -294,16 +295,16 @@ def test_route_and_reckoning_every_width(beta):
         assert tfe.supports_f32(cfg) is takes, width
         assert tfe.route(cfg, "float32") == (
             "wgmma_f32" if takes else "wgmma_wide" if width >= 2
-            else "general"), width
+            else None), width
         bf16 = tfe.route(cfg, "bfloat16")
         assert bf16 == ("wgmma" if tfe.supports_config(cfg) else
-                        "wgmma_wide" if width >= 2 else "general")
+                        "wgmma_wide" if width >= 2 else None)
     assert tfe.f32_stages(512) == 10
     assert tfe.f32_smem_bytes(512, 10) == 226_464
     assert tfe.f32_stages(256) == tfe.F32_MAX_STAGES
     cfg = ModelConfig(fc_units=512, **{**FLAGSHIP, "num_sem_classes": 17})
     assert not tfe.supports_f32(cfg)
-    assert tfe.route(cfg, "float32") == "general"
+    assert tfe.route(cfg, "float32") == "wgmma_wide"
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])

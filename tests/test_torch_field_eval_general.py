@@ -155,22 +155,22 @@ def test_pack_general_layout(dtype, width):
 
 
 def test_tile_and_smem_reckoning():
-    """Every width from 1 to W_MAX fits the general kernel's buffers and
+    """Every width from 1 to GEN_W_MAX fits the general kernel's buffers and
     stages in 232,448 bytes, with the flagship's input and a transient code
     of up to 32; the tile shrinks with the width (64, 32, 16 points); the
-    flagship's value is pinned; nothing wider than W_MAX is taken."""
-    assert tfe.W_MAX >= 1024
+    flagship's value is pinned; nothing wider than GEN_W_MAX is taken."""
+    assert tfe.GEN_W_MAX >= 1024
     for t_pad in (0, 16, 32):
         tiles = [tfe.general_tile_rows(w, 64, t_pad)
-                 for w in range(1, tfe.W_MAX + 1)]
+                 for w in range(1, tfe.GEN_W_MAX + 1)]
         assert all(t in (64, 32, 16) for t in tiles), t_pad
         assert tiles == sorted(tiles, reverse=True)
-        for w, bm in zip(range(1, tfe.W_MAX + 1), tiles):
+        for w, bm in zip(range(1, tfe.GEN_W_MAX + 1), tiles):
             assert tfe.general_smem_bytes(bm, w, 64, t_pad) <= tfe.SMEM_LIMIT
             if bm < 64:  # the next larger tile does not fit
                 assert tfe.general_smem_bytes(2 * bm, w, 64,
                                               t_pad) > tfe.SMEM_LIMIT
-        assert tfe.general_tile_rows(tfe.W_MAX + 1, 64, t_pad) == 0
+        assert tfe.general_tile_rows(tfe.GEN_W_MAX + 1, 64, t_pad) == 0
     # the flagship: 32-point tiles, 256-column passes, 174,080 bytes
     assert tfe.general_tile_rows(512, 64, 0) == 32
     assert tfe.general_pass_cols(32) == 256

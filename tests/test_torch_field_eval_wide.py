@@ -45,10 +45,11 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def wide_pack(width, dtype, seed=0, **kw):
+def wide_pack(width, dtype, seed=0, cluster=None, **kw):
     cfg = ModelConfig(fc_units=width, **{**FLAGSHIP, **kw})
     model = SPNeRF(cfg, generator=torch.Generator().manual_seed(seed))
-    return tfe.pack_params(model, dtype, kernel="wgmma_wide")
+    return tfe.pack_params(model, dtype, kernel="wgmma_wide",
+                           cluster=cluster)
 
 
 def _name_at(p, w_off):
@@ -56,18 +57,19 @@ def _name_at(p, w_off):
 
 
 def read_wide(p, name):
-    """A wide layer's weights as stored, both CTAs' halves stitched back
-    into (npad, k1 + k2) in the logical K order of the stages, unswizzled:
-    (hi, lo) in float32, (w, None) in bf16."""
+    """A wide layer's weights as stored, the shares of the cluster's
+    `p.cluster` CTAs stitched back into (npad, k1 + k2) in the logical K
+    order of the stages, unswizzled: (hi, lo) in float32, (w, None) in
+    bf16."""
     lp = p.layers[name]
-    ktot, h = lp.k1 + lp.k2, lp.npad // 2
+    ktot, h = lp.k1 + lp.k2, lp.npad // p.cluster
     ks = tfe.wide_ks(p.compute_dtype)
     ns = ktot // ks
     bf16 = p.compute_dtype == torch.bfloat16
     words = ks // 2 if bf16 else 2 * ks  # float32 words of a stage row
     start = lp.w_off // 4
     parts = []
-    for r in (0, 1):
+    for r in range(p.cluster):
         flat = p.w_all[start + r * ns * h * words:
                        start + (r + 1) * ns * h * words]
         if bf16:
@@ -86,9 +88,10 @@ def read_wide(p, name):
 
 def emulate_wide(p, prog, x_in, sun, t_in, policy):
     """The wgmma_wide kernel's schedule with torch ops over its program, on
-    weights read back from `w_all` at the offsets the kernel computes: the
-    activation buffer as two halves, CTA r's holding columns [r h, (r + 1)
-    h) of the layer that wrote it; each CTA's output columns of a layer
+    weights read back from `w_all` at the offsets the kernel computes, for
+    the pack's cluster of C = `p.cluster` CTAs: the activation buffer as C
+    shares, CTA r's holding columns [r h, (r + 1) h) of the layer that
+    wrote it; each CTA's output columns of a layer
     summed k step by k step (8 deep in float32, 16 in bf16) in the stages'
     K order, each step's exact products added to the float32 accumulator
     with one rounding, A read from the half that owns the step's columns;
@@ -96,28 +99,30 @@ def emulate_wide(p, prog, x_in, sun, t_in, policy):
     hi_a lo_b, hi_a hi_b; "bfloat16" rounds the activations to bf16 (the
     weights are packed so); "float32" takes the exact products of the
     float32 activations with the stored hi + lo.
-    A head output: each CTA's K half from the layer before (rounded to bf16
-    in bf16), its warpgroups' partial sums (64-column chunks, chunk j to
-    warpgroup j % 3) added rank 0's then rank 1's, then the bias."""
+    A head output: each CTA's K share from the layer before (rounded to
+    bf16 in bf16), its warpgroups' partial sums (64-column chunks, chunk j
+    to warpgroup j % 3) added rank 0's, then rank 1's, ..., then the bias;
+    its columns (npad of them, any number) in one go, as the kernel's
+    passes of TAIL_N columns sum each column the same way."""
     bf16 = policy == "bfloat16"
     step = 16 if bf16 else 8
     order_of = tfe.bf16_k_order if bf16 else tfe.f32_k_order
     n = x_in.shape[0]
-    half = tfe._ceil(p.cfg.fc_units, tfe.WIDE_NPAD) // 2
-    halves = [torch.zeros(n, half), torch.zeros(n, half)]
+    cl = p.cluster
+    share = tfe.wide_share(p.cfg.fc_units, cl)
+    shares = [torch.zeros(n, share) for _ in range(cl)]
     inputs = {2: x_in, 3: sun, 4: t_in}
     rnd = (lambda v: v.bfloat16().float()) if bf16 else (lambda v: v)
     res, prev = {}, None
     for w_off, b_off, k1, k2, npad, nreal, a1, a2, dst, epi, out in prog:
         bias = p.b_all[b_off:b_off + npad]
         if out >= 0:
-            wt = p.w_all[w_off // 4:w_off // 4 + k1 * tfe.TAIL_N].view(
-                k1, tfe.TAIL_N)
-            h = k1 // 2
+            wt = p.w_all[w_off // 4:w_off // 4 + k1 * npad].view(k1, npad)
+            h = k1 // cl
             s = None
-            for r in (0, 1):
+            for r in range(cl):
                 for g in range(3):
-                    part = torch.zeros(n, tfe.TAIL_N)
+                    part = torch.zeros(n, npad)
                     for j in range(g * 64, h, 3 * 64):
                         cols = slice(r * h + j, r * h + min(j + 64, h))
                         part += (rnd(prev[:, cols]).double()
@@ -131,9 +136,9 @@ def emulate_wide(p, prog, x_in, sun, t_in, policy):
                 continue
             a = torch.zeros(n, k)
             if src == 0:
-                hi_ = k // 2  # the writing layer's columns a CTA holds
-                a[:, :hi_] = halves[0][:, :hi_]
-                a[:, hi_:] = halves[1][:, :hi_]
+                hs = k // cl  # the writing layer's columns a CTA holds
+                for r in range(cl):
+                    a[:, r * hs:(r + 1) * hs] = shares[r][:, :hs]
             else:
                 v = inputs[src]
                 a[:, :v.shape[1]] = v
@@ -148,10 +153,10 @@ def emulate_wide(p, prog, x_in, sun, t_in, policy):
             terms = [(rnd(a), w_hi)]
         else:
             terms = [(a, w_hi if w_lo is None else w_hi + w_lo)]
-        h = npad // 2
+        h = npad // cl
         steps = (k1 + k2) // step
         y = torch.zeros(n, npad)
-        for r in (0, 1):
+        for r in range(cl):
             cols = slice(r * h, (r + 1) * h)
             # every k step's exact products at once, (steps, n, h) ...
             prods = sum(torch.einsum(
@@ -164,8 +169,8 @@ def emulate_wide(p, prog, x_in, sun, t_in, policy):
             y[:, cols] = acc
         prev = ACTS[epi](y + bias)
         if dst == 0:
-            halves[0][:, :h] = prev[:, :h]
-            halves[1][:, :h] = prev[:, h:]
+            for r in range(cl):
+                shares[r][:, :h] = prev[:, r * h:(r + 1) * h]
     res["sigma"] = res["sigma"][:, 0]
     return res
 
@@ -251,27 +256,34 @@ def test_pack_wide_layout(dtype, width, kw):
     matrix (bf16-rounded in bf16); the layers tile `w_all` exactly, every
     offset a multiple of 16 bytes; the biases are the module's."""
     p = wide_pack(width, dtype, **kw)
-    cd = tfe.as_dtype(dtype)
+    assert p.route == "wgmma_wide" and p.k0_pad == 64
+    check_wide_layout(p)
+
+
+def check_wide_layout(p):
+    """`test_pack_wide_layout`'s checks on the pack `p`, for its cluster's
+    `p.cluster` CTAs: the shares read back give the module's weights, the
+    layers tile `w_all`, the biases are the module's."""
+    cd = p.compute_dtype
     bf16 = cd == torch.bfloat16
     ks = tfe.wide_ks(cd)
     specs = {s[0]: s for s in layer_specs(p.cfg)}
-    assert p.route == "wgmma_wide" and p.k0_pad == 64
     end = 0
     for name, w, b in zip(p.names, p.ws, p.bs):
         lp = p.layers[name]
         segs = specs[name][1]
         assert lp.w_off == 4 * end and lp.w_off % 16 == 0, name
-        pads = tfe._wide_pads(name, segs, ks)
+        pads = tfe._wide_pads(name, segs, ks, p.cluster)
         assert [lp.k1, lp.k2][:len(segs)] == pads
         if name in tfe.TAILS:
-            assert lp.npad == tfe.TAIL_N
+            assert lp.npad == tfe._ceil(w.shape[1], tfe.TAIL_N)
             got = p.w_all[end:end + lp.k1 * lp.npad].view(lp.k1, lp.npad)
             want = torch.zeros_like(got)
             want[:w.shape[0], :w.shape[1]] = w.to(cd).float()
             assert torch.equal(got, want), name
             end += got.numel()
         else:
-            assert lp.npad == -(-w.shape[1] // 64) * 64
+            assert lp.npad == tfe.wide_npad(w.shape[1], p.cluster)
             assert all(k % ks == 0 for k in pads)
             wt = torch.zeros(lp.npad, lp.k1 + lp.k2)
             src = dst = 0
@@ -310,24 +322,31 @@ def test_bf16_k_order():
 
 
 def test_smem_and_ring_reckoning():
-    """At every width from 2 to W_MAX the ring is at least a CTA's chunks
-    of a layer deep (and 2), fits 232,448 bytes beside the buffer half, and
-    is as deep as fits up to WIDE_MAX_STAGES; nothing outside 2 .. W_MAX;
-    the values at 768 and 1024 are pinned."""
-    assert tfe.W_MAX == 1024
+    """At every width from 2 to W_MAX (4,096), on its clusters of 2, 4 or
+    8 CTAs, each CTA owns whole 32-column chunks, at most 512 columns, and
+    the ring is at least a CTA's chunks of a layer deep (and 2), fits
+    232,448 bytes beside the buffer share, and is as deep as fits up to
+    WIDE_MAX_STAGES; nothing outside 2 .. W_MAX; the values at 768, 1024,
+    2048 and 4096 are pinned."""
+    assert tfe.W_MAX == 4096
     for width in range(2, tfe.W_MAX + 1):
+        c = tfe.wide_cluster(width)
+        assert c == (2 if width <= 1024 else 4 if width <= 2048 else 8)
+        share = tfe.wide_share(width)
+        assert share % 32 == 0 and share <= tfe.WIDE_SHARE_MAX, width
         stages = tfe.wide_stages(width)
-        chunks = -(-(tfe._ceil(width, 64) // 2) // 64)
-        assert stages >= max(2, chunks), width
+        assert stages >= max(2, -(-share // 64)), width
         assert tfe.wide_smem_bytes(width, stages) <= tfe.SMEM_LIMIT
         if stages < tfe.WIDE_MAX_STAGES:
             assert tfe.wide_smem_bytes(width, stages + 1) > tfe.SMEM_LIMIT
-    for width in (0, 1, tfe.W_MAX + 1, 2048):
-        assert tfe.wide_stages(width) == 0
+    for width in (0, 1, tfe.W_MAX + 1, 8192):
+        assert tfe.wide_stages(width) == 0 and tfe.wide_cluster(width) == 0
     assert tfe.wide_stages(1024) == 10
     assert tfe.wide_smem_bytes(1024, 10) == 226_480
     assert tfe.wide_stages(768) == 12
     assert tfe.wide_smem_bytes(768, 12) == 210_128
+    assert tfe.wide_stages(2048) == tfe.wide_stages(4096) == 10
+    assert tfe.wide_smem_bytes(4096, 10) == 226_480
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
@@ -338,14 +357,18 @@ def test_smem_and_ring_reckoning():
     (736, False, 16, 3), (736, True, 16, 3), (768, False, 16, 3),
     (768, True, 16, 3), (1024, False, 16, 3), (1024, True, 16, 3),
     (80, True, 16, 3), (512, True, 32, 3), (768, False, 16, 17),
-    (1056, False, 16, 3)])
+    (1056, False, 16, 3), (1025, True, 16, 3), (2048, False, 16, 3),
+    (4096, True, 16, 3), (4097, False, 16, 3), (512, False, 16, 17),
+    (512, True, 16, 64), (1024, False, 16, 150), (4096, False, 16, 150)])
 def test_route_table(device, dtype, width, beta, t_dims, classes):
-    """bf16 within the wgmma envelope takes "wgmma" and float32 up to 512
-    "wgmma_f32" (the flagship among them, unchanged); what neither takes
-    goes to "wgmma_wide" up to W_MAX with at most 16 semantic classes (bf16
-    wider than 704 or 640 with beta, 80, a transient code of 32; float32
-    from 544), 17 classes to "general", wider fields to no kernel; only CUDA
-    renders take a kernel."""
+    """bf16 within the wgmma envelope takes "wgmma" (any number of classes)
+    and float32 up to 512 with at most 16 classes "wgmma_f32" (the flagship
+    among them, unchanged); what neither takes goes to "wgmma_wide" up to
+    W_MAX (4,096) with any number of semantic classes (bf16 wider than 704
+    or 640 with beta, 80, a transient code of 32; float32 from 544, and at
+    512 with 17 or 64 classes; 17 classes took "general" before), wider
+    fields to no kernel; "general" for none; only CUDA renders take a
+    kernel."""
     cfg = ModelConfig(fc_units=width, beta=beta, t_embedding_dims=t_dims,
                       mapping=True, sem=True, num_sem_classes=classes)
     bf16 = dtype == "bfloat16"
@@ -357,14 +380,12 @@ def test_route_table(device, dtype, width, beta, t_dims, classes):
         want = "wgmma"
     elif not bf16 and width <= tfe.F32_W_MAX and classes <= 16:
         want = "wgmma_f32"
-    elif classes <= 16:
-        want = "wgmma_wide"
     else:
-        want = "general"
+        want = "wgmma_wide"
     if (width, beta, classes) == (512, False, 3) and t_dims == 16:
         assert want == ("wgmma" if bf16 else "wgmma_f32")
     assert tfe.supports_config(cfg) is (envelope and width <= tfe.W_MAX)
-    assert tfe.supports_wide(cfg) is (width <= tfe.W_MAX and classes <= 16)
+    assert tfe.supports_wide(cfg) is (width <= tfe.W_MAX)
     assert tfe.route(cfg, dtype) == want
     assert tfe.route(cfg, tfe.as_dtype(dtype)) == want
     assert tfe.uses_fused_kernel(device, cfg, dtype) is (
@@ -373,19 +394,32 @@ def test_route_table(device, dtype, width, beta, t_dims, classes):
 
 def test_pack_for_the_wide_kernel():
     """`kernel="wgmma_wide"` packs any width of the family up to W_MAX in
-    either dtype (the flagship too, to time it beside the one-CTA kernels);
-    17 semantic classes, a field wider than W_MAX or outside the family
-    raise; the route's own packing goes to it where `route` says so."""
+    either dtype (the flagship too, to time it beside the one-CTA kernels),
+    on clusters of 2 below 1,025 wide or of a forced 4 or 8; 17 semantic
+    classes pack (the logits' weight padded to 32 columns, two passes of
+    TAIL_N), and float32 routes there; another cluster size, or a field
+    outside the family, raises; the route's own packing goes to it where
+    `route` says so."""
     model = SPNeRF(ModelConfig(fc_units=64, **FLAGSHIP))
     for dtype in ("bfloat16", "float32"):
         p = tfe.pack_params(model, dtype, kernel="wgmma_wide")
-        assert p.route == "wgmma_wide"
+        assert p.route == "wgmma_wide" and p.cluster == 2
         assert p.compute_dtype == tfe.as_dtype(dtype)
+        for c in (4, 8):
+            assert tfe.pack_params(model, dtype, kernel="wgmma_wide",
+                                   cluster=c).cluster == c
+        for c in (1, 3, 16):
+            with pytest.raises(ValueError):
+                tfe.pack_params(model, dtype, kernel="wgmma_wide", cluster=c)
     assert tfe.pack_params(model, "float32").route == "wgmma_f32"
+    assert tfe.pack_params(model, "float32").cluster == 0
+    with pytest.raises(ValueError):
+        tfe.pack_params(model, "float32", cluster=4)
     many = SPNeRF(ModelConfig(fc_units=64, **{**FLAGSHIP,
                                               "num_sem_classes": 17}))
-    with pytest.raises(ValueError):
-        tfe.pack_params(many, "bfloat16", kernel="wgmma_wide")
+    p = tfe.pack_params(many, "bfloat16", kernel="wgmma_wide")
+    assert p.layers["sem1"].npad == 32 and p.layers["sem1"].nreal == 17
+    assert tfe.pack_params(many, "float32").route == "wgmma_wide"
     wide = SPNeRF(ModelConfig(fc_units=544, **FLAGSHIP))
     assert tfe.pack_params(wide, "float32").route == "wgmma_wide"
     assert tfe.pack_params(wide, "float32", kernel="general").route == (
