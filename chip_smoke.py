@@ -38,10 +38,10 @@ Phases, each fatal on failure:
      only. The subset rendered with compute_dtype="float32" on the card
      launches the wgmma_f32 kernel 3 times a chunk (no other) and agrees
      with that plain float32 render within F32_ATOL; the float32 view
-     launches it 3 times a chunk and no other, and is timed (median of 3
-     after a warm-up) through it, through the general kernel (weights
-     packed for it: the parent's route) and through the module (the float32
-     route before that, a yardstick), in turns;
+     launches it 3 times a chunk and no other, and is timed (once, each
+     route warmed up by its check) through it, through the general
+     kernel (weights packed for it: the parent's route) and through the
+     module (the float32 route before that, a yardstick), in turns;
   5. at the main path's shapes (chunk x n_samples points for the coarse and
      guided passes, chunk x the merged samples per ray for the solar pass),
      hold each launch against its plain version and time both (CUDA events,
@@ -237,11 +237,10 @@ Phases, each fatal on failure:
      flags without --sem: the prepared data has no semantic labels, as
      the JAX package's create_dataset writes none) for PREP_STEPS steps at
      --img_downscale 1, validated (B1 launches counted), then each B1
-     launch of the test view's first and ragged last chunk held on the
-     trained field's samples at KERNEL_ATOL (past it, every output within
-     WIDE_CONTROL_SHARE of its float32 control and TC_CONTROL_SHARE of its
-     tensor-core control, the plain bf16 field with TF32 on; each output's
-     distances recorded; `spnerf_torch/utils/hold_b1.py`) and
+     launch of the test view's first and ragged last chunk held at
+     KERNEL_ATOL on the trained field's samples (each output's distance
+     recorded beside its float32 control and its tensor-core control, the
+     plain bf16 field with TF32 on; `spnerf_torch/utils/hold_b1.py`) and
      the render against
      the plain render at RENDER_P99/RENDER_MAX, the plain float32 control
      beside it; (c) the hash family 10 steps at --img_downscale 4 on the
@@ -305,8 +304,7 @@ Phases, each fatal on failure:
      (a) random fields of 1,536 and 2,048 wide (clusters of 4) and 3,072
      and 4,096 (clusters of 8) in bf16 and float32, all heads and the
      solar pass's, on 8,192 and 9,217 points, each launch held against the
-     plain version (KERNEL_ATOL; F32_ATOL, scaled by the width over 2,048
-     past it: `hold_b1.f32_atol`) and equal bit for bit to a
+     plain version (KERNEL_ATOL; F32_ATOL) and equal bit for bit to a
      second one; (b) the same for 150-class fields at 1,024 in bf16 and 512
      in float32 (clusters of two, the logits in passes of 16 columns); (c)
      the training CLI at `--fc_units 2048` in bf16 (phase 13's flagship
@@ -318,8 +316,10 @@ Phases, each fatal on failure:
      WIDE_CONTROL_SHARE of its float32 control and TC_CONTROL_SHARE of its
      tensor-core control), `tools render --step best` (the same launches,
      the logged PSNR and SSIM); (d) the all-head launch at 2,048 and 4,096
-     in both dtypes on 65,536 points, timed beside its tensor-core bound,
-     the plain version, `gemm_ms`, `gemm_ms_f32` and the float32 module;
+     in both dtypes on 65,536 points, timed (CUDA events and profiler
+     device time) beside its tensor-core bound, the plain version,
+     `gemm_ms`, `gemm_ms_f32` and the float32 module (`wide_times` and
+     `yardsticks`, as phase 5's);
      (e) the clusters of 2, 4 and 8 that fit the card. Its numbers on one
      `{"cluster": ...}` line;
   and print the `kernels` line (B1's `launches_cli`, B2's and B3's from
@@ -527,6 +527,49 @@ def gemm_fn(cfg, heads, n, device, dtype=torch.bfloat16):
         ops.append((torch.randn(n, k, device=device, dtype=dtype),
                     torch.randn(k, m, device=device, dtype=dtype)))
     return lambda: [torch.matmul(a, b) for a, b in ops]
+
+
+def wide_times(pk, dtype, args, heads, reps):
+    """One launch shape of the wide route (phases 5 and 21): its time (CUDA
+    events over `reps` launches), its device time (profiler), the plain
+    version's time, and its bound at `dtype`: the larger of its products
+    at the tensor cores' rate (three TF32 products in float32) and its
+    bytes (the inputs, the outputs and the packed weights once) at the
+    memory's; "flops" and "bytes" beside it."""
+    from spnerf_torch.ops import field_eval as fe
+
+    cfg, n = pk.cfg, args[0].shape[0]
+    field, plain = fe.FusedField(pk, dtype), fe.PlainField(pk, dtype)
+    flops = fe.flops_per_point(cfg, heads) * n
+    outs = sum(w for _, w in fe.active_outputs(cfg, heads))
+    nbytes = (n * (fe.in_width(cfg) + 3 + outs) * 4
+              + pk.w_all.numel() * 4 + pk.b_all.numel() * 4)
+    tensor = (flops / PEAK_BF16 if dtype == "bfloat16"
+              else 3 * flops / PEAK_TF32)
+    return {"ms": cuda_ms(lambda: field(*args, heads=heads), reps),
+            "device_ms": device_ms(lambda: field(*args, heads=heads), 1,
+                                   keys=("field_eval_wide",))["kernel"],
+            "plain_ms": cuda_ms(lambda: plain(*args, heads=heads), 1),
+            "bound_ms": max(tensor, nbytes / PEAK_BYTES) * 1e3,
+            "bound_by": ("operations" if tensor >= nbytes / PEAK_BYTES
+                         else "bytes"),
+            "flops": flops, "bytes": nbytes}
+
+
+def yardsticks(cfg, heads, args, module, device):
+    """A launch shape's yardsticks (phases 5 and 21), never the port's:
+    `gemm_ms`, the same products as bf16 `torch.matmul`; `gemm_ms_f32`,
+    as float32 ones; `module_ms`, the float32 module on the inputs."""
+    n = args[0].shape[0]
+    rec = {}
+    for key, dtype, reps in (("gemm_ms", torch.bfloat16, 2),
+                             ("gemm_ms_f32", torch.float32, 1)):
+        gemm = gemm_fn(cfg, heads, n, device, dtype)
+        rec[key] = cuda_ms(gemm, reps)
+        del gemm
+    with torch.no_grad():
+        rec["module_ms"] = cuda_ms(lambda: module(*args, heads=heads), 1)
+    return rec
 
 
 def module_render_fn(model, rc, *args):
@@ -1299,6 +1342,7 @@ def wide_pass(device, card, project, n_view=N_VIEW):
     outs = []
     r["held"] = hold_b1_launches(lambda: outs.append(render(rays, 0, sems)),
                                  f"fc_units {units} run, first chunk",
+                                 controls=True,
                                  control_share=WIDE_CONTROL_SHARE,
                                  tc_share=TC_CONTROL_SHARE)
     if r["held"]["routes"] != ["wgmma_wide"]:
@@ -1435,7 +1479,7 @@ def cluster_pass(device, card, project):
     """Phase 21: the wide route on clusters of 4 and 8 CTAs and with wide
     semantic heads. (a) every width of CLUSTER_WIDTHS in both dtypes (random
     weights), all heads and the solar pass's, on CLUSTER_POINTS points:
-    each launch held against the plain version (KERNEL_ATOL; `f32_atol`)
+    each launch held against the plain version (KERNEL_ATOL; F32_ATOL)
     and equal bit for bit to a second one; (b) the same for SEM_FIELDS at
     SEM_CLASSES classes; (c) the training CLI at --fc_units 2048 in bf16 on
     phase 12's AOI under `project`, 3 steps (the batch halved where the step
@@ -1443,11 +1487,13 @@ def cluster_pass(device, card, project):
     clusters of 4 (launches counted by route), every launch of a
     validation pass's render held under the bar of a trained field
     (KERNEL_ATOL; past it, within WIDE_CONTROL_SHARE of the plain float32
-    control and TC_CONTROL_SHARE of the tensor-core control), then `tools
+    control and TC_CONTROL_SHARE of the tensor-core control, which are
+    taken only for such a launch), then `tools
     render --step best` (its launches counted, its PSNR and SSIM the
     logged ones); (d) the all-head launch at CLUSTER_TIMED widths in both
     dtypes on N_TIME points, timed beside its tensor-core bound, the plain
-    version, `gemm_ms`, `gemm_ms_f32` and the float32 module; (e) the
+    version, `gemm_ms`, `gemm_ms_f32` and the float32 module (`wide_times`
+    and `yardsticks`, as phase 5's); (e) the
     clusters of each size that fit the card. Returns the record it
     prints."""
     from spnerf_torch.cli import train as cli_train
@@ -1487,8 +1533,7 @@ def cluster_pass(device, card, project):
         if fe.FusedField.route_launches["wgmma_wide"] != before + 2:
             fail(f"{tag}: not two launches on the wide route")
         ref = fe.PlainField(pk, dtype)(*args, heads=heads)
-        atol = (hold_b1.f32_atol(pk.cfg.fc_units) if dtype == "float32"
-                else KERNEL_ATOL)
+        atol = F32_ATOL if dtype == "float32" else KERNEL_ATOL
         err = 0.0
         for k in ref:
             e = (a[k] - ref[k]).abs().max().item()
@@ -1631,8 +1676,7 @@ def cluster_pass(device, card, project):
     for width in CLUSTER_TIMED:
         cfg = replace(fmc, fc_units=width)
         xyz, sun, sems = field_inputs(N_TIME, 3, device, cfg.num_sem_classes)
-        flops = fe.flops_per_point(cfg) * N_TIME
-        outs = sum(w for _, w in fe.active_outputs(cfg, fe.ALL_HEADS))
+        args = (xyz, sun, None, sems)
         t = times[str(width)] = {"n": N_TIME,
                                  "cluster": fe.wide_cluster(width)}
         module = None
@@ -1640,39 +1684,24 @@ def cluster_pass(device, card, project):
             model = load_model(cfg, dtype, device=device,
                                generator=torch.Generator().manual_seed(0))
             pk = fe.pack_params(model, dtype)
-            field, plain = fe.FusedField(pk, dtype), fe.PlainField(pk, dtype)
-            reps = 2 if dtype == "bfloat16" else 1
-            nbytes = (N_TIME * (fe.in_width(cfg) + 3 + outs) * 4
-                      + pk.w_all.numel() * 4 + pk.b_all.numel() * 4)
-            tensor = (flops / PEAK_BF16 if dtype == "bfloat16"
-                      else 3 * flops / PEAK_TF32)
-            d = t[dtype] = {
-                "ms": cuda_ms(lambda: field(xyz, sun, None, sems), reps),
-                "plain_ms": cuda_ms(lambda: plain(xyz, sun, None, sems), 1),
-                "bound_ms": max(tensor, nbytes / PEAK_BYTES) * 1e3,
-                "bound_by": ("operations" if tensor >= nbytes / PEAK_BYTES
-                             else "bytes")}
+            d = t[dtype] = wide_times(pk, dtype, args, fe.ALL_HEADS,
+                                      2 if dtype == "bfloat16" else 1)
             d["share_of_bound"] = d["bound_ms"] / d["ms"]
             if dtype == "float32":
                 module = module_at(model, "float32")
-            del model, pk, field, plain
+            del model, pk
             torch.cuda.empty_cache()
-        gemm = gemm_fn(cfg, fe.ALL_HEADS, N_TIME, device)
-        t["gemm_ms"] = cuda_ms(gemm, 2)
-        del gemm
-        gemm = gemm_fn(cfg, fe.ALL_HEADS, N_TIME, device, torch.float32)
-        t["gemm_ms_f32"] = cuda_ms(gemm, 1)
-        del gemm
-        with torch.no_grad():
-            t["module_ms"] = cuda_ms(lambda: module(xyz, sun, None, sems), 1)
-        del module
+        t.update(yardsticks(cfg, fe.ALL_HEADS, args, module, device))
+        del module, args, xyz, sun, sems
         torch.cuda.empty_cache()
         b16, f32 = t["bfloat16"], t["float32"]
         log(f"field_eval wgmma_wide fc_units {width} (clusters of "
             f"{t['cluster']}), all heads on {N_TIME} points: bf16 "
-            f"{b16['ms']:.3f} ms ({b16['share_of_bound']:.1%} of its bound "
-            f"{b16['bound_ms']:.3f}), float32 {f32['ms']:.3f} ms "
-            f"({f32['share_of_bound']:.1%} of {f32['bound_ms']:.3f}); plain "
+            f"{b16['ms']:.3f} ms (device {b16['device_ms']} ms; "
+            f"{b16['share_of_bound']:.1%} of its bound "
+            f"{b16['bound_ms']:.3f}), float32 {f32['ms']:.3f} ms (device "
+            f"{f32['device_ms']} ms; {f32['share_of_bound']:.1%} of "
+            f"{f32['bound_ms']:.3f}); plain "
             f"{t['bfloat16']['plain_ms']:.3f} / {t['float32']['plain_ms']:.3f}"
             f" ms, bf16 matmuls alone {t['gemm_ms']:.3f} ms, float32 "
             f"{t['gemm_ms_f32']:.3f} ms, float32 module {t['module_ms']:.3f}"
@@ -2526,7 +2555,7 @@ def mesh_pass(device, card, project, n_view=813 * 793):
 
 # ---------------------------------------------------------------- phase 16
 # the data-prep tail: a raw AOI prepared, scored, trained and validated
-PREP_STEPS = 150  # steps of (b): a trained field, within the run's time
+PREP_STEPS = 300
 DEPTH_MAE_BAR = 0.05  # m: the lidar's own surface through the splat
 UTM_ROUND_TRIP_BAR = 1e-4  # m: UTM text and back to ECEF
 # the flagship's flags as phase 13 takes them, without --sem: the prepared
@@ -2723,8 +2752,7 @@ def prep_pass(device, card, hold_hash):
             outs = []
             held = hold_b1_launches(lambda: outs.append(render(rays[sl], 0)),
                                     f"prepared flagship, {tag} chunk",
-                                    control_share=WIDE_CONTROL_SHARE,
-                                    tc_share=TC_CONTROL_SHARE)
+                                    controls=True)
             launch_errs.append(held["max_abs_err"])
             out, ref, ctl = outs[0], plain(rays[sl], 0), plain32(rays[sl], 0)
             errs = {"launches_held": held["launches_held"],
@@ -2751,9 +2779,7 @@ def prep_pass(device, card, hold_hash):
         log(f"prepared flagship: {PREP_STEPS} steps in {r['s']:.1f} s, MAE "
             f"{r['val']['val']['mae']:.4f} m, B1 launches {r['b1']}, each "
             f"held launch within {r['launch_max_abs_err']:.3g} of its plain "
-            f"version (KERNEL_ATOL {KERNEL_ATOL}; past it, within "
-            f"{WIDE_CONTROL_SHARE} of its float32 control and "
-            f"{TC_CONTROL_SHARE} of its tensor-core control) ({card})")
+            f"version (KERNEL_ATOL {KERNEL_ATOL}) ({card})")
         del state, scene, render, plain, plain32
         torch.cuda.empty_cache()
 
@@ -3106,7 +3132,7 @@ def main():
 
     # the float32 view through the wgmma_f32 kernel, through the general
     # kernel (the parent's route) and through the module (the route before
-    # it), in turns: one warm-up round, 3 timed
+    # it), in turns: one timed round (the renders above warmed each up)
     module32 = module_render_fn(model, rc32)
     general32 = general_render_fn(model, rc32)
     reset_b1()
@@ -3127,22 +3153,19 @@ def main():
     vs_general = max((view32[k] - ref32[k]).abs().max().item()
                      for k in ref32)
     del view32, ref32
-    runs32 = {"kernel": [], "general": [], "module": []}
-    for _ in range(4):
-        for tag, fn in (("kernel", render32), ("general", general32),
-                        ("module", module32)):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(rays, 0, vsems)
-            end.record()
-            torch.cuda.synchronize()
-            runs32[tag].append(start.elapsed_time(end))
-    view32_rec = {"view_ms_f32": float(np.median(runs32["kernel"][1:])),
-                  "view_ms_f32_general":
-                      float(np.median(runs32["general"][1:])),
-                  "view_ms_f32_module": float(np.median(runs32["module"][1:])),
-                  "runs": {k: v[1:] for k, v in runs32.items()},
+    runs32 = {}
+    for tag, fn in (("kernel", render32), ("general", general32),
+                    ("module", module32)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(rays, 0, vsems)
+        end.record()
+        torch.cuda.synchronize()
+        runs32[tag] = start.elapsed_time(end)
+    view32_rec = {"view_ms_f32": runs32["kernel"],
+                  "view_ms_f32_general": runs32["general"],
+                  "view_ms_f32_module": runs32["module"],
                   "launches": launches32,
                   "max_abs_diff_vs_module": vs_module,
                   "max_abs_diff_vs_general": vs_general, "card": card}
@@ -3382,8 +3405,7 @@ def main():
         for tag, (heads, n_pts) in launch_shapes(rc, chunk,
                                                  fe.ALL_HEADS).items():
             xyz, sun, sems = field_inputs(n_pts, 2, device, mc.num_sem_classes)
-            flops = fe.flops_per_point(wc, heads) * n_pts
-            outs = sum(w for _, w in fe.active_outputs(wc, heads))
+            args = (xyz, sun, None, sems)
             r = wide_rec[f"{width} {tag}"] = {"fc_units": width, "n": n_pts,
                                               "heads": tag}
             for dtype in ("bfloat16", "float32"):
@@ -3410,44 +3432,26 @@ def main():
                     else:
                         gen_err[dtype] = max(gen_err[dtype], err)
                     del out
-                    d[name] = {"ms": cuda_ms(
-                        lambda: fw(xyz, sun, None, sems, heads=heads),
-                        2 if name == "wgmma_wide" else 1),
-                        "max_abs_err": err}
+                    d[name] = {"max_abs_err": err}
                 del ref
-                d["wgmma_wide"]["device_ms"] = device_ms(
-                    lambda: fields["wgmma_wide"](xyz, sun, None, sems,
-                                                 heads=heads), 1,
-                    keys=("field_eval_wide",))["kernel"]
-                d["plain_ms"] = cuda_ms(lambda: plain_w(xyz, sun, None, sems,
-                                                        heads=heads), 1)
-                nbytes = (n_pts * (fe.in_width(wc) + 3 + outs) * 4
-                          + pk.w_all.numel() * 4 + pk.b_all.numel() * 4)
-                tensor = (flops / PEAK_BF16 if dtype == "bfloat16"
-                          else 3 * flops / PEAK_TF32)
-                d["bound_ms"] = max(tensor, nbytes / PEAK_BYTES) * 1e3
-                d["bound_by"] = ("operations" if tensor >= nbytes / PEAK_BYTES
-                                 else "bytes")
-                d["bound_ms_ffma"] = max(flops / PEAK_F32,
-                                         nbytes / PEAK_BYTES) * 1e3
+                t = wide_times(pk, dtype, args, heads, 2)
+                d["wgmma_wide"].update(ms=t.pop("ms"),
+                                       device_ms=t.pop("device_ms"))
+                d.update(t)
+                d["general"]["ms"] = cuda_ms(
+                    lambda: fields["general"](*args, heads=heads), 1)
+                d["bound_ms_ffma"] = max(d["flops"] / PEAK_F32,
+                                         d["bytes"] / PEAK_BYTES) * 1e3
                 for name, bound in (("wgmma_wide", d["bound_ms"]),
                                     ("general", d["bound_ms_ffma"])):
                     ms = d[name]["ms"]
                     log(f"field_eval {name} {dtype} fc_units {width} "
                         f"heads={tag}: {n_pts} points, {ms:.3f} ms "
-                        f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of "
-                        f"its bound {bound:.3f} ms), max abs err "
-                        f"{d[name]['max_abs_err']:.3g} ({card})")
+                        f"({d['flops'] / ms / 1e9:.1f} TFLOP/s, "
+                        f"{bound / ms:.1%} of its bound {bound:.3f} ms), max "
+                        f"abs err {d[name]['max_abs_err']:.3g} ({card})")
                 del fields, plain_w, pk
-            gemm = gemm_fn(wc, heads, n_pts, device)
-            r["gemm_ms"] = cuda_ms(gemm, 2)
-            del gemm
-            gemm = gemm_fn(wc, heads, n_pts, device, torch.float32)
-            r["gemm_ms_f32"] = cuda_ms(gemm, 1)
-            del gemm
-            with torch.no_grad():
-                r["module_ms"] = cuda_ms(lambda: module(xyz, sun, None, sems,
-                                                        heads=heads), 1)
+            r.update(yardsticks(wc, heads, args, module, device))
             log(f"  fc_units {width} heads={tag}: wide device "
                 f"{r['bfloat16']['wgmma_wide']['device_ms']} / "
                 f"{r['float32']['wgmma_wide']['device_ms']} ms (bf16 / "
@@ -3456,7 +3460,7 @@ def main():
                 f"{r['gemm_ms']:.3f} ms, float32 matmuls alone "
                 f"{r['gemm_ms_f32']:.3f} ms, float32 module "
                 f"{r['module_ms']:.3f} ms ({card})")
-            del xyz, sun, sems
+            del xyz, sun, sems, args
             torch.cuda.empty_cache()
         del models, module
     log("wide: " + json.dumps(wide_rec))

@@ -22,7 +22,20 @@
 //   products, lo_a hi_b + hi_a lo_b + hi_a hi_b (hi = tf32_rna(a), lo =
 //   tf32_rna(a - hi); the weights split when packed, the activations in
 //   registers as they are loaded; lo_a lo_b, 2^-22 of the product, is
-//   dropped), wgmma m64nNk8 into float32 accumulators, as field_eval_f32.cu;
+//   dropped), wgmma m64nNk8 into float32 accumulators, as
+//   field_eval_f32.cu. The tensor cores round each wgmma's sum toward zero,
+//   so one accumulator through the whole K drifts with the depth, 3 K / 8
+//   roundings a column, all toward zero: against the plain float32 version
+//   2.6e-5 at 1,024 wide, 5.5e-5 at 2,048 and 1.04e-4 at 4,096, past
+//   F32_ATOL (1e-4). Past 1,024 wide (clusters of 4 and 8, SLAB_SUMS) a
+//   chunk's six wgmmas of one 16-deep slab go to a fresh partial sum
+//   instead, which is added to the accumulators rounded to nearest
+//   (__fadd_rn): 2.7e-6 at 2,048, 3.9e-6 at 4,096. The partial takes 32
+//   registers and a wait per chunk and slab, which cost the float32 launch
+//   ~50% at 2,048 and 4,096 and ~60% at 1,024, where one accumulator keeps
+//   0.26 of F32_ATOL and its time (utils/f32_sums.py emulates both forms
+//   on the CPU and holds the kernel against a parent's on the card;
+//   PERF.md section 6);
 // - bf16: one bf16 product, wgmma m64nNk16, the activation rounded to bf16
 //   (round to nearest even) as its A fragment is loaded and the weight when
 //   packed: every use of an activation is a product operand, so this is the
@@ -453,10 +466,11 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// d (64 x N, float32) += A (64 x 8, TF32 in registers) x B (8 x N, TF32
-// K-major in shared memory), N = 64 or 32
+// d (64 x N, float32) = A (64 x 8, TF32 in registers) x B (8 x N, TF32
+// K-major in shared memory) + d where acc is 1, + 0 where it is 0 (the first
+// product of a fresh partial sum); N = 64 or 32
 __device__ __forceinline__ void tf32_n64(float* d, const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -470,11 +484,11 @@ __device__ __forceinline__ void tf32_n64(float* d, const uint32_t (&a)[4],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 __device__ __forceinline__ void tf32_n32(float* d, const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
@@ -484,7 +498,7 @@ __device__ __forceinline__ void tf32_n32(float* d, const uint32_t (&a)[4],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 // d (64 x N, float32) += A (64 x 16, bf16 in registers) x B (16 x N, bf16
@@ -627,12 +641,13 @@ __device__ __forceinline__ void load_frag(const WideDesc& d, const Src& s,
 
 // The products of k step kk of a stage on one chunk of NC columns. float32:
 // the fragment's hi and lo parts against the stage's hi half (bytes 0-63 of
-// every row) and lo half (64-127), the small terms first, then hi x hi.
-// bf16: one product, the step's 32 bytes of every row.
+// every row) and lo half (64-127), the small terms first, then hi x hi; the
+// first adds to `acc`'s values where `keep` is 1 and overwrites them where it
+// is 0. bf16: one product, the step's 32 bytes of every row, added.
 template <bool BF16, int NC>
 __device__ __forceinline__ void step_mma(float* acc, const uint32_t (&hi)[4],
                                          const uint32_t (&lo)[4],
-                                         uint32_t stage, int kk) {
+                                         uint32_t stage, int kk, int keep) {
   if (BF16) {
     const uint64_t b = sdesc(stage + 32 * kk);
     if (NC == 64) bf16_n64(acc, hi, b);
@@ -641,13 +656,13 @@ __device__ __forceinline__ void step_mma(float* acc, const uint32_t (&hi)[4],
     const uint64_t bh = sdesc(stage + 32 * kk);
     const uint64_t bl = sdesc(stage + 64 + 32 * kk);
     if (NC == 64) {
-      tf32_n64(acc, lo, bh);
-      tf32_n64(acc, hi, bl);
-      tf32_n64(acc, hi, bh);
+      tf32_n64(acc, lo, bh, keep);
+      tf32_n64(acc, hi, bl, 1);
+      tf32_n64(acc, hi, bh, 1);
     } else {
-      tf32_n32(acc, lo, bh);
-      tf32_n32(acc, hi, bl);
-      tf32_n32(acc, hi, bh);
+      tf32_n32(acc, lo, bh, keep);
+      tf32_n32(acc, hi, bl, 1);
+      tf32_n32(acc, hi, bh, 1);
     }
   }
 }
@@ -700,6 +715,9 @@ template <bool BF16, int C>
 __global__ void __launch_bounds__(THREADS, 1)
 field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
   using P = Policy<BF16>;
+  // float32 past 1,024 wide: each slab's products into a fresh partial sum
+  // ("Numerics" above)
+  constexpr bool SLAB_SUMS = !BF16 && C > 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -790,6 +808,10 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
         for (int k = 0; k < 32; ++k) acc[c][k] = 0.0f;
         fence_operands(acc[c]);
       }
+      // SLAB_SUMS: a chunk's partial sum over one slab
+      float part[SLAB_SUMS ? 32 : 1];
+#pragma unroll
+      for (int k = 0; k < (SLAB_SUMS ? 32 : 1); ++k) part[k] = 0.0f;
       // the slab's A fragments; the next slab's are loaded while this
       // slab's products run. float32: raw floats, split at the products
       // (the wgmmas read the split registers only); bf16: the bf16 pairs
@@ -826,36 +848,75 @@ field_eval_wide_kernel(const __grid_constant__ WideDesc d) {
           if (!mine && lane == 0) mbar_arrive(empty + 8 * slot);
         }
         if (!nc[0]) continue;
+        if constexpr (!SLAB_SUMS) {
 #pragma unroll
-        for (int kk = 0; kk < P::STEPS; ++kk) {
-          uint32_t hi[4], lo[4];
+          for (int kk = 0; kk < P::STEPS; ++kk) {
+            uint32_t hi[4], lo[4];
+            if constexpr (BF16) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) hi[e] = lo[e] = a[kk][e];
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float v = __uint_as_float(a[kk][e]);
+                hi[e] = tf32_rna(v);
+                lo[e] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[e])));
+              }
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int c = 0; c < CPW; ++c) {
+              const uint32_t st = ring + max(own[c], 0) * STAGE_BYTES;
+              if (nc[c] == NCH) step_mma<BF16, 64>(acc[c], hi, lo, st, kk, 1);
+              else if (nc[c]) step_mma<BF16, 32>(acc[c], hi, lo, st, kk, 1);
+            }
+          }
+          wgmma_commit();
+          if (s + 1 < ns) load_slab(s + 1, BF16 ? an : a);
+          wgmma_wait<0>();
           if constexpr (BF16) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) hi[e] = lo[e] = a[kk][e];
-          } else {
+            for (int kk = 0; kk < P::STEPS; ++kk)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[kk][e] = an[kk][e];
+          }
+        } else {
+          // float32: a chunk's 3 x STEPS products of the slab go to the
+          // fresh partial sum `part` (the first overwrites it), which is
+          // then added to the chunk's accumulators with one rounding to
+          // nearest ("Numerics" above); the next slab's fragments load
+          // while the first chunk's products run
+          uint32_t hi[P::STEPS][4], lo[P::STEPS][4];
+#pragma unroll
+          for (int kk = 0; kk < P::STEPS; ++kk) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const float v = __uint_as_float(a[kk][e]);
-              hi[e] = tf32_rna(v);
-              lo[e] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[e])));
+              hi[kk][e] = tf32_rna(v);
+              lo[kk][e] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[kk][e])));
             }
           }
-          wgmma_fence();
 #pragma unroll
           for (int c = 0; c < CPW; ++c) {
+            if (!nc[c]) continue;
             const uint32_t st = ring + max(own[c], 0) * STAGE_BYTES;
-            if (nc[c] == NCH) step_mma<BF16, 64>(acc[c], hi, lo, st, kk);
-            else if (nc[c]) step_mma<BF16, 32>(acc[c], hi, lo, st, kk);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < P::STEPS; ++kk) {
+              if (nc[c] == NCH)
+                step_mma<BF16, 64>(part, hi[kk], lo[kk], st, kk, kk > 0);
+              else
+                step_mma<BF16, 32>(part, hi[kk], lo[kk], st, kk, kk > 0);
+            }
+            wgmma_commit();
+            if (c == 0 && s + 1 < ns) load_slab(s + 1, a);
+            wgmma_wait<0>();
+            fence_operands(part);
+#pragma unroll
+            for (int k = 0; k < 32; ++k)
+              if (k < 16 || nc[c] == NCH)
+                acc[c][k] = __fadd_rn(acc[c][k], part[k]);
           }
-        }
-        wgmma_commit();
-        if (s + 1 < ns) load_slab(s + 1, BF16 ? an : a);
-        wgmma_wait<0>();
-        if constexpr (BF16) {
-#pragma unroll
-          for (int kk = 0; kk < P::STEPS; ++kk)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) a[kk][e] = an[kk][e];
         }
         if (lane == 0) {
 #pragma unroll

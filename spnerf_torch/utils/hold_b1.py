@@ -4,8 +4,7 @@ size what a rounding policy and the tensor cores' sums move.
 `hold_b1_launches(run, tag, ...)` records the field inputs of every
 `FusedField` launch that `run()` makes, launches each again and holds it
 against `PlainField` at the launch's compute dtype with TF32 off, within
-KERNEL_ATOL (bf16) or F32_ATOL (float32; `f32_atol` past 2,048 wide).
-With `controls`, every bf16
+KERNEL_ATOL (bf16) or F32_ATOL (float32). With `controls`, every bf16
 launch also gets two controls on the same inputs:
 
 - the float32 control: the plain field in float32 with TF32 off. Its
@@ -22,7 +21,10 @@ kernel's distance from the plain version, each control's, and the two
 ratios. With `control_share`, a bf16 output past KERNEL_ATOL passes where
 it lies within `control_share` of its float32 control and, with
 `tc_share`, within `tc_share` of its tensor-core control; without, every
-output keeps KERNEL_ATOL. Float32 launches keep `f32_atol`. Runs on any
+output keeps KERNEL_ATOL. A share alone takes the controls (two more
+plain fields) only for a launch with an output past KERNEL_ATOL; with
+`controls` every bf16 launch gets them. Float32 launches keep F32_ATOL.
+Runs on any
 device: on the CPU the plain version stands in for the kernel and TF32
 changes nothing.
 
@@ -37,27 +39,11 @@ from dataclasses import dataclass
 import torch
 
 KERNEL_ATOL = 2e-2  # bf16: sum order may flip one bf16 ulp of an activation
-# float32 (the wgmma_f32 and general routes against the plain version with
-# TF32 off): the same float32 products summed in another order, or as three
-# TF32 products without lo x lo (2^-22 of each), through eight layers
+# float32 (the wgmma_f32, wgmma_wide and general routes against the plain
+# version with TF32 off): the same float32 products summed in another order,
+# or as three TF32 products without lo x lo (2^-22 of each), through eight
+# layers
 F32_ATOL = 1e-4
-# Past 2,048 wide a float32 launch of the wide route is held to F32_ATOL
-# scaled by its width over F32_ATOL_WIDTH (`f32_atol`): the kernel's three
-# TF32 products are summed by the tensor cores, 3 K / 8 accumulations of a
-# K-deep sum each with the accumulator's own rounding, so its distance from
-# float64 grows with the width while the plain float32 version's (cuBLAS,
-# TF32 off) does not: 2.6e-5, 7.3e-5 and 1.09e-4 at 1,024, 2,048 and 4,096
-# wide against 3.3e-6 to 4.5e-6 (131,195 points, random weights; H100 80GB
-# HBM3 at 700.00 W, PERF.md section 6). F32_ATOL keeps the room it has at
-# 2,048 and every narrower width keeps F32_ATOL itself.
-F32_ATOL_WIDTH = 2048
-
-
-def f32_atol(width):
-    """The float32 bar of a launch of a field `width` wide: F32_ATOL up to
-    F32_ATOL_WIDTH, F32_ATOL x width / F32_ATOL_WIDTH past it."""
-    return F32_ATOL * max(1.0, width / F32_ATOL_WIDTH)
-
 # The bar of a bf16 launch on a trained field (chip_smoke.py phases 19 and
 # 21, utils/wide_checks.py): every output past KERNEL_ATOL lies within
 # WIDE_CONTROL_SHARE of its plain float32 control on the same launch and
@@ -199,8 +185,9 @@ def hold_launch(launch, tag, controls=False, control_share=None,
     """`launch` through the kernel its weights are packed for (or `packed`'s,
     the same field packed for another route) against the plain version;
     with `check`, raises B1Mismatch outside the bar. Returns {"err": max
-    abs error, "route": ..., "outputs": {output: row}} (rows with
-    `controls` or a share on a bf16 launch, else None)."""
+    abs error, "route": ..., "outputs": {output: row}} (rows on a bf16
+    launch with `controls`, or with a share and an output past
+    KERNEL_ATOL; else None)."""
     from ..ops import field_eval as fe
 
     pk = launch.packed if packed is None else packed
@@ -212,9 +199,10 @@ def hold_launch(launch, tag, controls=False, control_share=None,
     err = max_abs(out, ref)
     where = (f"{tag}: B1 launch on {launch.xyz.shape[0]} points, heads "
              f"{launch.heads}")
-    atol = KERNEL_ATOL if launch.bf16 else f32_atol(pk.cfg.fc_units)
+    atol = KERNEL_ATOL if launch.bf16 else F32_ATOL
+    past = not all(e <= atol for e in err.values())  # a NaN is past it
     rows = None
-    if launch.bf16 and (controls or control_share is not None):
+    if launch.bf16 and (controls or (control_share is not None and past)):
         ctl32, ctltc = controls_of(launch)
         c32, ctc = max_abs(ctl32, ref), max_abs(ctltc, ref)
         rows = {k: output_row(e, c32[k], ctc[k]) for k, e in err.items()}
@@ -222,8 +210,7 @@ def hold_launch(launch, tag, controls=False, control_share=None,
             why = verdict(row, atol, control_share, tc_share)
             if why and check:
                 raise B1Mismatch(f"{where}, {k}: {why}")
-    elif check and (max(err.values()) > atol or not all(
-            math.isfinite(e) for e in err.values())):
+    elif check and past:
         raise B1Mismatch(f"{where}: max abs err {max(err.values())} > {atol}")
     return {"err": max(err.values()), "route": pk.route, "outputs": rows}
 
@@ -262,7 +249,8 @@ def hold_b1_launches(run, tag, control_share=None, tc_share=None,
     (F32_ATOL in float32); raises B1Mismatch outside the bar. Returns
     {"launches_held", "points", "routes", "max_abs_err"} and, with
     `controls` or `control_share`, "outputs" (each bf16 launch's rows, see
-    `output_row`), "max_ratio_past_atol" and "max_tc_ratio_past_atol" (the
+    `output_row`; None for a launch that took no controls),
+    "max_ratio_past_atol" and "max_tc_ratio_past_atol" (the
     largest ratios of an output past KERNEL_ATOL, the ones the shares
     hold; None where every output met KERNEL_ATOL)."""
     seen = record_launches(run)

@@ -13,8 +13,9 @@ WIDE_LOCAL_A=1: every A fragment comes from the CTA's own half of the
 buffer, a wrong answer and only a floor for what reading the peer's half
 through distributed shared memory costs. With `--parent DIR`, "parent"
 takes local_a's place: `DIR/spnerf_torch/csrc/field_eval_wide.cu`
-(another checkout, e.g. one unpacked with `git archive`, whose kernel runs
-clusters of two CTAs only: widths up to 1,024) built the same way. Both
+(another checkout, e.g. one unpacked with `git archive`) built the same
+way; its entry's arguments are read from the library (a kernel of
+two-CTA clusters only takes widths up to 1,024). Both
 are launched through the same C entry from here, so neither adds to
 `FusedField`'s counts. At each
 width and dtype, the flagship family (random weights, seed 0) evaluates
@@ -63,12 +64,12 @@ def build_variant(tag, defines=(), source=None):
     return lib, _ptxas_lines(proc.stdout + proc.stderr)
 
 
-def launch(lib, packed, x_in, sun, heads=None, two_cta_entry=False):
+def launch(lib, packed, x_in, sun, heads=None):
     """`heads` (all by default) of `packed` through `lib`'s wide entry on
     CUDA tensors, as `fused_field_wide` launches it, without counting the
-    launch. `two_cta_entry`: the entry of a checkout whose kernel runs
-    clusters of two CTAs only and takes no cluster argument (before the
-    clusters of 4 and 8), for a pack of two."""
+    launch. A library without `spnerf_field_eval_wide_cluster` is of a
+    checkout whose kernel runs clusters of two CTAs only and whose entry
+    takes no cluster argument: it takes packs of two only."""
     from ..ops import field_eval as fe
 
     heads = fe.ALL_HEADS if heads is None else heads
@@ -78,6 +79,7 @@ def launch(lib, packed, x_in, sun, heads=None, two_cta_entry=False):
     res = {nm: torch.empty((n, wd), dtype=torch.float32, device=x_in.device)
            for nm, wd in fe.active_outputs(cfg, heads)}
     xin, sn, _ = fe._float32_inputs(cfg, x_in, sun, None, False)
+    two_cta_entry = not hasattr(lib, "spnerf_field_eval_wide_cluster")
     if two_cta_entry and packed.cluster != 2:
         raise ValueError("the two-CTA entry takes packs of two CTAs only")
     ints = (() if two_cta_entry else (packed.cluster,))
@@ -158,16 +160,15 @@ def main(argv=None):
             r = rec["runs"][f"{dtype} {width}"] = {
                 name: {"ms": []} for name in libs}
             for name, lib in libs.items():
-                out = launch(lib, packed, x_in, sn,
-                             two_cta_entry=name == "parent")
+                out = launch(lib, packed, x_in, sn)
                 r[name]["max_abs_err"] = max(
                     (out[k] - ref[k]).abs().max().item() for k in ref)
                 del out
             copy = next(k for k in libs if k != "route")
             for name in ["route", copy, copy, "route"]:
                 lib = libs[name]
-                r[name]["ms"].append(ms(lambda: launch(
-                    lib, packed, x_in, sn, two_cta_entry=name == "parent")))
+                r[name]["ms"].append(ms(lambda: launch(lib, packed, x_in,
+                                                       sn)))
             print(json.dumps({f"{dtype} {width}": r}), flush=True)
             del model, packed, ref
             torch.cuda.empty_cache()

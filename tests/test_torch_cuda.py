@@ -38,7 +38,6 @@ from spnerf_torch.ops import field_eval as fe
 from spnerf_torch.render import build_render_fn, chunk_size
 from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
                                            batched_edge_case, edge_case)
-from spnerf_torch.utils.hold_b1 import f32_atol
 from spnerf_torch.utils.synth import fake_batch
 
 ATOL = 2e-2
@@ -74,10 +73,9 @@ def packed_field(cfg, device, dtype="bfloat16", kernel=None, cluster=None):
                                  cluster=cluster)
 
 
-def hold_kernel(p, args, heads, dtype="bfloat16", f32_bar=F32_ATOL):
+def hold_kernel(p, args, heads, dtype="bfloat16"):
     """One launch against the plain version: the same outputs within ATOL
-    (`f32_bar`, F32_ATOL by default, in float32), and one launch counted on
-    the packed route."""
+    (F32_ATOL in float32), and one launch counted on the packed route."""
     before = fe.FusedField.launches
     on_route = fe.FusedField.route_launches[p.route]
     out = fe.FusedField(p, dtype)(*args, heads=heads)
@@ -86,7 +84,7 @@ def hold_kernel(p, args, heads, dtype="bfloat16", f32_bar=F32_ATOL):
     assert fe.FusedField.route_launches[p.route] == on_route + 1
     ref = fe.PlainField(p, dtype)(*args, heads=heads)
     assert set(out) == set(ref), heads
-    atol = f32_bar if dtype == "float32" else ATOL
+    atol = F32_ATOL if dtype == "float32" else ATOL
     for k in ref:
         assert out[k].shape == ref[k].shape
         assert torch.isfinite(out[k]).all(), (heads, k)
@@ -366,7 +364,7 @@ def test_wide_kernel_on_clusters_of_four_and_eight(device, dtype, cluster,
     """The wgmma_wide kernel on clusters of 4 and 8 CTAs: forced at 96,
     160, 200 and 512 (shares of 32 and 64 columns, a padded share), and
     the route's own clusters at 1,536 (4) and 3,072 (8); all heads and the
-    solar pass against the plain version (float32 within `f32_atol`), each
+    solar pass against the plain version (float32 within F32_ATOL), each
     launch equal bit for bit to a second one."""
     cfg = ModelConfig(mapping=True, sem=True, num_sem_classes=3,
                       fc_units=width, **kw)
@@ -375,7 +373,7 @@ def test_wide_kernel_on_clusters_of_four_and_eight(device, dtype, cluster,
     assert p.cluster == cluster
     args = field_inputs(n, cfg, device, seed=n)
     for heads in (fe.ALL_HEADS, ("sun",)):
-        hold_kernel(p, args, heads, dtype, f32_atol(width))
+        hold_kernel(p, args, heads, dtype)
         a = fe.FusedField(p, dtype)(*args, heads=heads)
         b = fe.FusedField(p, dtype)(*args, heads=heads)
         assert all(torch.equal(a[k], b[k]) for k in a)
@@ -420,9 +418,9 @@ def test_wide_stages_match_the_kernel(device):
     from spnerf_torch.ops import _build
 
     lib = _build.load("field_eval_wide")
-    for name in ("stages", "smem", "clusters"):
+    for name, ints in (("stages", 2), ("smem", 3), ("clusters", 3)):
         getattr(lib, f"spnerf_field_eval_wide_{name}").argtypes = (
-            [ctypes.c_int] * 3)
+            [ctypes.c_int] * ints)
     widths = list(range(0, 1057)) + list(range(1057, fe.W_MAX + 2, 31)) + [
         2048, 3072, fe.W_MAX, fe.W_MAX + 1]
     for width in widths:

@@ -4,8 +4,10 @@ C-CTA schedule emulated with torch ops (`emulate_wide` of
 tests/test_torch_field_eval_wide.py, on packs whose cluster is forced so
 that 4- and 8-CTA splits run at narrow widths), the packed layout read
 back, the cluster, shared-memory and ring reckoning up to 4,096 wide, the
-route table at its edges, the wrapper's refusals, and the port against the
-JAX package on the same weights.
+route table at its edges, the wrapper's refusals, the port against the
+JAX package on the same weights, and the float32 sums' drift with the
+depth in the tensor cores' rounding model (`utils/f32_sums.py`), which the
+kernel's slab sums past 1,024 wide hold.
 
 Tolerances, those of tests/test_torch_field_eval_wide.py: `emulate_wide`
 against the plain version 1e-6 with exact float32 products ("float32"),
@@ -35,6 +37,7 @@ from spnerf_torch.convert import flax_field_params
 from spnerf_torch.models import SPNeRF
 from spnerf_torch.models.spnerf import layer_specs
 from spnerf_torch.ops import field_eval as tfe
+from spnerf_torch.utils import f32_sums
 from test_torch_field_eval import (ALL, assert_match, jax_fused, make_inputs,
                                    make_pair)
 from test_torch_field_eval_wide import (_inputs, check_wide_layout,
@@ -305,3 +308,31 @@ def test_plain_and_schedule_match_pallas_at_150_classes(dtype, atol,
     emu = emulate_wide(p, tfe.program(p, ALL), x_in, sun_t, t_in,
                        "tf32x3" if dtype == "float32" else dtype)
     assert_match({k: v.numpy() for k, v in emu.items()}, ref, atol)
+
+
+def test_round_toward_zero():
+    """`toward_zero` rounds float64 to float32 toward zero: a value a float32
+    holds stays, one between two float32s goes to the one nearer zero, on
+    either sign."""
+    x = torch.tensor([1.0, -2.5, 0.0, 1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30),
+                      1.0 - 2.0 ** -30], dtype=torch.float64)
+    got = f32_sums.toward_zero(x)
+    assert got.dtype == torch.float32
+    below_one = torch.nextafter(torch.tensor(1.0), torch.tensor(0.0)).item()
+    assert got.tolist() == [1.0, -2.5, 0.0, 1.0, -1.0, below_one]
+
+
+def test_truncated_sums_drift_with_depth_and_slabs_hold_them():
+    """The wide route's float32 sums in the tensor cores' rounding model
+    (`f32_sums.tc_sum`: three TF32 products a k step, each wgmma's sum
+    rounded toward zero). With one accumulator through the whole K, the
+    distance from the float64 product grows with the depth, about in
+    proportion (2,048 deep against 512); with a fresh partial sum every
+    16-deep slab added rounded to nearest (the kernel's schedule) it stays
+    within 3x of float32 sums rounded to nearest at either depth, and a
+    tenth of the one accumulator's at 2,048. 16 x 16 outputs, seed 0."""
+    r = f32_sums.emulate([512, 2048], n=16, width=16, seed=0)
+    assert r[2048]["one_accumulator"] >= 3 * r[512]["one_accumulator"]
+    for k in (512, 2048):
+        assert r[k]["per_slab"] <= 3 * r[k]["float32_rn"], (k, r[k])
+    assert r[2048]["per_slab"] <= r[2048]["one_accumulator"] / 10

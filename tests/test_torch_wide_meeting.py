@@ -353,6 +353,25 @@ def test_every_output_goes_to_both_controls(small_field, monkeypatch):
             hold_b1.hold_launch(launch, "t")
 
 
+def test_shares_take_the_controls_only_past_the_bar(small_field,
+                                                    monkeypatch):
+    """With the shares alone, a bf16 launch whose outputs all lie within
+    KERNEL_ATOL passes without its controls (the two plain fields are not
+    run, its rows are None); with `controls` it gets them."""
+    packed, xyz, sun, sems = small_field
+    launch = hold_b1.Launch(packed, "bfloat16", xyz, sun, None, sems, None)
+
+    def no_controls(_):
+        raise AssertionError("controls taken")
+
+    monkeypatch.setattr(hold_b1, "controls_of", no_controls)
+    rec = hold_b1.hold_launch(launch, "t", control_share=0.45, tc_share=3.0)
+    assert rec["err"] == 0.0 and rec["outputs"] is None
+    with pytest.raises(AssertionError, match="controls taken"):
+        hold_b1.hold_launch(launch, "t", controls=True, control_share=0.45,
+                            tc_share=3.0)
+
+
 def test_render_rows_beside_both_controls(small_field):
     packed, xyz, sun, sems = small_field
 
