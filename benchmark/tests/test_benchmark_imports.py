@@ -1,0 +1,58 @@
+"""What the benchmark may import, and that it never falls back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+SOURCES = sorted(p for p in (ROOT / "benchmark").rglob("*.py")
+                 if "tests" not in p.parts)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "spnerf_tpu"}
+# the only module that drives the program under test
+PROGRAM = ROOT / "benchmark" / "program.py"
+
+
+def top_level_imports(path):
+    """Top-level names of every module `path` imports (relative imports
+    excluded), compared whole."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_jax(path):
+    assert not top_level_imports(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_only_the_program_adapter_imports_the_port(path):
+    if path != PROGRAM:
+        assert "spnerf_torch" not in top_level_imports(path)
+
+
+def test_top_level_names_compared_whole():
+    """The port's name begins with the JAX package's; only the whole name
+    is forbidden."""
+    assert "spnerf_torch" not in FORBIDDEN
+    assert "spnerf_torch".split(".")[0] != "spnerf_tpu"
+
+
+def test_run_without_a_card_fails(tmp_path):
+    """No CUDA card: a non-zero exit and no result line, never a CPU run."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "benchmark/run.py", "--workload", "flagship.train",
+         "--seed", str(2 ** 31 + 7), "--seconds", "1", "--trace", "0"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+    assert "no CUDA device" in proc.stderr
