@@ -46,6 +46,7 @@ of a mesh takes cuda:(local rank mod the cards)) and raise without CUDA
 unless given `--device cpu`.
 """
 
+import json
 import os
 import shutil
 import sys
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import spans
 from ..config import (build_train_parser, finalize_args,
                       loss_config_from_args, model_config_from_args,
                       render_config_from_args, write_opts)
@@ -565,6 +567,7 @@ def _train(args, device, mesh):
             activities = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if device.type == "cuda" else [])
             profiler = profile(activities=activities)
+            spans.reset()
             profiler.__enter__()
         done = min(window_len, args.max_train_steps - step)
         # the step's draws are seeded by (seed + 1, step), as the JAX
@@ -581,6 +584,8 @@ def _train(args, device, mesh):
                 os.makedirs(prof_dir, exist_ok=True)
                 profiler.export_chrome_trace(os.path.join(prof_dir,
                                                           "trace.json"))
+                with open(os.path.join(prof_dir, "spans.json"), "w") as f:
+                    json.dump(spans.totals(), f, indent=1)
         dt = time.time() - t0
         rays_s = done * args.batch_size / max(dt, 1e-9)
         if logger is not None:

@@ -51,6 +51,7 @@ import torch
 from ..config import ModelConfig
 from ..models.spnerf import (as_dtype, fast_sin, field_input, in_width,
                              layer_specs, softplus)
+from ..spans import span
 
 ALL_HEADS = ("rgb", "sun", "sky", "beta", "sem")
 KPAD = 16  # wgmma's depth: every input segment is padded to it
@@ -1114,13 +1115,15 @@ class FusedField:
     def inputs(self, xyz, sun_d, t_emb, sem_labels):
         """The kernel's inputs: trunk input, sun direction, transient code."""
         cfg = self.cfg
-        x_in = field_input(cfg, xyz.float(), sem_labels, self.packed.sem_table)
-        t_in = None
-        if cfg.beta:
-            t_in = (t_emb.float() if t_emb is not None else
-                    torch.zeros((xyz.shape[0], cfg.t_embedding_dims),
-                                device=xyz.device))
-        return x_in, sun_d.float(), t_in
+        with span("field.inputs"):
+            x_in = field_input(cfg, xyz.float(), sem_labels,
+                               self.packed.sem_table)
+            t_in = None
+            if cfg.beta:
+                t_in = (t_emb.float() if t_emb is not None else
+                        torch.zeros((xyz.shape[0], cfg.t_embedding_dims),
+                                    device=xyz.device))
+            return x_in, sun_d.float(), t_in
 
     def __call__(self, xyz, sun_d, t_emb=None, sem_labels=None, heads=None):
         heads = ALL_HEADS if heads is None else tuple(heads)

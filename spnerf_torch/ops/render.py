@@ -29,6 +29,7 @@ import os
 import torch
 
 from ..config import RenderConfig
+from ..spans import span
 from .compositing import composite
 from .sampling import guided_samples, sample_pdf, stratified_z_vals
 
@@ -314,14 +315,16 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
     sc_heads = None if no_prune else ("sun",)
     if rc.solar_correction:
         # the solar terms consume only sigma and sun_v: prune the other heads
-        noise = rnd.normal("sc_noise", z_vals.shape) if noisy else None
-        if sc_field is not None:
-            sc_field = {k: sc_field[k] for k in ("sigma", "sun_v")}
-            sc = composite(sc_field, z_vals, noise_std=noise_std, noise=noise)
-        else:
-            sc = _inference(field_apply, rays_o, sun_d, z_vals, sun_d, t_emb,
-                            sems, heads=sc_heads, noise_std=noise_std,
-                            noise=noise)
+        with span("render.solar"):
+            noise = rnd.normal("sc_noise", z_vals.shape) if noisy else None
+            if sc_field is not None:
+                sc_field = {k: sc_field[k] for k in ("sigma", "sun_v")}
+                sc = composite(sc_field, z_vals, noise_std=noise_std,
+                               noise=noise)
+            else:
+                sc = _inference(field_apply, rays_o, sun_d, z_vals, sun_d,
+                                t_emb, sems, heads=sc_heads,
+                                noise_std=noise_std, noise=noise)
         result["weights_sc"] = sc["weights"]
         result["transparency_sc"] = sc["transparency"]
         result["sun_sc"] = sc["sun"]
@@ -353,14 +356,16 @@ def render_rays(field_apply, rc: RenderConfig, rays, t_emb=None, sems=None,
             fine = composite(fine_field, z_fine, noise_std=noise_std,
                              noise=noise)
         if rc.solar_correction:
-            noise = (rnd.normal("sc_noise_fine", z_fine.shape) if noisy
-                     else None)
-            if sc_f is None:
-                sc = _inference(fine_field_apply, rays_o, sun_d, z_fine,
-                                sun_d, t_emb, sems, heads=sc_heads,
-                                noise_std=noise_std, noise=noise)
-            else:
-                sc = composite(sc_f, z_fine, noise_std=noise_std, noise=noise)
+            with span("render.solar"):
+                noise = (rnd.normal("sc_noise_fine", z_fine.shape) if noisy
+                         else None)
+                if sc_f is None:
+                    sc = _inference(fine_field_apply, rays_o, sun_d, z_fine,
+                                    sun_d, t_emb, sems, heads=sc_heads,
+                                    noise_std=noise_std, noise=noise)
+                else:
+                    sc = composite(sc_f, z_fine, noise_std=noise_std,
+                                   noise=noise)
             fine["weights_sc"] = sc["weights"]
             fine["transparency_sc"] = sc["transparency"]
             fine["sun_sc"] = sc["sun"]

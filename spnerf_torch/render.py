@@ -38,6 +38,7 @@ from .ops.field_eval import (FusedField, PlainField, pack_params,
                              uses_fused_kernel)
 from .ops.occgrid import init_grid
 from .ops.render import render_rays
+from .spans import span
 
 EVAL_DROP = ("weights", "transparency", "z_vals", "z_vals_unsort",
              "weights_sc", "transparency_sc", "sun_sc", "z_prop", "w_prop")
@@ -169,11 +170,12 @@ def build_render_fn(model, rc, t_embed=None, chunk=40960, field=None,
         outs = []
         for c in range(n_chunks):
             sl = slice(c * chunk + rank * share, c * chunk + (rank + 1) * share)
-            outs.append(lean_eval_outputs(render_rays(
-                field_apply, rc, rays[sl], t_emb=t_emb,
-                sems=sems[sl] if mc.sem else None, train=False,
-                fine_field_apply=fine_apply, proposal_apply=proposal,
-                occ=occ)))
+            with span("render.chunk"):
+                outs.append(lean_eval_outputs(render_rays(
+                    field_apply, rc, rays[sl], t_emb=t_emb,
+                    sems=sems[sl] if mc.sem else None, train=False,
+                    fine_field_apply=fine_apply, proposal_apply=proposal,
+                    occ=occ)))
         if mesh is None:
             return {k: torch.cat([o[k] for o in outs], dim=0)[:n]
                     for k in outs[0]}

@@ -53,6 +53,7 @@ from ..ops.occgrid import init_grid, slab_rows, update_grid
 from ..ops.proposal import interlevel_loss
 from ..ops.render import render_rays
 from ..parallel import local_batch
+from ..spans import span
 from . import losses
 
 
@@ -430,13 +431,15 @@ class Trainer:
     def apply_gradients(self, state, loss):
         """Backward, the gradients averaged over the mesh's ranks, then one
         optimizer update at the step's learning rate."""
-        for group in state.optimizer.param_groups:
-            group["lr"] = self.lr_schedule(state.step)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         if self.mesh is not None:
             self.average_gradients(state)
-        state.optimizer.step()
+        with span("train.optimizer"):
+            for group in state.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(state.step)
+            state.optimizer.step()
         state.step += 1
 
     def average_gradients(self, state):
@@ -485,8 +488,9 @@ class Trainer:
             g = None
             idx = torch.as_tensor(draws["idx"], device=self.device).long()
             batch = {k: v[idx] for k, v in data.items()}
-        loss, loss_dict = self.loss_fn(state, batch, step, generator=g,
-                                       draws=draws)
+        with span("train.forward"):
+            loss, loss_dict = self.loss_fn(state, batch, step, generator=g,
+                                           draws=draws)
         self.apply_gradients(state, loss)
         loss_dict = {k: v.detach() for k, v in dict(loss_dict,
                                                      loss=loss).items()}
