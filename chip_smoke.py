@@ -6,7 +6,7 @@ an NVIDIA H100 and the CUDA toolkit)
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel of the path from spnerf_torch/csrc with nvcc, the
-     five sources in parallel, and print how many clusters of the wide
+     six sources in parallel, and print how many clusters of the wide
      kernel fit on the card at once at 768 and 1024 (2 CTAs), 1536 and
      2048 (4) and 3072 and 4096 (8);
   3. hold the fused-field kernel (B1) against its plain PyTorch version at
@@ -91,8 +91,17 @@ Phases, each fatal on failure:
      and through the plain version agree; one step through the trainer
      launches B2 3 times and B3 21 times; then 1 warm-up and 10 timed
      steps;
-  8. the flagship Siren train step (8x512, bf16, batch 1024; no kernel):
-     1 warm-up and 3 timed steps;
+  8. the flagship Siren train step (8x512, bf16, batch 1024) and its one
+     kernel, S1 (`csrc/siren_act.cu`, the Siren epilogue, one launch each
+     way a Siren activation): one step with `SineLayer`'s counters set to
+     0 launches it SIREN_ACTS (37) times each way and the plain version
+     never; every launch of a recorded step (65,536 and 131,072 rows, 512
+     and 256 wide, w0 30 and 1) is held bit for bit against the plain
+     composition (`sine_layer_plain`, `sine_layer_grad_plain`) on its own
+     inputs; each shape timed through the wrapper (CUDA events) beside the
+     plain composition and its bytes bound (8 B an element each way in
+     bf16), and each kernel's device time and launches in one profiled
+     step; then 1 warm-up and 3 timed steps;
   9. the hash step with the (L, T, F) table (hash_flat_table=False): its
      24 t-major table gradients recorded and held on B2 and B3 (t-major
      layout) against the plain version and timed, B2 also on the edge cases
@@ -265,7 +274,7 @@ Phases, each fatal on failure:
  18. `python3 bench_torch.py` as a user runs it, a subprocess from the
      repository root (the bench's program: the flagship step at batch
      1024, a warm-up window of 100 steps, then two timed windows of 100;
-     no kernel): it must exit 0 within BENCH_TIMEOUT_S with a last line
+     S1 its only hand-written kernel): it must exit 0 within BENCH_TIMEOUT_S with a last line
      under BENCH_METRIC, a finite value > 0 and this card's name. Its
      record, with phase 8's ms/step beside it, on one `{"bench": ...}`
      line and under `train_steps` on the `kernels` line;
@@ -342,7 +351,11 @@ Phases, each fatal on failure:
   `max_abs_err_clusters`, `held_cli_2048_by_output`, `cli_2048`,
   `times_clusters` and `clusters_by_size`; the general route's
   `launches_on_routes`, its launches on the CLI runs of phases 19 and 21:
-  0, since `route` names it for no field).
+  0, since `route` names it for no field; S1's entry `siren_act`: phase
+  8's launches each way, plain calls and mismatches, `ms`, `plain_ms` and
+  `bound_ms` a launch (the mean over the step's launches) and a step,
+  `by_direction`, the profiler's `device_ms_per_step` and
+  `kernel_launches_per_step`, each shape's times under `shapes`).
   The env of phases 10, 11 and 15 (d) is set around its use only and
   restored after.
 
@@ -397,6 +410,10 @@ PEAK_TF32 = 495e12  # H100 SXM dense TF32 FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 N_CHECK = 131_072 + 123
 N_VIEW = 256 * 256
+# Siren activations of a flagship train step, each one S1 launch each way:
+# the coarse and the guided field call with every head (8 trunk layers,
+# rgb0, sun0-2, sem0: 13 each) and the solar call pruned to the sun head (11)
+SIREN_ACTS = 37
 
 
 def log(msg):
@@ -2813,8 +2830,144 @@ BENCH_TIMEOUT_S = 300
 BENCH_METRIC = "flagship_train_rays_per_sec_per_gpu"
 
 
+def siren_pass(tr, state, data, card, reps=20):
+    """Phase 8's hold of S1, the Siren epilogue (`csrc/siren_act.cu`), on
+    the flagship train step. One step with `SineLayer`'s counters set to 0
+    must launch each kernel once per Siren activation (SIREN_ACTS) and the
+    plain version never; one step records the inputs of every launch, and
+    each launch is held bit for bit (`torch.equal`) against the plain
+    composition on them; each distinct shape is timed through the wrapper
+    (CUDA events) beside the plain composition and its bytes bound; one
+    profiled step gives each kernel's device time and device launches.
+    Returns S1's entry of the `kernels` line: per launch, the mean over the
+    step's launches; per step, their sum."""
+    from spnerf_torch.models.spnerf import (SineLayer, sine_layer_grad_plain,
+                                            sine_layer_plain)
+    from spnerf_torch.ops import siren_act
+
+    for counts in (SineLayer.launches, SineLayer.plain_calls):
+        for way in counts:
+            counts[way] = 0
+    tr.train_step(state, data, BATCH, seed=1)
+    torch.cuda.synchronize()
+    launches, plain = dict(SineLayer.launches), dict(SineLayer.plain_calls)
+    log(f"siren train step launches: {json.dumps(launches)}, plain "
+        f"{json.dumps(plain)}")
+    if launches != dict.fromkeys(launches, SIREN_ACTS) or any(
+            plain.values()):
+        fail(f"siren train step: expected {SIREN_ACTS} launches each way "
+             f"and no plain call, got {launches} and plain {plain}")
+
+    calls = {"forward": [], "backward": []}
+    forward, backward = siren_act.forward, siren_act.backward
+
+    def recording_forward(y, bias, w0, cd):
+        calls["forward"].append((y.clone(), bias.clone(), w0, cd))
+        return forward(y, bias, w0, cd)
+
+    def recording_backward(gs, z, w0):
+        calls["backward"].append((gs.clone(), z.clone(), w0))
+        return backward(gs, z, w0)
+
+    siren_act.forward, siren_act.backward = (recording_forward,
+                                             recording_backward)
+    try:
+        tr.train_step(state, data, BATCH, seed=1)
+        torch.cuda.synchronize()
+    finally:
+        siren_act.forward, siren_act.backward = forward, backward
+    if any(len(c) != SIREN_ACTS for c in calls.values()):
+        fail(f"siren train step recorded {len(calls['forward'])} forward "
+             f"and {len(calls['backward'])} backward calls")
+
+    mismatches = {"forward": 0, "backward": 0}
+    for y, bias, w0, cd in calls["forward"]:
+        s, z = forward(y, bias, w0, cd)
+        s_plain, z_plain = sine_layer_plain(y, bias, w0, cd)
+        mismatches["forward"] += not (torch.equal(s, s_plain)
+                                      and torch.equal(z, z_plain))
+    for gs, z, w0 in calls["backward"]:
+        mismatches["backward"] += not torch.equal(
+            backward(gs, z, w0), sine_layer_grad_plain(gs, z, w0))
+    log(f"siren epilogue held on the step's {SIREN_ACTS} + {SIREN_ACTS} "
+        f"launches: mismatches {json.dumps(mismatches)}")
+    if any(mismatches.values()):
+        fail(f"siren epilogue differs from the plain composition: "
+             f"{mismatches}")
+
+    # each distinct (rows, width, w0, dtype) once, on its first call's inputs
+    shapes = {}
+    for way, fn, plain_fn in (("forward", forward, sine_layer_plain),
+                              ("backward", backward, sine_layer_grad_plain)):
+        for args in calls[way]:
+            rows, width = args[0].shape  # y or gs, both (N, W)
+            dtype = args[3] if way == "forward" else args[1].dtype
+            key = (rows, width, args[2], str(dtype).removeprefix("torch."))
+            rec = shapes.setdefault(key, dict(
+                zip(("rows", "width", "w0", "dtype"), key), launches=0))
+            if way == "forward":
+                rec["launches"] += 1
+            if f"{way}_ms" in rec:
+                continue
+            # bytes: the forward reads y and bias and writes s and z; the
+            # backward reads gs and z and writes the float32 gy
+            nbytes = (4 + 2 * torch.finfo(dtype).bits // 8) * rows * width
+            if way == "forward":
+                nbytes += 4 * width
+            rec[f"{way}_ms"] = cuda_ms(lambda: fn(*args), reps)
+            rec[f"{way}_plain_ms"] = cuda_ms(lambda: plain_fn(*args), reps)
+            rec[f"{way}_bound_ms"] = nbytes / PEAK_BYTES * 1e3
+    del calls
+    torch.cuda.empty_cache()
+    for rec in shapes.values():
+        log(f"siren epilogue {json.dumps(rec)}")
+
+    dev = {way: device_ms(lambda: tr.train_step(state, data, BATCH, seed=1),
+                          1, keys=(f"siren_act_{way}",))
+           for way in ("forward", "backward")}
+    log(f"siren epilogue device time in a step (profiler): "
+        f"{json.dumps(dev)}")
+
+    n = 2 * SIREN_ACTS
+    step = {k: sum(r["launches"] * (r[f"forward{k}"] + r[f"backward{k}"])
+                   for r in shapes.values())
+            for k in ("_ms", "_plain_ms", "_bound_ms")}
+    ways = {way: {k: sum(r["launches"] * r[f"{way}{k}"]
+                         for r in shapes.values()) / SIREN_ACTS
+                  for k in ("_ms", "_plain_ms", "_bound_ms")}
+            for way in ("forward", "backward")}
+    kernel_ms = [dev[w]["kernel"] for w in dev]
+    return {
+        "name": "siren_act",
+        "route": "cuda",
+        "source": "spnerf_torch/csrc/siren_act.cu",
+        "replaces": "none: the JAX package leaves the Siren epilogue to "
+                    "XLA's fusion",
+        "launches": launches,
+        "plain_calls": plain,
+        "mismatches": mismatches,
+        "ms": step["_ms"] / n,
+        "plain_ms": step["_plain_ms"] / n,
+        "bound_ms": step["_bound_ms"] / n,
+        "bound_by": "bytes",
+        "per_launch": "mean over the step's launches, both ways, at their "
+                      "own shapes",
+        "by_direction": {w: {k.removeprefix("_"): v for k, v in r.items()}
+                         for w, r in ways.items()},
+        "ms_per_step": step["_ms"],
+        "plain_ms_per_step": step["_plain_ms"],
+        "bound_ms_per_step": step["_bound_ms"],
+        "device_ms_per_step": (None if None in kernel_ms
+                               else sum(kernel_ms)),
+        "kernel_launches_per_step": {w: dev[w]["launches"] for w in dev},
+        "step_device_ms": dev["forward"]["device"],
+        "shapes": list(shapes.values()),
+        "card": card,
+    }
+
+
 def bench_pass():
-    """Phase 18: `python3 bench_torch.py` as a user runs it, a subprocess
+    """Phase 18:`python3 bench_torch.py` as a user runs it, a subprocess
     from the repository root. It must exit 0 with a last line that parses,
     under BENCH_METRIC, a finite value > 0 and this card's name; returns
     that record with the phase's seconds."""
@@ -2879,7 +3032,8 @@ def main():
     # 2. build the path's kernel sources, one nvcc each, in parallel
     t0 = time.time()
     texts = _build.build_all(["field_eval", "field_eval_general",
-                              "field_eval_f32", "field_eval_wide", "dtab"])
+                              "field_eval_f32", "field_eval_wide", "dtab",
+                              "siren_act"])
     log(f"build: {time.time() - t0:.1f} s")
     for name, text in texts.items():
         # ptxas's notes that it fenced a wgmma's registers (C7519), counted
@@ -3737,9 +3891,10 @@ def main():
     torch.cuda.empty_cache()
 
     log(f"-- phase 8 at {time.time() - t_start:.1f} s")
-    # 8. the flagship Siren train step
+    # 8. the flagship Siren train step and S1, its epilogue kernel
     s_tr, s_data = train_setup("siren", device=device)
     s_state = s_tr.init_state(torch.Generator().manual_seed(0))
+    siren_entry = siren_pass(s_tr, s_state, s_data, card)
     siren_rec = time_steps(s_tr, s_state, s_data, 3)
     log("siren train step: " + json.dumps(siren_rec))
     del s_tr, s_data, s_state
@@ -4221,7 +4376,7 @@ def main():
     print(json.dumps({"fp32": fp32_rec, "view_f32": view32_rec}), flush=True)
     print(json.dumps({
         "kernels": [field_entry, f32_entry, general_entry, wide_entry, dense,
-                    sorted_, partials, batched],
+                    sorted_, partials, batched, siren_entry],
         "train_steps": {"hash": hash_rec, "siren": siren_rec,
                         "hash_tlf": tlf_rec, "hash_sw_acc0": acc0_rec,
                         "hash_tlf_batched": bat_rec, "bench": bench_rec},

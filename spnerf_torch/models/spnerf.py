@@ -9,6 +9,9 @@ Numerics follow the flax module: matmul operands are rounded to the compute
 dtype and accumulated in float32, the bias is added in float32, and the layer
 output is carried in the compute dtype. Activations are evaluated in float32
 and rounded once to the compute dtype.
+A Siren layer's epilogue (the bias add, the roundings, w0 and fast_sin) is
+one autograd Function, `SineLayer`: on CUDA tensors one launch of
+`csrc/siren_act.cu` each way, with the bits of its plain version.
 
 Dense kernels keep the flax orientation `(fan_in, out)`, so `y = x @ kernel`;
 the weight bridge (`spnerf_torch.convert`) therefore copies them unchanged.
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops import siren_act
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,15 +77,18 @@ class TorchDense(nn.Module):
         uniform_(self.kernel, INIT_BOUNDS[kernel_init](fan_in), generator)
         uniform_(self.bias, INIT_BOUNDS["torch"](fan_in), generator)
 
-    def forward(self, x, x2=None):
-        """x2: optional second operand, `cat([x, x2], -1) @ kernel`."""
+    def product(self, x, x2=None):
+        """The float32 product before the bias; x2: optional second operand,
+        `cat([x, x2], -1) @ kernel`."""
         cd = self.compute_dtype
         if x2 is not None:
             x = torch.cat([x, x2.to(x.dtype)], dim=-1)
         # a bf16 @ bf16 matmul would round its result to bf16; the products
         # of bf16 values are exact in float32, so this is float32 accumulation
-        y = x.to(cd).float() @ self.kernel.to(cd).float()
-        return (y + self.bias).to(cd)
+        return x.to(cd).float() @ self.kernel.to(cd).float()
+
+    def forward(self, x, x2=None):
+        return (self.product(x, x2) + self.bias).to(self.compute_dtype)
 
 
 _SIN_C1 = 0.9999966
@@ -111,25 +118,63 @@ def _fast_sin_grad(x):
         5.0 * _SIN_C5 + r2 * (7.0 * _SIN_C7))))
 
 
-class _Siren(torch.autograd.Function):
-    """fast_sin in float32 on a compute-dtype input, rounded back to it.
-    Saves only the input for backward (autograd of the polynomial would
-    keep seven float32 intermediates per activation)."""
+def sine_layer_plain(y, bias, w0, compute_dtype):
+    """(s, z) of a Siren layer from its float32 product y: the plain
+    version, one PyTorch operation at a time. z = w0 * round(y + bias),
+    rounded to the compute dtype, is the input of fast_sin, which is
+    evaluated in float32 and rounded once: s = round(fast_sin(z))."""
+    z = (y + bias).to(compute_dtype)
+    if w0 != 1.0:
+        z = w0 * z
+    return fast_sin(z.float()).to(compute_dtype), z
+
+
+def sine_layer_grad_plain(gs, z, w0):
+    """The float32 gradient of the product y from the gradient gs of s and
+    z: the plain version of what autograd makes of `sine_layer_plain`, with
+    `_fast_sin_grad` for the polynomial (autograd of it would keep seven
+    float32 intermediates an activation)."""
+    g = (gs.float() * _fast_sin_grad(z.float())).to(z.dtype)
+    if w0 != 1.0:
+        g = g * w0
+    return g.float()
+
+
+class SineLayer(torch.autograd.Function):
+    """The epilogue of a Siren layer: s = round(fast_sin(w0 * round(y +
+    bias))) from the float32 product y (N, W) and the float32 bias (W,),
+    carried in the compute dtype. Saves only z, fast_sin's input. On CUDA
+    tensors each direction is one launch of `csrc/siren_act.cu` (the same
+    bits as the plain version); on CPU tensors the plain version runs.
+    `launches` and `plain_calls` count each, by direction, process-wide."""
+
+    launches = {"forward": 0, "backward": 0}
+    plain_calls = {"forward": 0, "backward": 0}
 
     @staticmethod
-    def forward(ctx, y):
-        ctx.save_for_backward(y)
-        return fast_sin(y.float()).to(y.dtype)
+    def forward(ctx, y, bias, w0, compute_dtype):
+        if y.is_cuda:
+            s, z = siren_act.forward(y, bias, w0, compute_dtype)
+            SineLayer.launches["forward"] += 1
+        else:
+            s, z = sine_layer_plain(y, bias, w0, compute_dtype)
+            SineLayer.plain_calls["forward"] += 1
+        ctx.save_for_backward(z)
+        ctx.w0, ctx.bias_shape = w0, bias.shape
+        return s
 
     @staticmethod
-    def backward(ctx, grad):
-        (y,) = ctx.saved_tensors
-        return (grad.float() * _fast_sin_grad(y.float())).to(y.dtype)
-
-
-def siren(x, w0=1.0):
-    y = w0 * x if w0 != 1.0 else x
-    return _Siren.apply(y)
+    def backward(ctx, gs):
+        (z,) = ctx.saved_tensors
+        if z.is_cuda:
+            gy = siren_act.backward(gs, z, ctx.w0)
+            SineLayer.launches["backward"] += 1
+        else:
+            gy = sine_layer_grad_plain(gs, z, ctx.w0)
+            SineLayer.plain_calls["backward"] += 1
+        # the bias add's gradient, as the autograd engine reduces it
+        gb = gy.sum_to_size(ctx.bias_shape) if ctx.needs_input_grad[1] else None
+        return gy, gb, None, None
 
 
 def softplus(x):
@@ -228,18 +273,24 @@ class SPNeRF(nn.Module):
         trunk, sigma and the sun head run over every row, the rgb, sky,
         beta and sem heads over the leading rows only."""
         cfg = self.cfg
-        act = siren if cfg.siren else F.relu
         if heads is None:
             heads = ("rgb", "sun", "sky", "beta", "sem")
         nv = xyz.shape[0] - solar_tail  # the view rows: every head
         view = (lambda v: v[:nv]) if solar_tail else (lambda v: v)
         L = self.layer
 
+        def act(name, x, x2=None, w0=1.0):
+            """A hidden layer: Siren (w0 on the first) or ReLU."""
+            if not cfg.siren:
+                return F.relu(L(name)(x, x2))
+            dense = L(name)
+            return SineLayer.apply(dense.product(x, x2), dense.bias, w0,
+                                   dense.compute_dtype)
+
         x_in = field_input(cfg, xyz, sem_labels, self.semantic_embedding)
-        h = L("trunk0")(x_in)
-        h = siren(h, 30.0) if cfg.siren else act(h)
+        h = act("trunk0", x_in, w0=30.0)
         for i in range(1, cfg.fc_layers):
-            h = act(L(f"trunk{i}")(h, x_in if i in cfg.skips else None))
+            h = act(f"trunk{i}", h, x_in if i in cfg.skips else None)
         shared = h
 
         out = {"sigma": softplus(L("sigma")(shared).float())
@@ -250,22 +301,22 @@ class SPNeRF(nn.Module):
         if {"rgb", "sun", "beta"} & set(heads):
             feats = L("feats")(shared)
         if "rgb" in heads:
-            r = act(L("rgb0")(view(feats)))
+            r = act("rgb0", view(feats))
             out["rgb"] = (torch.sigmoid(L("rgb1")(r).float()) * 1.002
                           - 0.001).to(r.dtype)
         if "sun" in heads:
-            s = act(L("sun0")(feats, sun_d))
-            s = act(L("sun1")(s))
-            s = act(L("sun2")(s))
+            s = act("sun0", feats, sun_d)
+            s = act("sun1", s)
+            s = act("sun2", s)
             out["sun_v"] = torch.sigmoid(L("sun3")(s))
         if "sky" in heads:
             k = F.relu(L("sky0")(view(sun_d)))
             out["sky"] = torch.sigmoid(L("sky1")(k))
         if cfg.beta and "beta" in heads:
-            b = act(L("beta0")(view(feats), view(t_emb)))
+            b = act("beta0", view(feats), view(t_emb))
             out["beta"] = softplus(L("beta1")(b).float()).to(b.dtype)
         if cfg.sem and "sem" in heads:
-            g = act(L("sem0")(view(shared)))
+            g = act("sem0", view(shared))
             out["sem_logits"] = L("sem1")(g)
         return out
 

@@ -18,6 +18,8 @@ splat (`index_add_` on the card) against the same splat on the CPU: empty
 cells equal, values within 1e-4 m (float atomics); `run_validation` on a
 small synthetic AOI renders through B1 and gives a finite MAE, and its test
 view through B1 agrees with the plain render (per-ray p99 within 2e-2).
+The Siren epilogue kernels (`csrc/siren_act.cu`) bit for bit against the
+plain composition, alone and in a flagship field's forward and backward.
 The training CLI's `main` on a small AOI validates through B1, and its
 checkpoint restores on the card bit for bit; with --occgrid too, the grid
 included. B1 on grid-placed samples and on a second multi-AOI frame's
@@ -39,6 +41,7 @@ from spnerf_torch.render import build_render_fn, chunk_size
 from spnerf_torch.utils.dtab_cases import (BATCHED_CASES, EDGE_CASES,
                                            batched_edge_case, edge_case)
 from spnerf_torch.utils.synth import fake_batch
+from test_torch_siren_act import UnfusedSineLayer, epilogue_inputs
 
 ATOL = 2e-2
 
@@ -1094,3 +1097,105 @@ def test_occgrid_cli_on_the_card(device, tmp_path):
     for i in saved:
         for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(saved[i][k], restored[i][k]), (i, k)
+
+
+def siren_inputs(n, width, dtype, device):
+    return [t.to(device) for t in epilogue_inputs(n, width, dtype)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("w0", [30.0, 1.0])
+@pytest.mark.parametrize("n,width", [(4097, 512), (3001, 1024), (4099, 256),
+                                     (1001, 6)])
+def test_siren_act_kernel_matches_plain(device, dtype, w0, n, width):
+    """Both kernels bit for bit against the plain composition on the card:
+    the flagship's and the 1024-wide field's widths and the 256-wide heads
+    (the 16-byte path), rows that leave a ragged last block and a ragged
+    grid-stride pass, and a width of 6 (the one-element path)."""
+    from spnerf_torch.models.spnerf import (sine_layer_grad_plain,
+                                            sine_layer_plain)
+    from spnerf_torch.ops import siren_act
+
+    y, bias, gs = siren_inputs(n, width, dtype, device)
+    s_plain, z_plain = sine_layer_plain(y, bias, w0, dtype)
+    gy_plain = sine_layer_grad_plain(gs, z_plain, w0)
+    s, z = siren_act.forward(y, bias, w0, dtype)
+    gy = siren_act.backward(gs, z, w0)
+    gy_strided = siren_act.backward(
+        torch.cat([gs, gs[:, :3]], dim=1)[:, :width], z, w0)
+    torch.cuda.synchronize()
+    assert s.dtype == z.dtype == dtype and gy.dtype == torch.float32
+    assert torch.equal(z, z_plain)
+    assert torch.equal(s, s_plain)
+    assert torch.equal(gy, gy_plain)
+    assert torch.equal(gy_strided, gy_plain)
+
+
+@pytest.mark.cuda
+def test_siren_act_refuses_what_it_does_not_take(device):
+    from spnerf_torch.ops import siren_act
+
+    y, bias, gs = siren_inputs(8, 16, torch.bfloat16, device)
+    with pytest.raises(ValueError):
+        siren_act.forward(y.cpu(), bias.cpu(), 1.0, torch.bfloat16)
+    with pytest.raises(ValueError):
+        siren_act.forward(y.half(), bias, 1.0, torch.bfloat16)
+    with pytest.raises(ValueError):
+        siren_act.forward(y, bias, 1.0, torch.float16)
+    with pytest.raises(ValueError):
+        siren_act.forward(y, bias[:8], 1.0, torch.bfloat16)
+    _, z = siren_act.forward(y, bias, 1.0, torch.bfloat16)
+    with pytest.raises(ValueError):
+        siren_act.backward(gs.float(), z, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_siren_act_field_step_matches_the_unfused_field(device, dtype,
+                                                        monkeypatch):
+    """A flagship-configuration field's forward and backward with a solar
+    tail, through the kernels and through the unfused composition: every
+    output and every parameter's gradient equal. One forward and one
+    backward launch per Siren activation (13 with every head, 11 pruned to
+    the sun head), none through the plain version."""
+    from spnerf_torch.models import spnerf
+    from spnerf_torch.models.spnerf import SineLayer
+    from spnerf_torch.utils.synth import flagship_configs
+
+    mc, _ = flagship_configs()
+    n_view, n_sc = 3000, 1001
+    xyz, sun, _, sems = field_inputs(n_view + n_sc, mc, device, seed=3)
+    model = load_model(mc, dtype, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    weights = [torch.randn(1, generator=torch.Generator().manual_seed(k))
+               .item() for k in range(8)]
+
+    def step(heads, tail):
+        model.zero_grad()
+        out = model(xyz, sun, None, sems, heads=heads, solar_tail=tail)
+        loss = sum(w * v.float().square().mean()
+                   for w, v in zip(weights, out.values()))
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        return out, grads
+
+    for heads, tail, acts in ((None, n_sc, 13), (("sun",), 0, 11)):
+        launches = dict(SineLayer.launches)
+        plain = dict(SineLayer.plain_calls)
+        out, grads = step(heads, tail)
+        torch.cuda.synchronize()
+        for way in ("forward", "backward"):
+            assert SineLayer.launches[way] - launches[way] == acts, way
+        assert SineLayer.plain_calls == plain
+        with monkeypatch.context() as m:
+            m.setattr(spnerf, "SineLayer", UnfusedSineLayer)
+            ref_out, ref_grads = step(heads, tail)
+        assert out.keys() == ref_out.keys()
+        for k in out:
+            assert torch.equal(out[k], ref_out[k]), k
+        assert grads.keys() == ref_grads.keys()
+        for k in grads:
+            assert torch.equal(grads[k], ref_grads[k]), k
