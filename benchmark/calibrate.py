@@ -30,15 +30,16 @@ def seeds(text):
 
 def control_train(cell, seed, device):
     """{variant: numbers} of the control and the half-batch fault."""
-    from benchmark import check, harness, reference, traffic
+    from benchmark import check, harness, traffic
 
-    cfg = cell.config
-    weights = traffic.make_weights(cfg["model"], seed, device)
-    scene = traffic.make_scene(cell.traffic, cfg["model"], seed, device)
+    cfg, family = cell.config, cell.family
+    weights = family.make_weights(cfg["model"], seed, device)
+    classes = family.label_classes(cfg["model"])
+    scene = traffic.make_scene(cell.traffic, classes, seed, device)
     dtype = cfg["render"]["compute_dtype"]
     ref = harness.train_reference(cell, weights, scene, seed, dtype)
     out = {}
-    for name, kw in (("control", dict(precision=reference.LOWER[dtype])),
+    for name, kw in (("control", dict(precision=family.LOWER[dtype])),
                      ("half_batch", dict(precision=dtype, half_batch=True))):
         got = harness.train_reference(cell, weights, scene, seed, **kw)
         out[name] = check.train_numbers(got, ref, weights)
@@ -47,18 +48,19 @@ def control_train(cell, seed, device):
 
 def control_render(cell, seed, device):
     """{"control": numbers} on the sample a one-view run checks."""
-    from benchmark import check, harness, reference, traffic
+    from benchmark import check, harness, traffic
 
-    cfg, mix = cell.config, cell.traffic
-    weights = traffic.make_weights(cfg["model"], seed, device)
-    views = traffic.make_views(mix, cfg["model"], seed, device)
+    cfg, mix, family = cell.config, cell.traffic, cell.family
+    weights = family.make_weights(cfg["model"], seed, device)
+    views = traffic.make_views(mix, family.label_classes(cfg["model"]), seed,
+                               device)
     placeholder = [{"rgb": views[0][0][:, :1].cpu()}]
     _, rays, sems = harness.render_sample(placeholder, views, seed,
                                           int(mix["check_rays"]))
     dtype = cfg["render"]["compute_dtype"]
-    ref = reference.eval_rows(cfg, weights, rays, sems, dtype)
-    low = reference.eval_rows(cfg, weights, rays, sems,
-                              reference.LOWER[dtype])
+    ref = family.reference_eval_rows(cfg, weights, rays, sems, dtype)
+    low = family.reference_eval_rows(cfg, weights, rays, sems,
+                                     family.LOWER[dtype])
     return {"control": check.render_numbers(low, ref)}
 
 

@@ -1,14 +1,18 @@
 """One run of one cell: set-up, the measured window, the trace when asked
 for, the check against the reference, and the result line's fields.
 
-Two kinds of traffic (a mix's "kind"), each a loop over the port:
+Everything that depends on the model goes through the cell's family
+(`benchmark/families/<family>.py`): its weights, its program over the port,
+its reference and its operation counts. Two kinds of traffic (a mix's
+"kind"), each a loop over the port:
 
 - "train": set-up makes the weights and the device-resident scene from the
-  seed, builds the port's Trainer over them and takes its first
-  `check_steps` steps through the window's own call (the port draws each
-  step's batch from its generator of (seed, step)); the window then takes
-  steps of the same object back to back, from a synchronised start to a
-  synchronised end. The rate is every ray trained over the whole window.
+  seed, builds the family's training program over them (for the Siren
+  family, the port's Trainer) and takes its first `check_steps` steps
+  through the window's own call (the port draws each step's batch from its
+  generator of (seed, step)); the window then takes steps of the same
+  object back to back, from a synchronised start to a synchronised end.
+  The rate is every ray trained over the whole window.
 - "render": set-up makes the weights and a pool of views from the seed and
   renders one view (the warm-up); the window renders the pool in turn, each
   view ending when its per-ray outputs are read to the host. The window
@@ -22,11 +26,12 @@ import subprocess
 import time
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
+from types import ModuleType
 from typing import Optional
 
 import torch
 
-from . import check, devtrace, program, reference, spec, traffic
+from . import check, devtrace, spec, traffic
 
 
 @dataclass
@@ -42,6 +47,7 @@ class Context:
     trace: Optional[devtrace.Trace] = None
     field_points: Optional[dict] = None  # heads -> points through the kernel
     unit_s: Optional[list] = None  # each view's seconds (each ends synced)
+    family: Optional[ModuleType] = None  # the model family: its counts
 
 
 def sync(device):
@@ -127,11 +133,12 @@ def train_setup(cell, seed, device, phases):
     """The port's training object after its first check_steps steps, with
     what the check keeps of them: (program, weights, scene, (losses, first
     gradients, parameters after the steps))."""
-    cfg, mix = cell.config, cell.traffic
-    weights = traffic.make_weights(cfg["model"], seed, device)
-    scene = traffic.make_scene(mix, cfg["model"], seed, device)
+    cfg, mix, family = cell.config, cell.traffic, cell.family
+    weights = family.make_weights(cfg["model"], seed, device)
+    scene = traffic.make_scene(mix, family.label_classes(cfg["model"]), seed,
+                               device)
     phases.mark("inputs")
-    prog = program.TrainProgram(cfg, weights, scene, device)
+    prog = family.TrainProgram(cfg, weights, scene, device)
     phases.mark("program")
     losses, grads = [], None
     for k in range(int(mix["check_steps"])):
@@ -145,9 +152,9 @@ def train_setup(cell, seed, device, phases):
 
 def train_reference(cell, weights, scene, seed, precision, half_batch=False):
     mix = cell.traffic
-    return reference.train(cell.config, weights, scene, int(mix["batch_rays"]),
-                           seed, int(mix["check_steps"]), precision,
-                           half_batch=half_batch)
+    return cell.family.reference_train(
+        cell.config, weights, scene, int(mix["batch_rays"]), seed,
+        int(mix["check_steps"]), precision, half_batch=half_batch)
 
 
 def run_train(cell, seed, seconds, trace, device, phases, clock):
@@ -169,7 +176,7 @@ def run_train(cell, seed, seconds, trace, device, phases, clock):
                           cell.config["render"]["compute_dtype"])
     numbers = check.train_numbers(kept, ref, weights)
     ctx = Context("train", cell.config, cell.traffic, window_s, n, n * batch,
-                  tr)
+                  tr, family=cell.family)
     e2e = {cell.traffic["rate_metric"]: n * batch / window_s,
            "setup_s": setup_s}
     return result(cell, ctx, e2e, failed, dev, numbers, device, phases)
@@ -194,17 +201,21 @@ def render_sample(outs, views, seed, count):
 
 
 def run_render(cell, seed, seconds, trace, device, phases, clock):
-    cfg, mix = cell.config, cell.traffic
-    weights = traffic.make_weights(cfg["model"], seed, device)
-    views = traffic.make_views(mix, cfg["model"], seed, device)
+    cfg, mix, family = cell.config, cell.traffic, cell.family
+    weights = family.make_weights(cfg["model"], seed, device)
+    views = traffic.make_views(mix, family.label_classes(cfg["model"]), seed,
+                               device)
     phases.mark("inputs")
-    prog = program.RenderProgram(cfg, weights, device)
+    prog = family.RenderProgram(cfg, weights, device)
     phases.mark("program")
     prog.view(*views[0])
     phases.mark("view 0")
     setup_s = sum(t for _, t in phases.done)
-    outs, counts = [], {}
-    counting = program.count_field_points(counts) if trace else nullcontext()
+    outs = []
+    # the field kernel's points, where the family counts them
+    count_points = getattr(family, "count_points", None) if trace else None
+    counts = {} if count_points else None
+    counting = count_points(counts) if count_points else nullcontext()
     with counting, traced(trace) as prof:
         n, window_s, ends = window(
             lambda i: outs.append(prog.view(*views[i % len(views)])),
@@ -216,13 +227,12 @@ def run_render(cell, seed, seconds, trace, device, phases, clock):
     del prog
     free(device)
     got, rays, sems = render_sample(outs, views, seed, int(mix["check_rays"]))
-    ref = reference.eval_rows(cfg, weights, rays, sems,
-                              cfg["render"]["compute_dtype"])
+    ref = family.reference_eval_rows(cfg, weights, rays, sems,
+                                     cfg["render"]["compute_dtype"])
     numbers = check.render_numbers(got, {k: v.cpu() for k, v in ref.items()})
     n_rays = traffic.view_rays(mix)
-    ctx = Context("render", cfg, mix, window_s, n, n * n_rays, tr,
-                  counts if trace else None,
-                  [b - a for a, b in zip([0.0] + ends, ends)])
+    ctx = Context("render", cfg, mix, window_s, n, n * n_rays, tr, counts,
+                  [b - a for a, b in zip([0.0] + ends, ends)], family)
     e2e = {mix["rate_metric"]: n * n_rays / window_s, "setup_s": setup_s}
     return result(cell, ctx, e2e, failed, dev, numbers, device, phases)
 

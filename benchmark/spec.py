@@ -5,10 +5,14 @@
 - a cell's correctness limits: `benchmark/limits/<workload>.json`;
 - a per-layer metric's reader: `benchmark/metrics/<metric>.py`, a module
   with `read(ctx)` that returns the metric's value, or None where the run
-  holds nothing to read.
+  holds nothing to read;
+- a model family: `benchmark/families/<family>.py`, named by the
+  configuration's "family" ("siren" where it names none), the module that
+  makes the family's weights, drives its program, computes its reference
+  and counts its operations (see `families/siren.py`).
 
-A new configuration, traffic mix, cell or metric is a new file and a new
-entry in `BENCHMARK.json`; nothing here changes.
+A new configuration, model family, traffic mix, cell or metric is a new
+file and a new entry in `BENCHMARK.json`; nothing here changes.
 """
 
 import importlib.util
@@ -16,9 +20,11 @@ import json
 import re
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_FAMILY = "siren"
 
 
 @dataclass
@@ -32,6 +38,7 @@ class Cell:
     limits: dict  # number compared -> its limit
     end_to_end: list  # metric entries this cell reports with --trace 0
     per_layer: list  # metric entries this cell reports with --trace 1
+    family: ModuleType  # the configuration's model family (families/)
 
 
 def read_json(path):
@@ -65,16 +72,32 @@ def load_cell(name, bench_file=ROOT / "BENCHMARK.json", bench_dir=HERE):
         listed = reports(m, name)
         if listed or (listed is None and m["moves"] in e2e_names):
             per_layer.append(m)
-    return Cell(name, int(w["chips"]), config, traffic, limits, e2e, per_layer)
+    family = load_family(config.get("family", DEFAULT_FAMILY), bench_dir)
+    return Cell(name, int(w["chips"]), config, traffic, limits, e2e, per_layer,
+                family)
 
 
-def load_reader(metric_name, bench_dir=HERE):
-    """The `read(ctx)` function of a per-layer metric's own file."""
-    path = bench_dir / "metrics" / f"{metric_name}.py"
-    mod_name = "benchmark_metric_" + re.sub(r"\W", "_", metric_name)
+def load_module(path, prefix, name):
+    """The module of file `path`, loaded by file under a name of its own."""
+    mod_name = prefix + re.sub(r"\W", "_", name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     if spec is None:
         raise FileNotFoundError(path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(metric_name, bench_dir=HERE):
+    """The `read(ctx)` function of a per-layer metric's own file."""
+    return load_module(bench_dir / "metrics" / f"{metric_name}.py",
+                       "benchmark_metric_", metric_name).read
+
+
+def load_family(name, bench_dir=HERE):
+    """The module of model family `name`, from its own file."""
+    path = bench_dir / "families" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no model family {name!r}: {path} does not "
+                                f"exist")
+    return load_module(path, "benchmark_family_", name)

@@ -1,6 +1,7 @@
 """What the benchmark may import, and that it never falls back to the CPU."""
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -8,12 +9,17 @@ from pathlib import Path
 
 import pytest
 
+from benchmark import spec
+
 ROOT = Path(__file__).resolve().parents[2]
 SOURCES = sorted(p for p in (ROOT / "benchmark").rglob("*.py")
                  if "tests" not in p.parts)
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "spnerf_tpu"}
-# the only module that drives the program under test
+# the modules that may drive the program under test: the Siren family's
+# program and the model families (whose references live in modules that
+# import nothing of the port, checked below)
 PROGRAM = ROOT / "benchmark" / "program.py"
+FAMILIES = sorted((ROOT / "benchmark" / "families").glob("*.py"))
 
 
 def top_level_imports(path):
@@ -35,8 +41,18 @@ def test_no_jax(path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_only_the_program_adapter_imports_the_port(path):
-    if path != PROGRAM:
+    if path != PROGRAM and path not in FAMILIES:
         assert "spnerf_torch" not in top_level_imports(path)
+
+
+@pytest.mark.parametrize("path", FAMILIES, ids=lambda p: p.stem)
+def test_family_reference_imports_nothing_of_the_port(path):
+    """A family's reference is defined in a module that imports neither the
+    port nor JAX."""
+    family = spec.load_family(path.stem)
+    for fn in (family.reference_train, family.reference_eval_rows):
+        source = Path(inspect.getsourcefile(fn))
+        assert not top_level_imports(source) & (FORBIDDEN | {"spnerf_torch"})
 
 
 def test_top_level_names_compared_whole():

@@ -10,8 +10,7 @@ import copy
 import pytest
 import torch
 
-from benchmark import (calibrate, check, harness, program, reference, spec,
-                       traffic)
+from benchmark import calibrate, check, harness, reference, spec, traffic
 
 SEED = 2 ** 33 + 12345  # more than 32 signed bits hold
 
@@ -73,7 +72,7 @@ def test_render_rate_counts_whole_views_and_real_rays(monkeypatch):
                                       "bfloat16")
             return {k: v[:48] for k, v in out.items()}
 
-    monkeypatch.setattr(program, "RenderProgram", Padded)
+    monkeypatch.setattr(cell.family, "RenderProgram", Padded)
     out = harness.run_cell(cell, SEED, 10.0, 0, "cpu", clock=clock)
     assert out["attempted"] == 8 and out["correct"]
     rate = out["metrics"]["render_rays_per_s"]["value"]

@@ -1,6 +1,6 @@
-"""The general generator: weights, a training scene and eval views, all from
-the run's seed on the device, from a configuration and a traffic mix's
-parameters.
+"""The general generator: a training scene and eval views from a traffic
+mix's parameters, and the Siren family's weights from its configuration,
+all from the run's seed on the device.
 
 Every draw comes from a `torch.Generator` on the run's device seeded from
 (seed, purpose), in a few large calls, so the same seed gives the same
@@ -79,14 +79,15 @@ def make_rays(n, mix, g, device):
     return torch.cat([o, d, near, far, sun], dim=-1)
 
 
-def make_scene(mix, model, seed, device):
+def make_scene(mix, classes, seed, device):
     """A training scene of mix["scene_rays"] rows: rays, colours, image ids,
-    stereo depth [depth, weight], its validity and std, semantic labels."""
+    stereo depth [depth, weight], its validity and std, semantic labels in
+    [0, classes)."""
     g = generator(seed, SCENE, device)
     n = int(mix["scene_rays"])
     rays = make_rays(n, mix, g, device)
     u = torch.rand((n, 6), generator=g, device=device)
-    sems = torch.randint(0, model["num_sem_classes"], (n,), generator=g,
+    sems = torch.randint(0, classes, (n,), generator=g,
                          device=device, dtype=torch.int32)
     return {
         "rays": rays,
@@ -105,11 +106,11 @@ def view_rays(mix):
     return int(mix["view_w"]) * int(mix["view_h"])
 
 
-def make_views(mix, model, seed, device):
-    """mix["views"] views, each (rays (n, 11), labels (n,) int64)."""
+def make_views(mix, classes, seed, device):
+    """mix["views"] views, each (rays (n, 11), labels (n,) int64 in
+    [0, classes))."""
     g = generator(seed, VIEWS, device)
     n = view_rays(mix)
     return [(make_rays(n, mix, g, device),
-             torch.randint(0, model["num_sem_classes"], (n,), generator=g,
-                           device=device))
+             torch.randint(0, classes, (n,), generator=g, device=device))
             for _ in range(int(mix["views"]))]
