@@ -38,6 +38,7 @@ checkpoints load, and nothing else; every impl computes the same function.
   backward is one batched table gradient (B4) for all levels.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -48,6 +49,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.dtab import dtab, dtab_levels, window_eligible
 from ..ops.occgrid import frame_decompose
+from ..spans import span
 from ..switches import HASH_SWITCHES, refuse
 from .spnerf import TorchDense, as_dtype, embed_lookup, softplus, uniform_
 
@@ -69,27 +71,6 @@ def level_resolutions(n_levels, base_resolution=16, max_resolution=2048):
     return np.floor(base_resolution * b ** np.arange(n_levels)).astype(np.int64)
 
 
-def _hash_corners(base, table_size, frame=None):
-    """(N, 3) int64 cell base -> (N, 8) int64 hashed corner ids; frame:
-    optional (N,) int64 frame index, XORed into the hash times
-    _FRAME_PRIME.
-
-    The uint32 hash in int64: every product and sum is masked to 32 bits, so
-    the ids equal the uint32 arithmetic exactly. Per axis,
-    (x + i) * p = x * p + i * p modulo 2^32, so six (N,) columns suffice."""
-    hx = [(base[:, a] * _PRIMES[a]) & _MASK32 for a in range(3)]
-    cols = []
-    for i, j, k in _CORNERS.tolist():
-        h = ((hx[0] + ((i * _PRIMES[0]) & _MASK32)) & _MASK32) \
-            ^ ((hx[1] + ((j * _PRIMES[1]) & _MASK32)) & _MASK32) \
-            ^ ((hx[2] + ((k * _PRIMES[2]) & _MASK32)) & _MASK32)
-        cols.append(h)
-    h = torch.stack(cols, dim=-1)
-    if frame is not None:
-        h = h ^ ((frame * _FRAME_PRIME) & _MASK32)[:, None]
-    return h % table_size
-
-
 def direct_table_size(res, table_size, direct_coarse=True, frames=1):
     """t_eff of a directly indexed level (a power of two holding the
     (res + 1)^3 corners of each of `frames` frames), or None when the level
@@ -100,33 +81,110 @@ def direct_table_size(res, table_size, direct_coarse=True, frames=1):
     return None
 
 
-def level_ids(x01, res, table_size, direct_coarse=True, frame=None,
-              frames=1):
-    """Corner ids, in-cell fractions and effective table size of one level.
+class _Levels:
+    """The per-level constants of `levels_ids` on one device, made once
+    (`_levels` keeps them): a copy from host memory at every call would wait for
+    the device's queue to drain and could not be captured in a CUDA graph.
+
+    The directly indexed levels are the first `n_direct` (a level's grid
+    only grows finer with its index); `res` and `res_max` are (L, 1, 1)
+    float32, `side` and `side3` (n_direct, 1) int64, and `offs` the direct
+    levels' corner offsets (i side + j) side + k, (n_direct, 1, 8) int64."""
+
+    def __init__(self, resolutions, table_size, direct_coarse, frames,
+                 device):
+        res = np.asarray(resolutions, dtype=np.int64)
+        sizes = [direct_table_size(r, table_size, direct_coarse, frames)
+                 for r in res]
+        self.n_direct = sum(t is not None for t in sizes)
+        self.t_eff = tuple(t or table_size for t in sizes)
+        side = res[:self.n_direct, None] + 1
+        c = _CORNERS.T[:, None, None, :]  # (3, 1, 1, 8)
+        on = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype,
+                                                   device=device)
+        self.res = on(res[:, None, None], torch.float32)
+        self.res_max = on(res[:, None, None] - 1, torch.float32)
+        self.side, self.side3 = on(side), on(side ** 3)
+        self.offs = on((c[0] * side[..., None] + c[1]) * side[..., None]
+                       + c[2])
+
+
+_levels = functools.lru_cache(maxsize=64)(_Levels)
+
+
+@functools.lru_cache(maxsize=8)
+def _hash_offsets(device):
+    """(3, 2) int64: (o p_a) mod 2^32 of each axis a's corner offset o, on
+    the device once (as `_Levels`)."""
+    return torch.as_tensor([[0, p & _MASK32] for p in _PRIMES],
+                           dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _corner_floats(device):
+    """(8, 3) float32 corners (i, j, k) of a unit cell, on the device once
+    (as `_Levels`)."""
+    return torch.as_tensor(_CORNERS, dtype=torch.float32, device=device)
+
+
+def _hash_corners(base, table_size, frame=None):
+    """(..., N, 3) int64 cell base -> (..., N, 8) int64 hashed corner ids;
+    frame: optional (N,) int64 frame index, XORed into the hash times
+    _FRAME_PRIME.
+
+    The uint32 hash in int64: every product and sum is masked to 32 bits, so
+    the ids equal the uint32 arithmetic exactly. Per axis,
+    (x + i) * p = x * p + i * p modulo 2^32, so six columns suffice: an
+    (..., N, 2) pair an axis, whose XORs by broadcasting give the 8
+    corners in a few launches."""
+    offs = _hash_offsets(base.device)
+    pairs = [(((base[..., a] * _PRIMES[a]) & _MASK32)[..., None] + offs[a])
+             & _MASK32 for a in range(3)]  # (..., N, 2) each
+    h = (pairs[0][..., :, None, None] ^ pairs[1][..., None, :, None]
+         ^ pairs[2][..., None, None, :]).flatten(-3)  # corners k minor
+    if frame is not None:
+        h = h ^ ((frame * _FRAME_PRIME) & _MASK32)[:, None]
+    return h % table_size
+
+
+def levels_ids(x01, resolutions, table_size, direct_coarse=True, frame=None,
+               frames=1):
+    """Corner ids, in-cell fractions and effective table sizes of several
+    levels at once, in a few launches for all of them.
 
     x01: (N, 3) float32 in [0, 1]; frame: (N,) int64 frame indices when
     frames > 1, else None. The cell is clamped to res - 1, so a point on a
     +1 face (x01 == 1.0, as solar-pass points leaving the box are clipped
     to) interpolates onto the face corners with frac == 1.0 instead of
     addressing corner res + 1.
-    Returns idx (N, 8) int64, frac (N, 3) float32, t_eff."""
-    res = int(res)
-    xs = x01 * res
-    x0 = torch.clamp_max(torch.floor(xs), float(res - 1))
+    Returns ids, a list of (N, 8) int64 a level, frac (L, N, 3) float32 and
+    the tuple of t_eff."""
+    k = _levels(tuple(int(r) for r in resolutions), table_size,
+                direct_coarse, frames if frame is not None else 1,
+                x01.device)
+    xs = x01 * k.res  # (L, N, 3)
+    x0 = torch.minimum(torch.floor(xs), k.res_max)
     frac = xs - x0
     base = x0.long()
-    t_eff = direct_table_size(res, table_size, direct_coarse,
-                              frames if frame is not None else 1)
-    if t_eff is not None:
-        side = res + 1
-        base_lin = (base[:, 0] * side + base[:, 1]) * side + base[:, 2]
+    ids = []
+    if k.n_direct:
+        b = base[:k.n_direct]
+        lin = (b[..., 0] * k.side + b[..., 1]) * k.side + b[..., 2]
         if frame is not None:
-            base_lin = base_lin + frame * side ** 3
-        offs = torch.as_tensor(
-            (_CORNERS[:, 0] * side + _CORNERS[:, 1]) * side + _CORNERS[:, 2],
-            device=x01.device)
-        return base_lin[:, None] + offs[None], frac, t_eff
-    return _hash_corners(base, table_size, frame), frac, table_size
+            lin = lin + frame * k.side3
+        ids += list(lin[..., None] + k.offs)
+    if k.n_direct < len(k.t_eff):
+        ids += list(_hash_corners(base[k.n_direct:], table_size, frame))
+    return ids, frac, k.t_eff
+
+
+def level_ids(x01, res, table_size, direct_coarse=True, frame=None,
+              frames=1):
+    """`levels_ids` of one level of `res` cells an axis: idx (N, 8) int64,
+    frac (N, 3) float32, t_eff."""
+    ids, frac, t_eff = levels_ids(x01, (res,), table_size, direct_coarse,
+                                  frame, frames)
+    return ids[0], frac[0], t_eff[0]
 
 
 class HashTake(torch.autograd.Function):
@@ -194,20 +252,20 @@ class HashTakeBatched(torch.autograd.Function):
 
 
 def interp_lerp(vals, frac):
-    """(F, N, 8) corner values, (N, 3) fractions -> (N, F): seven lerps,
-    k then j then i (the corners are ordered (i, j, k) with k minor)."""
-    v = vals
+    """(..., F, N, 8) corner values, (..., N, 3) fractions -> (..., N, F):
+    seven lerps, k then j then i (the corners are ordered (i, j, k) with k
+    minor), over any leading (level) dimensions at once."""
+    v, rest = vals, 1.0 - frac
     for d in (2, 1, 0):
-        fd = frac[:, d][None, :, None]
-        v = v[..., 0::2] * (1.0 - fd) + v[..., 1::2] * fd
-    return v[..., 0].t()
+        fd = frac[..., None, :, d, None]
+        v = v[..., 0::2] * rest[..., None, :, d, None] + v[..., 1::2] * fd
+    return v[..., 0].transpose(-1, -2)
 
 
 def interp_weights(vals, frac):
     """(N, 8, F) corner values, (N, 3) fractions -> (N, F): the trilinear
     weight product w (N, 8), then sum_c w[n, c] * vals[n, c, f]."""
-    corners = torch.as_tensor(_CORNERS, dtype=torch.float32,
-                              device=frac.device)
+    corners = _corner_floats(frac.device)
     w = torch.ones(frac.shape[0], 8, dtype=torch.float32, device=frac.device)
     for d in range(3):
         cd = corners[:, d][None]  # (1, 8)
@@ -247,7 +305,13 @@ class HashGridEncoding(nn.Module):
     `flat_table` and `impl` choose the table's layout (`flat_storage`).
     `dtab_impl`: None takes the table gradient through the kernels on CUDA
     (the plain version on the CPU); "plain" takes the plain version on any
-    device, for a reference run."""
+    device, for a reference run.
+
+    Each forward's lookup and interpolation is the span "hash.encode"
+    (`spans.span`: recorded only while a profiler records), and
+    `HashGridEncoding.points` counts the points encoded, process-wide."""
+
+    points = 0
 
     def __init__(self, n_levels=16, n_features=2, log2_table_size=19,
                  base_resolution=16, max_resolution=2048, direct_coarse=True,
@@ -276,22 +340,27 @@ class HashGridEncoding(nn.Module):
 
     def forward(self, xyz):
         refuse(HASH_SWITCHES)  # the JAX package's switches that change it
+        HashGridEncoding.points += xyz.shape[0]
+        with span("hash.encode"):
+            return self._encode(xyz.float())
+
+    def _encode(self, xyz):
         L, nf, T = self.n_levels, self.n_features, self.table_size
-        xyz = xyz.float()
         frame = None
         if self.frames > 1:
             frame, xyz = frame_decompose(xyz, self.frames)
         x01 = torch.clamp((xyz + 1.0) * 0.5, 0.0, 1.0)
-        levels = [level_ids(x01, self.resolutions[l], T, self.direct_coarse,
-                            frame, self.frames)
-                  for l in range(L)]
+        ids, frac, t_eff = levels_ids(x01, self.resolutions, T,
+                                      self.direct_coarse, frame, self.frames)
+        levels = list(zip(ids, frac, t_eff))
         if self.flat:
-            feats = []
-            for l, (idx, frac, t_eff) in enumerate(levels):
-                tab_ft = self.table[l].view(nf, T)[:, :t_eff]
-                vals = HashTake.apply(tab_ft, idx, self.dtab_impl)  # (F, N, 8)
-                feats.append(interp_lerp(vals, frac))
-            return torch.cat(feats, dim=-1)
+            vals = torch.stack([
+                HashTake.apply(self.table[l].view(nf, T)[:, :t], idx,
+                               self.dtab_impl)
+                for l, (idx, _, t) in enumerate(levels)])  # (L, F, N, 8)
+            # (L, N, F) -> (N, L F): the levels' features side by side
+            return interp_lerp(vals, frac).transpose(0, 1).reshape(
+                x01.shape[0], L * nf)
         if use_batched(self.impl, False, x01.device, T, nf, x01.shape[0]):
             vals_all = HashTakeBatched.apply(
                 self.table, torch.stack([idx for idx, _, _ in levels]),

@@ -30,7 +30,8 @@ time is measured from the trace, not from spans.
 The spans, each read by a per-layer metric of the benchmark:
 `train.forward`, `train.backward`, `train.optimizer` (`Trainer`),
 `render.chunk` (`render_image`), `render.solar` (`render_rays`'s solar
-passes), `field.inputs` (`FusedField.inputs`).
+passes), `field.inputs` (`FusedField.inputs`), `hash.encode`
+(`HashGridEncoding.forward`).
 """
 
 import threading
